@@ -1,0 +1,81 @@
+"""Single-pass LBVH build (the port of `tpu_bvh.models.lbvh`'s Apetrei path).
+
+Front half (column AABBs, scene extents, extended Morton codes, the
+(code, prim_idx) sort) is plain PyTorch on either device; the topology
+scan and the dense refit run hand-written kernels on CUDA tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops import morton, radix_tree
+from ..types import Bvh2
+
+I32 = torch.int32
+
+
+def _sorted_leaves_cols(mnx, mny, mnz, mxx, mxy, mxz, prim_idx, use_extended):
+    """Returns (sorted_codes int64 [n] of u32 values, leaf_packed_t f32[6, n]
+    with rows (min xyz, -max xyz) in sorted order, leaf_prim i32[n])."""
+    scene_min = torch.stack([mnx.amin(), mny.amin(), mnz.amin()])
+    scene_max = torch.stack([mxx.amax(), mxy.amax(), mxz.amax()])
+    ext = scene_max - scene_min
+    safe = torch.where(ext > 0, ext, 1.0)
+    nx = ((mnx + mxx) * 0.5 - scene_min[0]) / safe[0]
+    ny = ((mny + mxy) * 0.5 - scene_min[1]) / safe[1]
+    nz = ((mnz + mxz) * 0.5 - scene_min[2]) / safe[2]
+    if use_extended:
+        codes = morton.extended_morton30_cols(nx, ny, nz, ext)
+    else:
+        codes = morton.morton30_cols(nx, ny, nz)
+    # (code, prim_idx) is unique, so one sort on the packed key gives the
+    # canonical order; the code is biased by -2^31 so the int64 key keeps
+    # the unsigned order of the u32 code
+    key = (codes - (1 << 31)) * (1 << 32) + prim_idx.to(torch.int64)
+    skey, pos = torch.sort(key)
+    sorted_codes = (skey >> 32) + (1 << 31)
+    rows = torch.stack([mnx, mny, mnz, -mxx, -mxy, -mxz])
+    leaf_packed_t = rows[:, pos]
+    leaf_prim = prim_idx[pos]
+    return sorted_codes, leaf_packed_t, leaf_prim
+
+
+def _sorted_leaves_from_tris(tris, use_extended: bool):
+    """Triangle-soup front end in column form; the contract of
+    `_sorted_leaves_cols`."""
+    n = tris.shape[0]
+    t9 = tris.reshape(n, 9).T  # [9, n]: v0x v0y v0z v1x ... v2z
+    mnx = torch.minimum(torch.minimum(t9[0], t9[3]), t9[6])
+    mny = torch.minimum(torch.minimum(t9[1], t9[4]), t9[7])
+    mnz = torch.minimum(torch.minimum(t9[2], t9[5]), t9[8])
+    mxx = torch.maximum(torch.maximum(t9[0], t9[3]), t9[6])
+    mxy = torch.maximum(torch.maximum(t9[1], t9[4]), t9[7])
+    mxz = torch.maximum(torch.maximum(t9[2], t9[5]), t9[8])
+    idx = torch.arange(n, dtype=I32, device=tris.device)
+    return _sorted_leaves_cols(mnx, mny, mnz, mxx, mxy, mxz, idx, use_extended)
+
+
+def _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root):
+    """Internal rows then leaf rows; a leaf's `left` is its primitive."""
+    n = leaf_prim.shape[0]
+    node_packed = torch.cat([int_packed_t, leaf_packed_t], dim=1)
+    left = left.clone()
+    left[n - 1:] = leaf_prim
+    return Bvh2(packed_t=node_packed, left=left, right=right, root=root)
+
+
+def build_single_pass(tris, use_extended: bool = True) -> Bvh2:
+    """Single-pass (Apetrei-layout) LBVH: internal node i sits at Morton
+    boundary i; the root index is data-dependent. tris: f32[N, 3, 3]."""
+    return build_single_pass_aux(tris, use_extended)[0]
+
+
+def build_single_pass_aux(tris, use_extended: bool = True):
+    """`build_single_pass` plus parent i32[2n-1] and the per-node leaf
+    ranges first/last i32[n-1]."""
+    codes, leaf_packed_t, leaf_prim = _sorted_leaves_from_tris(tris, use_extended)
+    left, right, parent, int_packed_t, root, first, last = (
+        radix_tree.apetrei_build_packed_full(codes, leaf_packed_t)
+    )
+    bvh = _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root)
+    return bvh, parent, first, last

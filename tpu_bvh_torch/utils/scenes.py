@@ -1,0 +1,181 @@
+"""Scene fixtures: cornellbox, the procedural benchmark scenes, and the
+camera/transform presets. Same generators and seeds as `tpu_bvh.utils.scenes`,
+so both packages build the same triangles."""
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+import torch
+
+from ..types import Camera, Transformation
+from .obj import load_obj
+
+
+def cornellbox() -> np.ndarray:
+    """The 32-triangle cornellbox: the OBJ named by `TPU_BVH_CORNELLBOX`
+    when that file exists, else a procedural box of the same layout."""
+    path = os.environ.get("TPU_BVH_CORNELLBOX")
+    if path and os.path.exists(path):
+        return load_obj(path)
+    return _procedural_cornellbox()
+
+
+def _procedural_cornellbox() -> np.ndarray:
+    """5-wall box + light + two blocks ([-3, 2.5] x [0, 5.3] x [-5.8, 0])."""
+    quads = []
+
+    def quad(a, b, c, d):
+        quads.append((a, b, c))
+        quads.append((a, c, d))
+
+    lo = np.array([-3.0, -0.16, -5.84])
+    hi = np.array([2.55, 5.33, -0.25])
+    # floor, ceiling, back wall, left, right
+    quad((lo[0], lo[1], lo[2]), (hi[0], lo[1], lo[2]), (hi[0], lo[1], hi[2]), (lo[0], lo[1], hi[2]))
+    quad((lo[0], hi[1], lo[2]), (lo[0], hi[1], hi[2]), (hi[0], hi[1], hi[2]), (hi[0], hi[1], lo[2]))
+    quad((lo[0], lo[1], lo[2]), (lo[0], hi[1], lo[2]), (hi[0], hi[1], lo[2]), (hi[0], lo[1], lo[2]))
+    quad((lo[0], lo[1], lo[2]), (lo[0], lo[1], hi[2]), (lo[0], hi[1], hi[2]), (lo[0], hi[1], lo[2]))
+    quad((hi[0], lo[1], lo[2]), (hi[0], hi[1], lo[2]), (hi[0], hi[1], hi[2]), (hi[0], lo[1], hi[2]))
+
+    def box(cmin, cmax):
+        x0, y0, z0 = cmin
+        x1, y1, z1 = cmax
+        quad((x0, y0, z0), (x1, y0, z0), (x1, y1, z0), (x0, y1, z0))
+        quad((x0, y0, z1), (x0, y1, z1), (x1, y1, z1), (x1, y0, z1))
+        quad((x0, y0, z0), (x0, y1, z0), (x0, y1, z1), (x0, y0, z1))
+        quad((x1, y0, z0), (x1, y0, z1), (x1, y1, z1), (x1, y1, z0))
+        quad((x0, y1, z0), (x1, y1, z0), (x1, y1, z1), (x0, y1, z1))
+        quad((x0, y0, z0), (x0, y0, z1), (x1, y0, z1), (x1, y0, z0))
+
+    box((-1.9, -0.16, -4.4), (-0.4, 3.1, -2.9))
+    box((0.5, -0.16, -3.4), (1.9, 1.5, -2.0))
+    quad((-0.88, 5.32, -3.57), (0.42, 5.32, -3.57), (0.42, 5.32, -2.52), (-0.88, 5.32, -2.52))
+    return np.asarray(quads, dtype=np.float32)
+
+
+def bunny_like(n_tris: int = 150_000, seed: int = 0) -> np.ndarray:
+    """Compact object at bunny scale: a UV sphere with smooth pseudo-random
+    radial displacement. Deterministic."""
+    lon = max(8, int(math.sqrt(n_tris / 2.0)))
+    lat = max(4, n_tris // (2 * lon))
+    phi = np.linspace(0.0, math.pi, lat + 1)
+    theta = np.linspace(0.0, 2 * math.pi, lon + 1)
+    pp, tt = np.meshgrid(phi, theta, indexing="ij")
+    rng = np.random.default_rng(seed)
+    r = np.ones_like(pp)
+    for _ in range(6):
+        fa, fb = rng.integers(1, 5, size=2)
+        pa, pb, amp = rng.uniform(0, 2 * math.pi), rng.uniform(0, 2 * math.pi), rng.uniform(0.02, 0.12)
+        r = r + amp * np.sin(fa * pp + pa) * np.cos(fb * tt + pb)
+    x = r * np.sin(pp) * np.cos(tt)
+    y = r * np.cos(pp)
+    z = r * np.sin(pp) * np.sin(tt)
+    grid = np.stack([x, y, z], axis=-1).astype(np.float32)  # [lat+1, lon+1, 3]
+    a = grid[:-1, :-1]
+    b = grid[:-1, 1:]
+    c = grid[1:, 1:]
+    d = grid[1:, :-1]
+    t1 = np.stack([a, b, c], axis=-2).reshape(-1, 3, 3)
+    t2 = np.stack([a, c, d], axis=-2).reshape(-1, 3, 3)
+    return np.concatenate([t1, t2], axis=0)
+
+
+def sponza_like(n_tris: int = 262_000, seed: int = 1) -> np.ndarray:
+    """Architectural interior at sponza scale: a colonnade hall (floor,
+    walls, rows of faceted columns) and a field of small clutter boxes.
+    Deterministic."""
+    rng = np.random.default_rng(seed)
+    tris: list[np.ndarray] = []
+
+    def add_quad(a, b, c, d):
+        a, b, c, d = (np.asarray(p, np.float32) for p in (a, b, c, d))
+        tris.append(np.stack([a, b, c]))
+        tris.append(np.stack([a, c, d]))
+
+    def add_box(cmin, cmax):
+        x0, y0, z0 = cmin
+        x1, y1, z1 = cmax
+        add_quad((x0, y0, z0), (x1, y0, z0), (x1, y1, z0), (x0, y1, z0))
+        add_quad((x0, y0, z1), (x0, y1, z1), (x1, y1, z1), (x1, y0, z1))
+        add_quad((x0, y0, z0), (x0, y1, z0), (x0, y1, z1), (x0, y0, z1))
+        add_quad((x1, y0, z0), (x1, y0, z1), (x1, y1, z1), (x1, y1, z0))
+        add_quad((x0, y1, z0), (x1, y1, z0), (x1, y1, z1), (x0, y1, z1))
+        add_quad((x0, y0, z0), (x0, y0, z1), (x1, y0, z1), (x1, y0, z0))
+
+    # hall shell: 40 x 15 x 20
+    add_box((-20, -0.2, -10), (20, 0, 10))  # floor slab
+    add_box((-20, 15, -10), (20, 15.2, 10))  # ceiling
+    add_box((-20.2, 0, -10), (-20, 15, 10))
+    add_box((20, 0, -10), (20.2, 15, 10))
+    add_box((-20, 0, -10.2), (20, 15, -10))
+    add_box((-20, 0, 10), (20, 15, 10.2))
+
+    n_seg = 16
+
+    def add_column(cx, cz, radius, height):
+        ang = np.linspace(0, 2 * math.pi, n_seg + 1)
+        xs = cx + radius * np.cos(ang)
+        zs = cz + radius * np.sin(ang)
+        for i in range(n_seg):
+            add_quad(
+                (xs[i], 0, zs[i]),
+                (xs[i + 1], 0, zs[i + 1]),
+                (xs[i + 1], height, zs[i + 1]),
+                (xs[i], height, zs[i]),
+            )
+        add_box((cx - radius * 1.3, height, cz - radius * 1.3), (cx + radius * 1.3, height + 0.6, cz + radius * 1.3))
+
+    for cx in np.linspace(-17, 17, 12):
+        add_column(cx, -6.0, 0.8, 9.0)
+        add_column(cx, 6.0, 0.8, 9.0)
+
+    base = np.stack(tris)
+    # clutter: small boxes (12 tris each) up to the target count
+    remaining = max(0, n_tris - base.shape[0])
+    n_boxes = remaining // 12
+    centers = rng.uniform([-19, 0, -9], [19, 2.5, 9], size=(n_boxes, 3))
+    sizes = rng.uniform(0.05, 0.5, size=(n_boxes, 3))
+    tris = []
+    for ctr, sz in zip(centers, sizes):
+        add_box(ctr - sz, ctr + sz)
+    clutter = np.stack(tris) if tris else np.zeros((0, 3, 3), np.float32)
+    return np.concatenate([base, clutter], axis=0).astype(np.float32)
+
+
+def _quat_axis_angle(x, y, z, w):
+    axis = np.array([x, y, z], np.float64)
+    axis = axis / np.linalg.norm(axis)
+    return np.array([*(axis * math.sin(w / 2.0)), math.cos(w / 2.0)], dtype=np.float32)
+
+
+def _f32(x, device):
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def preset(name: str, device="cpu") -> tuple[Transformation, Camera]:
+    """Scene poses (object transform, camera) for cornellbox, bunny, sponza."""
+    fov = np.float32(45.0 * math.pi / 180.0)
+    down_z = _quat_axis_angle(0.0, 0.0, 1.0, -1.57)
+    ident = [0.0, 0.0, 0.0, 1.0]
+    if name == "cornellbox":
+        tr = ([0.0, 0.0, -5.0], np.ones(3), ident)
+        cam = ([0.0, 2.5, 5.8], down_z)
+    elif name == "bunny":
+        tr = ([0.0, 0.0, -3.0], np.full(3, 3.0), ident)
+        cam = ([0.0, 2.5, 5.8], down_z)
+    elif name == "sponza":
+        tr = ([0.0, 0.0, -3.0], np.ones(3), _quat_axis_angle(1.0, 0.0, 0.0, 1.57))
+        cam = ([-20.0, 18.5, 10.8], _quat_axis_angle(0.0, 1.0, 0.0, -1.57))
+    else:
+        raise ValueError(f"unknown preset {name!r}")
+    t = Transformation(*(_f32(x, device) for x in tr))
+    c = Camera(
+        eye=_f32(cam[0], device),
+        quat=_f32(cam[1], device),
+        fov=_f32(fov, device),
+        near=_f32(0.0, device),
+        far=_f32(100000.0, device),
+    )
+    return t, c
