@@ -29,11 +29,6 @@ namespace {
 
 __device__ __forceinline__ int remap(int raw) { return raw <= 31 ? raw - 2 : raw - 11; }
 
-__global__ void fill_kernel(int* __restrict__ x, int m, int value) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < m) x[i] = value;
-}
-
 __global__ void climb_kernel(const int* __restrict__ dlt, int m, int* __restrict__ other,
                              int* __restrict__ psv_pos, int* __restrict__ psv_val,
                              int* __restrict__ lc, int* __restrict__ nsv_pos,
@@ -72,7 +67,9 @@ __global__ void climb_kernel(const int* __restrict__ dlt, int m, int* __restrict
 extern "C" int tbvh_scan32(const int* dlt_raw, int m, int* other, int* psv_pos, int* psv_val,
                            int* lc, int* nsv_pos, int* nsv_val, int* rc, cudaStream_t stream) {
   const int threads = 256;
-  fill_kernel<<<(m + threads - 1) / threads, threads, 0, stream>>>(other, m, -1);
+  // every slot starts at -1 (all bits set): no child has arrived yet
+  cudaError_t err = cudaMemsetAsync(other, 0xFF, (size_t)m * sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
   climb_kernel<<<(m + 1 + threads - 1) / threads, threads, 0, stream>>>(
       dlt_raw, m, other, psv_pos, psv_val, lc, nsv_pos, nsv_val, rc);
   return (int)cudaGetLastError();

@@ -261,6 +261,26 @@ def prepare_sweep(scene: R.RasterScene, rays: Rays, tr, width: int, height: int,
     return args, empty_ct, overflow
 
 
+def pad_rays(rays: Rays, width: int, height: int):
+    """Pad a frame's rays to whole 64x64 coarse tiles by replicating the
+    last column and row. Returns (Rays, padded width, padded height)."""
+    edge = SUB * CGRID
+    wp = -(-width // edge) * edge
+    hp = -(-height // edge) * edge
+    dev = rays.direction.device
+    d = rays.direction.reshape(width, height, 3)
+    xi = torch.clamp(torch.arange(wp, device=dev), max=width - 1)
+    yi = torch.clamp(torch.arange(hp, device=dev), max=height - 1)
+    d = d[xi][:, yi]
+    rp = Rays(
+        origin=rays.origin[0].expand(wp * hp, 3),
+        direction=d.reshape(wp * hp, 3),
+        tmin=torch.zeros((wp * hp,), dtype=F32, device=dev),
+        tmax=torch.full((wp * hp,), FLT_MAX, dtype=F32, device=dev),
+    )
+    return rp, wp, hp
+
+
 def render_raster_gpu(
     scene: R.RasterScene,
     rays: Rays,
@@ -277,19 +297,7 @@ def render_raster_gpu(
     edge = SUB * CGRID
     if width % edge or height % edge:
         # pad to coarse-tile multiples with edge-replicated rays, then crop
-        wp = -(-width // edge) * edge
-        hp = -(-height // edge) * edge
-        dev = rays.direction.device
-        d = rays.direction.reshape(width, height, 3)
-        xi = torch.clamp(torch.arange(wp, device=dev), max=width - 1)
-        yi = torch.clamp(torch.arange(hp, device=dev), max=height - 1)
-        d = d[xi][:, yi]
-        rp = Rays(
-            origin=rays.origin[0].expand(wp * hp, 3),
-            direction=d.reshape(wp * hp, 3),
-            tmin=torch.zeros((wp * hp,), dtype=F32, device=dev),
-            tmax=torch.full((wp * hp,), FLT_MAX, dtype=F32, device=dev),
-        )
+        rp, wp, hp = pad_rays(rays, width, height)
         hit, counts, overflow = render_raster_gpu(
             scene, rp, tr, wp, hp, cand_cap, pair_cap, group
         )

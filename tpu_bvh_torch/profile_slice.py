@@ -1,0 +1,137 @@
+"""Where the time of the port's main path goes, on one GPU.
+
+On `sponza_like(262_000)` it times `lbvh.build_single_pass` and
+`raster_gpu.render_raster_gpu` at 512^2 and 1920x1080 (leaf 64, the caps
+of chip_smoke.py): first the median host-clock ms to a synchronize without
+the profiler, then `--reps` calls each under torch.profiler (CPU + CUDA).
+From each Chrome trace it reads:
+
+* device busy: the union of the GPU's kernel, memcpy and memset intervals,
+  per call;
+* busy share: device busy over the wall time per call under the profiler
+  (the profiler slows the host, so this share is an upper bound);
+* kernels per call, and the kernels with the most device time.
+
+Usage: python3 -m tpu_bvh_torch.profile_slice [--reps 10] [--out DIR]
+The traces are written to DIR (default: a temporary directory); the last
+line of the output is a JSON summary.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import statistics
+import subprocess
+import tempfile
+import time
+
+import torch
+
+from .models import lbvh
+from .ops import raster, raster_gpu
+from .utils import camera, scenes
+
+SPONZA_TRIS = 262_000
+LEAF = 64
+RENDERS = {(512, 512): (1024, 4096, 32), (1920, 1080): (1024, 8192, 32)}
+GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _busy_us(events):
+    """Length of the union of [ts, ts + dur) over `events` (microseconds)."""
+    total, end = 0.0, float("-inf")
+    for ts, dur in sorted((e["ts"], e["dur"]) for e in events):
+        if ts + dur > end:
+            total += ts + dur - max(ts, end)
+            end = ts + dur
+    return total
+
+
+def _host_ms(fn, reps):
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def profile(name, fn, reps, out_dir, top=8):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = _host_ms(fn, reps)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    path = os.path.join(out_dir, f"trace_{name}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in GPU_CATS]
+    if not events:
+        raise RuntimeError(f"{name}: the trace holds no GPU activity")
+    by_name = collections.Counter()
+    for e in events:
+        if e["cat"] == "kernel":
+            by_name[e["name"][:120]] += e["dur"]
+    busy_ms = _busy_us(events) / 1e3 / reps
+    return {
+        "name": name,
+        "host_ms": host_ms,
+        "wall_ms_profiled": wall_ms,
+        "device_busy_ms": busy_ms,
+        "busy_share_profiled": busy_ms / wall_ms,
+        "kernels_per_call": sum(e["cat"] == "kernel" for e in events) / reps,
+        "top_kernels_us_per_call": [(k, us / reps) for k, us in by_name.most_common(top)],
+        "trace": path,
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--out", default=None, help="directory for the Chrome traces")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_slice: needs a CUDA device")
+    out_dir = args.out or tempfile.mkdtemp(prefix="tpu_bvh_torch_prof_")
+    os.makedirs(out_dir, exist_ok=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    dev = torch.device("cuda:0")
+    tris = torch.from_numpy(scenes.sponza_like(SPONZA_TRIS)).to(dev)
+    tr, cam = scenes.preset("sponza", dev)
+    packed = raster.pack_raster(lbvh.build_single_pass(tris), tris, leaf_size=LEAF)
+    calls = {"build": lambda: lbvh.build_single_pass(tris)}
+    for (w, h), caps in RENDERS.items():
+        rays = camera.generate_rays(cam, w, h)
+        calls[f"render_{w}x{h}"] = (
+            lambda rays=rays, w=w, h=h, caps=caps:
+            raster_gpu.render_raster_gpu(packed, rays, tr, w, h, *caps)
+        )
+    print(f"card: {smi} | torch {torch.__version__} | cuda {torch.version.cuda}", flush=True)
+    rows = []
+    for name, fn in calls.items():
+        row = profile(name, fn, args.reps, out_dir)
+        rows.append(row)
+        print(f"{name}: host {row['host_ms']!r} ms | under profiler: wall "
+              f"{row['wall_ms_profiled']!r} ms, device busy {row['device_busy_ms']!r} ms, "
+              f"busy share {row['busy_share_profiled']!r}, kernels/call "
+              f"{row['kernels_per_call']!r}", flush=True)
+        for k, us in row["top_kernels_us_per_call"]:
+            print(f"    {us:10.3f} us  {k}", flush=True)
+    print(json.dumps({"card": smi, "calls": rows}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -39,6 +39,7 @@ _SIGNATURES = {
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process
+build_report = ""  # nvcc and ptxas output of that build
 
 
 def _sources():
@@ -56,30 +57,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
-def build(verbose: bool = False) -> str:
+def build() -> str:
     """Compile `csrc/*.cu` into the shared library unless an identical
-    build exists; returns its path. `verbose` adds `-Xptxas -v` and
-    prints the compiler's report (registers, shared memory, spills)."""
-    global build_seconds
+    build exists; returns its path. A build sets `build_seconds` and keeps
+    the compiler's report (registers, shared memory, spills) in
+    `build_report`."""
+    global build_seconds, build_report
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
         with open(s, "rb") as f:
             h.update(f.read())
     path = os.path.join(BUILD_DIR, f"libtbvh_{h.hexdigest()[:16]}.so")
-    if os.path.exists(path) and not verbose:
+    if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *srcs]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *srcs]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     build_seconds = time.perf_counter() - t0
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr, flush=True)
+    build_report = res.stdout + res.stderr
     os.replace(tmp, path)
     return path
 
