@@ -2,26 +2,42 @@
 """GPU smoke test of the PyTorch + CUDA port (`tpu_bvh_torch`) on one card.
 
 Drives the port's main path at sponza scale (262K triangles): the
-single-pass LBVH build, then `pack_raster` and the raster render at 512^2
-and 1920x1080. On the way it
+single-pass LBVH build, the fast BVH2 -> BVH4 collapse, `pack_raster` and
+the raster render at 512^2 and 1920x1080, and the shadow path (reversed
+point-light occlusion of the 1080p primary hits, and the general
+closest-hit trace on a 64K strided slice of the forward shadow rays). On
+the way it
 
 1. prints the card (name and power limit from nvidia-smi) and versions;
-2. builds the three CUDA kernels from `tpu_bvh_torch/csrc/` and times it;
-3. holds each kernel against its plain PyTorch version on the card: the
-   topology scan and the dense refit bit-exact on sponza and on a soup of
-   duplicated triangles (tie-heavy Morton codes), the raster sweep
-   bit-exact in all five outputs (t, prim, u, v, count) at 512^2 and at
-   1920x1080 with the renders' caps;
-4. runs the slice with every launch counter reset first, and checks the
-   GPU tree is bit-identical to the port's CPU build, the validity checks,
-   the SAH against its pin, no raster overflow, and that every kernel of
-   the path launched; the 512^2 image is written as a PNG;
-5. times the build and the renders (medians after warm-up, on CUDA events
-   and on the host clock) and each kernel beside its plain version.
+2. builds the five CUDA kernels from `tpu_bvh_torch/csrc/` (one nvcc per
+   source, all started together) and times it;
+3. holds each kernel against its plain PyTorch version on the card, bit
+   for bit in every output: the topology scan, the dense refit and the
+   collapse kernel on sponza and on a soup of duplicated triangles
+   (tie-heavy Morton codes); the raster sweep at 512^2 and at 1920x1080
+   with the renders' caps; the ray sweep in occlusion mode on every live
+   shadow ray (caps 4096/32768/32) and in closest-hit mode on the 64K
+   slice (caps 4096/24576/32) and on the 1080p primary rays (caps that
+   cannot overflow), where most rays hit;
+4. runs the main path path by path (build, collapse, render, shadow),
+   every launch counter set to 0 just before each and read just after,
+   and checks: every kernel of each path launched; the GPU Bvh2 and Bvh4
+   are bit-identical to the port's CPU build and collapse; the validity
+   checks; the BVH2 and BVH4 SAH against their pins; the collapse's
+   isomorphism to the sequential oracle `collapse_cpu` on
+   sponza_like(16384); a caterpillar scene takes the collapse's overflow
+   branch on the card and still equals the CPU collapse; no raster or
+   shadow overflow; the reversed occlusion mask equals the forward trace's
+   capped answer outside the boundary strips; the 512^2 image is written
+   as a PNG;
+5. times the build, the collapse, the renders, `shadow_occlusion` and
+   `trace_rays` (medians after warm-up, on CUDA events and on the host
+   clock) and each kernel beside its plain version, and computes each
+   kernel's bound from this run's inputs.
 
-Any failure raises. The last two lines are the nvidia-smi line and
-{"ok": true, "device": {...}}. Needs one CUDA device and nvcc; it imports
-no JAX.
+Any failure raises. The last three lines are the kernels JSON line, the
+nvidia-smi line and {"ok": true, "device": {...}}. Needs one CUDA device
+and nvcc; it imports no JAX.
 
 Usage: python3 chip_smoke.py [--image PATH]
 """
@@ -38,10 +54,26 @@ import time
 
 SPONZA_TRIS = 262_000
 SAH_PIN = 333.01  # BVH2 SAH of the sponza_like single-pass tree (a tree property)
+SAH4_PIN = 159.13  # its BVH4 SAH after the collapse (a tree property)
 LEAF = 64
 RENDERS = {  # (width, height): (cand_cap, pair_cap, group), as the JAX bench uses them
     (512, 512): (1024, 4096, 32),
     (1920, 1080): (1024, 8192, 32),
+}
+SHADOW_CAPS = (4096, 32768, 32)  # shadow_occlusion on every live ray
+TRACE_CAPS = (4096, 24576, 32)  # trace_rays on the 64K slice
+PRIMARY_CAPS = (4096, 1 << 21, 32)  # 1080p primary rays: 507 groups x 4096 pairs fit
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+# flops per ray-prim test, as counted in the kernels' notes
+FLOPS_PER_TEST = {"raster_sweep": 26, "ray_sweep": 50}
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "scan32": ("tpu_bvh_torch/csrc/scan32.cu", "tpu_bvh/ops/pallas/scan32.py:280"),
+    "refit_dense": ("tpu_bvh_torch/csrc/refit_dense.cu", "tpu_bvh/ops/pallas/refit_dense.py:102"),
+    "collapse_block": ("tpu_bvh_torch/csrc/collapse_block.cu",
+                       "tpu_bvh/ops/pallas/collapse_block.py:481"),
+    "raster_sweep": ("tpu_bvh_torch/csrc/raster.cu", "tpu_bvh/ops/raster_tpu.py:366"),
+    "ray_sweep": ("tpu_bvh_torch/csrc/ray_sweep.cu", "tpu_bvh/ops/ray_sweep.py:283"),
 }
 
 
@@ -56,9 +88,9 @@ def parse_args():
 def time_ms(torch, fn, reps, warmup=2):
     """Median milliseconds of `fn` after warm-up, two ways: between CUDA
     events on the stream, and on the host clock up to the end of a
-    synchronize. End-to-end times (build, render) are read on the host
-    clock: those calls are bound by the host's launch rate, which the
-    events do not fully see."""
+    synchronize. End-to-end times (build, collapse, render, shadow) are
+    read on the host clock: those calls are bound by the host's launch
+    rate, which the events do not fully see."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -82,6 +114,54 @@ def require(ok, what):
     print(f"  ok: {what}", flush=True)
 
 
+def max_err(got, want):
+    return max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, flops):
+    """(bound ms, what sets it): the larger of bytes over the memory rate
+    and f32 operations over the f32 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def collapse_bound(torch, meta, carr, outm, outa, m):
+    """Bound of the collapse kernel: it needs the 8 meta rows and carr row
+    5 at every lane, carr's other 29 used rows (slots, count, slot AABBs)
+    only at the coarse wide lanes, and the 6 AABB rows of node8 or leaf8
+    only at the slots of the short wide lanes; it writes outm and the four
+    outa once."""
+    W = meta.shape[1]
+    n_cw = int((carr[5] == 1).sum())
+    short_wide = (outm[5] == 0) & (meta[5] == 1) & (torch.arange(W, device=meta.device) < m)
+    n_slots = int((outm[0:4][:, short_wide] >= 0).sum())
+    n_bytes = 4 * (9 * W + 29 * n_cw + 6 * n_slots) + nbytes(outm, *outa)
+    info = f"W {W}, {n_cw} coarse wide lanes, {n_slots} slots of short wide lanes"
+    return bound(n_bytes, 0), info
+
+
+def sweep_bound(torch, name, args, out):
+    """Bound of a sweep kernel on its inputs: every input read once (of the
+    slabs only the treelets that live pairs touch), every output written
+    once; flops = the ray-prim tests this run made (the sum of the count
+    output) times the flops per test."""
+    rays_in, slabs, p_tid, p_tlb, p_bits, t_start, t_end = args[:7]
+    touched = int(torch.unique(p_tid[p_bits != 0]).numel())
+    slab_bytes = touched * slabs.shape[1] * slabs.shape[2] * slabs.element_size()
+    n_bytes = nbytes(rays_in, p_tid, p_tlb, p_bits, t_start, t_end, *out) + slab_bytes
+    tests = int(out[4].sum(dtype=torch.int64))
+    # a subgroup's rays share their count: its sweeps = count / L
+    sweeps = out[4].reshape(-1, 256)[:, 0].double() / slabs.shape[1]
+    info = (f"{tests} ray-prim tests; sweeps per 256-ray block: mean {float(sweeps.mean())!r}, "
+            f"max {int(sweeps.max())}")
+    return bound(n_bytes, tests * FLOPS_PER_TEST[name]), info
+
+
 def main():
     args = parse_args()
     import numpy as np
@@ -91,15 +171,21 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_bvh_torch.models import lbvh
-    from tpu_bvh_torch.ops import raster, raster_gpu, radix_tree, refit, refit_dense, scan32
+    from tpu_bvh_torch.ops import (collapse_block, collapse_fast, radix_tree, raster,
+                                   raster_gpu, ray_sweep, refit, refit_dense, scan32)
+    from tpu_bvh_torch.ops.aabb import triangle_aabbs
+    from tpu_bvh_torch.types import Bvh4, Rays
     from tpu_bvh_torch.utils import camera, image, kernels, scenes, validate
-    from tpu_bvh_torch.utils.cost import sah_cost_bvh2
+    from tpu_bvh_torch.utils.cost import sah_cost_bvh2, sah_cost_bvh4
+    from tpu_bvh_torch.utils.cpu_reference import collapse_cpu
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    modules = {"scan32": scan32, "refit_dense": refit_dense, "collapse_block": collapse_block,
+               "raster_sweep": raster_gpu, "ray_sweep": ray_sweep}
     # phase 1: the card
     print(f"[1] device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch "
           f"{torch.__version__} | cuda {torch.version.cuda} | python {sys.version.split()[0]}",
@@ -113,18 +199,21 @@ def main():
     else:
         print(kernels.build_report, flush=True)
         print(f"[2] kernel build: {time.perf_counter() - t0:.2f} s "
-              f"(nvcc {kernels.build_seconds:.2f} s)", flush=True)
+              f"(nvcc, {len(KERNELS)} sources in parallel: {kernels.build_seconds:.2f} s)",
+              flush=True)
 
     # phase 3: each kernel against its plain version on the card
     print("[3] kernels vs plain versions", flush=True)
     sponza = scenes.sponza_like(SPONZA_TRIS)
     rng = np.random.default_rng(0)
     dup = np.repeat(sponza[rng.choice(len(sponza), 4096, replace=False)], 64, axis=0)
-    errs = {"scan32": 0.0, "refit_dense": 0.0}
+    errs = {name: 0.0 for name in KERNELS}
     inputs = {}
 
-    def max_err(got, want):
-        return max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    def same_outputs(got, want, name, what):
+        for k, (g, w) in enumerate(zip(got, want)):
+            require(torch.equal(g, w), f"{name} kernel output {k} == plain, bit-exact, {what}")
+        errs[name] = max(errs[name], max_err(got, want))
 
     for name, soup in (("sponza", sponza), ("dup", dup)):
         tris = torch.from_numpy(soup).to(dev)
@@ -134,9 +223,7 @@ def main():
         got = scan32.scan_core(dlt_raw)
         want = scan32.scan_core_reference(dlt_raw)
         torch.cuda.synchronize()
-        require(all(torch.equal(g, w) for g, w in zip(got, want)),
-                f"scan kernel == plain, bit-exact, {name} m={m}")
-        errs["scan32"] = max(errs["scan32"], max_err(got, want))
+        same_outputs(got, want, "scan32", f"{name} m={m}")
         first, last = got[0] + 1, got[3]
         n = m + 1
         edge = torch.full((1,), n - 1, dtype=torch.int32, device=dev)
@@ -145,21 +232,25 @@ def main():
         got = refit_dense.refit_dense(mat, n, refit.RADIUS)
         want = refit_dense.refit_dense_reference(mat, n, refit.RADIUS)
         torch.cuda.synchronize()
-        require(all(torch.equal(g, w) for g, w in zip(got, want)),
-                f"refit kernel == plain, bit-exact, {name} n={n}")
-        errs["refit_dense"] = max(errs["refit_dense"], max_err(got, want))
+        same_outputs(got, want, "refit_dense", f"{name} n={n}")
+        aux = lbvh.build_single_pass_aux(tris)
+        rows = collapse_fast.kernel_inputs(*aux)
+        got_m, got_a = collapse_block.collapse_block(*rows, aux[0].n_internal)
+        want_m, want_a = collapse_block.collapse_block_reference(*rows, aux[0].n_internal)
+        torch.cuda.synchronize()
+        same_outputs([got_m, *got_a], [want_m, *want_a], "collapse_block", f"{name} W={n}")
         if name == "sponza":
             inputs["scan"] = dlt_raw
             inputs["refit"] = (mat, n)
+            inputs["collapse"] = (rows, aux[0].n_internal, [got_m, *got_a])
 
     tris = torch.from_numpy(sponza).to(dev)
     tr, cam = scenes.preset("sponza", dev)
     bvh = lbvh.build_single_pass(tris)
     packed = raster.pack_raster(bvh, tris, leaf_size=LEAF)
-    # The sweep is bit-exact by design (no FMA, IEEE division, the plain
+    # The sweeps are bit-exact by design (no FMA, IEEE division, the plain
     # version's order), so all five outputs must be equal, at the shapes
-    # and caps of both renders of the main path (1080p padded to 1920x1088).
-    errs["raster_sweep"] = 0.0
+    # and caps of the main path (1080p padded to 1920x1088).
     for (rw, rh), caps in RENDERS.items():
         rays, w, h = raster_gpu.pad_rays(camera.generate_rays(cam, rw, rh), rw, rh)
         sweep, _, ovf = raster_gpu.prepare_sweep(packed, rays, tr, w, h, *caps)
@@ -167,29 +258,77 @@ def main():
         got = raster_gpu.raster_sweep(*sweep)
         want = raster_gpu.raster_sweep_reference(*sweep)
         torch.cuda.synchronize()
-        for field, g, x in zip(("t", "prim", "u", "v", "count"), got, want):
-            require(torch.equal(g, x), f"raster kernel {field} == plain, bit-exact, {rw}x{rh}")
+        same_outputs(got, want, "raster_sweep", f"{rw}x{rh}")
         require(bool((got[1] >= 0).any()), f"raster {rw}x{rh}: {int((got[1] >= 0).sum())} hits")
-        errs["raster_sweep"] = max(errs["raster_sweep"], max_err(got, want))
         if (rw, rh) == (512, 512):
-            sweep_args = sweep
+            inputs["raster"] = (sweep, got)
 
-    # phase 4: the slice, through the entry points a user calls
-    print(f"[4] slice: sponza_like({SPONZA_TRIS}) build -> pack_raster -> render", flush=True)
-    modules = {"scan32": scan32, "refit_dense": refit_dense, "raster_sweep": raster_gpu}
-    for mod in modules.values():
-        mod.launches = 0
-    bvh, parent, first, last = lbvh.build_single_pass_aux(tris)
-    packed = raster.pack_raster(bvh, tris, leaf_size=LEAF)
-    renders = {}
-    for (rw, rh), caps in RENDERS.items():
-        rr = camera.generate_rays(cam, rw, rh)
-        renders[(rw, rh)] = (rr, raster_gpu.render_raster_gpu(packed, rr, tr, rw, rh, *caps))
-    torch.cuda.synchronize()
-    launches = {name: mod.launches for name, mod in modules.items()}
-    print(f"  launches in the slice: {launches}", flush=True)
-    require(all(v > 0 for v in launches.values()), "every kernel of the path launched")
+    rays_1080 = camera.generate_rays(cam, 1920, 1080)
+    hit_1080, _, ovf = raster_gpu.render_raster_gpu(packed, rays_1080, tr, 1920, 1080,
+                                                    *RENDERS[(1920, 1080)])
+    require(not bool(ovf), "1920x1080 primary render for the shadow rays: no overflow")
+    points, live, light, eps, fwd, vsel, n_shadow = scenes.shadow_workload(
+        tris, rays_1080, hit_1080)
+    slice_rays = Rays(*(x[vsel] for x in fwd))
+    for key, what, rays, caps, occlusion in (
+            ("occl", "occlusion mode, shadow_occlusion's rays",
+             ray_sweep.shadow_rays(points, live, light, eps), SHADOW_CAPS, True),
+            ("closest", f"closest-hit mode, trace_rays on the {vsel.numel()}-ray slice", slice_rays,
+             TRACE_CAPS, False),
+            ("primary", "closest-hit mode, the 1920x1080 primary rays", rays_1080, PRIMARY_CAPS,
+             False)):
+        sweep, _, _, ovf = ray_sweep.prepare_trace(packed, rays, tr, *caps)
+        require(not bool(ovf), f"ray sweep {what}: fits its caps {caps}")
+        got = ray_sweep.ray_sweep_kernel(*sweep, occlusion)
+        want = ray_sweep.ray_sweep_reference(*sweep, occlusion)
+        torch.cuda.synchronize()
+        same_outputs(got, want, "ray_sweep", what)
+        require(bool((got[1] >= 0).any()), f"ray sweep {what}: {int((got[1] >= 0).sum())} hits")
+        inputs[f"ray_sweep_{key}"] = (sweep, got)
 
+    # phase 4: the main path through the entry points a user calls, path by
+    # path, each with every launch counter set to 0 just before it
+    print(f"[4] main path on sponza_like({SPONZA_TRIS}): build -> collapse -> render -> shadow",
+          flush=True)
+    launches = {}
+
+    def run_path(path, names, fn):
+        for mod in modules.values():
+            mod.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {name: mod.launches for name, mod in modules.items()}
+        print(f"  launches in the {path} path: {counts}", flush=True)
+        require(all(counts[nm] > 0 for nm in names), f"every kernel of the {path} path launched")
+        launches.update({nm: counts[nm] for nm in names})
+        return out
+
+    bvh, parent, first, last = run_path("build", ["scan32", "refit_dense"],
+                                        lambda: lbvh.build_single_pass_aux(tris))
+    wide = run_path("collapse", ["collapse_block"],
+                    lambda: collapse_fast.collapse_lbvh_to_bvh4(bvh, parent, first, last))
+
+    def render():
+        pk = raster.pack_raster(bvh, tris, leaf_size=LEAF)
+        out = {}
+        for (rw, rh), caps in RENDERS.items():
+            rr = camera.generate_rays(cam, rw, rh)
+            out[(rw, rh)] = (rr, raster_gpu.render_raster_gpu(pk, rr, tr, rw, rh, *caps))
+        return pk, out
+
+    packed, renders = run_path("render", ["raster_sweep"], render)
+
+    def shadow():
+        rr, (hit, _, _) = renders[(1920, 1080)]
+        work = scenes.shadow_workload(tris, rr, hit)
+        pts, lv, lt, ep, fw, vs, _ = work
+        occ = ray_sweep.shadow_occlusion(packed, pts, lv, lt, tr, ep, *SHADOW_CAPS)
+        trace = ray_sweep.trace_rays(packed, Rays(*(x[vs] for x in fw)), tr, *TRACE_CAPS)
+        return work, occ, trace
+
+    work, (occ, _, ovf_occ), (hit_v, _, ovf_v) = run_path("shadow", ["ray_sweep"], shadow)
+
+    # the build
     cpu = lbvh.build_single_pass_aux(tris.cpu())
     gpu = (bvh, parent, first, last)
     same = all(torch.equal(g.cpu(), c) and g.dtype == c.dtype
@@ -200,6 +339,32 @@ def main():
     require(validate.check_parent_child_consistency(bvh), "check_parent_child_consistency")
     sah = float(sah_cost_bvh2(bvh))
     require(abs(sah - SAH_PIN) <= 0.01 * SAH_PIN, f"BVH2 SAH {sah:.4f} within 1% of {SAH_PIN}")
+
+    # the collapse
+    wide_cpu = collapse_fast.collapse_lbvh_to_bvh4(*cpu)
+    require(all(torch.equal(getattr(wide, f).cpu(), getattr(wide_cpu, f)) for f in Bvh4._fields),
+            "GPU Bvh4 (every field) == the port's CPU collapse")
+    require(validate.check_bvh4_correctness(wide, tris.shape[0]), "check_bvh4_correctness")
+    sah4 = float(sah_cost_bvh4(wide, *triangle_aabbs(tris)))
+    require(abs(sah4 - SAH4_PIN) <= 0.01 * SAH4_PIN,
+            f"BVH4 SAH {sah4:.4f} within 1% of {SAH4_PIN} (BVH2 {sah:.4f})")
+    small = torch.from_numpy(scenes.sponza_like(16_384)).to(dev)
+    saux = lbvh.build_single_pass_aux(small)
+    require(validate.check_bvh4_isomorphic(collapse_fast.collapse_lbvh_to_bvh4(*saux),
+                                           collapse_cpu(saux[0])),
+            "GPU fast collapse of sponza_like(16384) isomorphic to collapse_cpu")
+    cat = torch.from_numpy(scenes.caterpillar())
+    caux = lbvh.build_single_pass_aux(cat.to(dev))
+    n_long = int(((caux[3] - caux[2] + 1) > collapse_block.S_LEN).sum())
+    ccap = 2 * caux[0].n_leaves // (collapse_block.S_LEN + 1) + 2
+    require(n_long > ccap, f"caterpillar: {n_long} long nodes > capacity {ccap} (overflow branch)")
+    cgot = collapse_fast.collapse_lbvh_to_bvh4(*caux)
+    cwant = collapse_fast.collapse_lbvh_to_bvh4(*lbvh.build_single_pass_aux(cat))
+    require(all(torch.equal(getattr(cgot, f).cpu(), getattr(cwant, f)) for f in Bvh4._fields)
+            and validate.check_bvh4_correctness(cgot, cat.shape[0]),
+            "caterpillar: GPU Bvh4 == CPU collapse, check_bvh4_correctness")
+
+    # the renders
     for (rw, rh), (rr, (hit, counts, ovf)) in renders.items():
         n_hit = int((hit.prim_idx >= 0).sum())
         good = (hit.prim_idx.shape == (rw * rh,) and bool(torch.isfinite(hit.t).all())
@@ -210,10 +375,39 @@ def main():
     image.write_png(args.image, image.shade_barycentric(hit512.prim_idx, hit512.u, hit512.v, 512, 512))
     print(f"  image: {args.image}", flush=True)
 
+    # the shadow path: the reversed mask against the forward trace's capped
+    # answer, outside the boundary strips (a blocker within 10 eps of either
+    # end of a segment may flip either way); the forward trace reaches 20
+    # eps past each segment so every hit within 10 eps of its end is seen
+    points, live, light, eps, fwd, vsel, n_shadow = work
+    require(not bool(ovf_occ) and not bool(ovf_v), "shadow_occlusion and trace_rays: no overflow")
+    tmax = fwd[3][vsel]
+    ext = Rays(fwd[0][vsel], fwd[1][vsel], fwd[2][vsel],
+               torch.where(live[vsel], tmax + 20 * eps, -1.0))
+    hit_f, _, ovf_f = ray_sweep.trace_rays(packed, ext, tr, *TRACE_CAPS)
+    require(not bool(ovf_f), "forward trace 20 eps past the segments: no overflow")
+    t_f = torch.where(hit_f.prim_idx >= 0, hit_f.t, torch.inf)
+    occ_fwd = t_f < tmax
+    boundary = ((t_f - tmax).abs() < 10 * eps) | (t_f < 10 * eps)
+    occ_rev = occ[vsel]
+    n_occ = int(occ.sum())
+    require(0 < n_occ < n_shadow and not bool(occ[~live].any()),
+            f"shadow_occlusion: {n_occ} of {n_shadow} live points occluded, no dead point")
+    bad = int(((occ_rev != occ_fwd) & ~boundary).sum())
+    require(bad == 0, f"reversed mask == forward capped answer outside the boundary strips "
+                      f"({int(boundary.sum())} boundary rays of {vsel.numel()})")
+    hit_s = hit_v.prim_idx >= 0
+    require(bool(hit_s.any()) and bool((hit_s == occ_fwd)[~boundary].all()),
+            f"trace_rays on the slice: {int(hit_s.sum())} hits ({int((hit_s & ~boundary).sum())} "
+            f"outside the boundary strips), the forward trace's rays outside them")
+
     # phase 5: timings (medians after warm-up; host clock end to end)
     print(f"[5] timings on {smi} (ms: CUDA events / host clock to synchronize)", flush=True)
     ev, wall = time_ms(torch, lambda: lbvh.build_single_pass(tris), reps=10)
     print(f"  sponza_like {SPONZA_TRIS} single-pass build: {ev!r} / {wall!r} ms", flush=True)
+    ev, wall = time_ms(torch, lambda: collapse_fast.collapse_lbvh_to_bvh4(bvh, parent, first, last),
+                       reps=10)
+    print(f"  collapse_lbvh_to_bvh4: {ev!r} / {wall!r} ms", flush=True)
     for (rw, rh), caps in RENDERS.items():
         rr = renders[(rw, rh)][0]
         ev, wall = time_ms(
@@ -221,31 +415,61 @@ def main():
         )
         print(f"  render {rw}x{rh}: {ev!r} / {wall!r} ms = {rw * rh / wall / 1e3!r} Mrays/s "
               f"(host clock)", flush=True)
-    mat, n = inputs["refit"]
-    timed = {
-        "scan32": (lambda: scan32.scan_core(inputs["scan"]),
-                   lambda: scan32.scan_core_reference(inputs["scan"]), 20, 5),
-        "refit_dense": (lambda: refit_dense.refit_dense(mat, n, refit.RADIUS),
-                        lambda: refit_dense.refit_dense_reference(mat, n, refit.RADIUS), 20, 5),
-        "raster_sweep": (lambda: raster_gpu.raster_sweep(*sweep_args),
-                         lambda: raster_gpu.raster_sweep_reference(*sweep_args), 20, 3),
-    }
-    info = {
-        "scan32": ("tpu_bvh_torch/csrc/scan32.cu", "tpu_bvh/ops/pallas/scan32.py:280"),
-        "refit_dense": ("tpu_bvh_torch/csrc/refit_dense.cu", "tpu_bvh/ops/pallas/refit_dense.py:102"),
-        "raster_sweep": ("tpu_bvh_torch/csrc/raster.cu", "tpu_bvh/ops/raster_tpu.py:366"),
-    }
-    rows = []
-    for name, (kfn, pfn, kreps, preps) in timed.items():
-        k_ms, k_wall = time_ms(torch, kfn, kreps)
-        p_ms, p_wall = time_ms(torch, pfn, preps, warmup=1)
-        print(f"  {name}: kernel {k_ms!r} / {k_wall!r} ms, plain {p_ms!r} / {p_wall!r} ms",
-              flush=True)
-        rows.append({"name": name, "route": "cuda", "source": info[name][0],
-                     "replaces": info[name][1], "launches": launches[name],
-                     "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms})
+    ev, wall = time_ms(torch, lambda: ray_sweep.shadow_occlusion(
+        packed, points, live, light, tr, eps, *SHADOW_CAPS), reps=10)
+    print(f"  shadow_occlusion ({n_shadow} live of {live.numel()} rays): {ev!r} / {wall!r} ms = "
+          f"{n_shadow / wall / 1e3!r} Mrays/s (host clock)", flush=True)
+    srays = Rays(*(x[vsel] for x in fwd))
+    ev, wall = time_ms(torch, lambda: ray_sweep.trace_rays(packed, srays, tr, *TRACE_CAPS), reps=10)
+    print(f"  trace_rays ({vsel.numel()} rays): {ev!r} / {wall!r} ms = "
+          f"{vsel.numel() / wall / 1e3!r} Mrays/s (host clock)", flush=True)
 
-    print(json.dumps({"kernels": rows}), flush=True)
+    mat, n = inputs["refit"]
+    rows, m_c, c_out = inputs["collapse"]
+    r_args, r_out = inputs["raster"]
+    so_args, so_out = inputs["ray_sweep_occl"]
+    scan_out = scan32.scan_core(inputs["scan"])
+    refit_out = refit_dense.refit_dense(mat, n, refit.RADIUS)
+    bounds = {  # kernel: ((bound ms, what sets it), what the sweep did)
+        "scan32": (bound(nbytes(inputs["scan"], *scan_out), 0), ""),
+        "refit_dense": (bound(nbytes(mat, *refit_out), 0), ""),
+        "collapse_block": collapse_bound(torch, rows[0], rows[3], c_out[0], c_out[1:], m_c),
+        "raster_sweep": sweep_bound(torch, "raster_sweep", r_args, r_out),
+        "ray_sweep": sweep_bound(torch, "ray_sweep", so_args, so_out),
+    }
+    timed = {  # kernel, plain, kernel reps, plain reps, plain warm-up
+        "scan32": (lambda: scan32.scan_core(inputs["scan"]),
+                   lambda: scan32.scan_core_reference(inputs["scan"]), 20, 5, 1),
+        "refit_dense": (lambda: refit_dense.refit_dense(mat, n, refit.RADIUS),
+                        lambda: refit_dense.refit_dense_reference(mat, n, refit.RADIUS), 20, 5, 1),
+        "collapse_block": (lambda: collapse_block.collapse_block(*rows, m_c),
+                           lambda: collapse_block.collapse_block_reference(*rows, m_c), 20, 5, 1),
+        "raster_sweep": (lambda: raster_gpu.raster_sweep(*r_args),
+                         lambda: raster_gpu.raster_sweep_reference(*r_args), 20, 3, 1),
+        "ray_sweep": (lambda: ray_sweep.ray_sweep_kernel(*so_args, True),
+                      lambda: ray_sweep.ray_sweep_reference(*so_args, True), 20, 3, 1),
+    }
+    rows_json = []
+    for name, (kfn, pfn, kreps, preps, pwarm) in timed.items():
+        k_ms, k_wall = time_ms(torch, kfn, kreps)
+        p_ms, p_wall = time_ms(torch, pfn, preps, warmup=pwarm)
+        (b_ms, b_by), info = bounds[name]
+        print(f"  {name}: kernel {k_ms!r} / {k_wall!r} ms, plain {p_ms!r} / {p_wall!r} ms, "
+              f"bound {b_ms!r} ms ({b_by}), {launches[name]} launches on the main path"
+              + (f"; {info}" if info else ""), flush=True)
+        rows_json.append({"name": name, "route": "cuda", "source": KERNELS[name][0],
+                          "replaces": KERNELS[name][1], "launches": launches[name],
+                          "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    for key, what in (("closest", "the slice"), ("primary", "the 1080p primary rays")):
+        c_args, c_out = inputs[f"ray_sweep_{key}"]
+        (b_c, _), info_c = sweep_bound(torch, "ray_sweep", c_args, c_out)
+        k_ms, _ = time_ms(torch, lambda: ray_sweep.ray_sweep_kernel(*c_args, False), 20)
+        p_ms, _ = time_ms(torch, lambda: ray_sweep.ray_sweep_reference(*c_args, False), 3, warmup=1)
+        print(f"  ray_sweep closest-hit on {what}: kernel {k_ms!r} ms, plain {p_ms!r} ms, "
+              f"bound {b_c!r} ms; {info_c}", flush=True)
+
+    print(json.dumps({"kernels": rows_json}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

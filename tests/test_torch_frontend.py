@@ -53,6 +53,6 @@ def test_scene_generators_match(name):
 @pytest.mark.parametrize("name", ["cornellbox", "sponza"])
 def test_presets_match(name):
     jt, jc = jscenes.preset(name)
-    tt, tc = scenes.preset(name)
+    tt, tc = scenes.preset(name, device="cpu")
     for a, b in zip(list(jt) + list(jc), list(tt) + list(tc)):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())

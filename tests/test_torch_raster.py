@@ -98,7 +98,7 @@ def test_overflow_flag_matches_pallas(caps):
 @pytest.mark.parametrize("preset", ["cornellbox", "sponza"])
 def test_generate_rays_match_jax(preset):
     _, jcam = jscenes.preset(preset)
-    _, cam = scenes.preset(preset)
+    _, cam = scenes.preset(preset, device="cpu")
     want = jcamera.generate_rays(jcam, 96, 80)
     got = camera.generate_rays(cam, 96, 80)
     for g, w in zip(got, want):

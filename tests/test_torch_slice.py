@@ -37,7 +37,7 @@ def port_slice(tris_np, preset, leaf, caps, bvh=None):
     tris = torch.from_numpy(tris_np)
     if bvh is None:
         bvh = lbvh.build_single_pass(tris)
-    tr, cam = scenes.preset(preset)
+    tr, cam = scenes.preset(preset, device="cpu")
     rays = camera.generate_rays(cam, W, H)
     packed = raster.pack_raster(bvh, tris, leaf_size=leaf)
     return raster_gpu.render_raster_gpu(packed, rays, tr, W, H, *caps)
@@ -62,7 +62,8 @@ def test_jax_tree_renders_same_in_port():
     make, preset, leaf, caps = SLICES["cornellbox_128"]
     tris_np = make(scenes)
     jbvh = jlbvh.build_single_pass(jnp.asarray(tris_np))
-    carried = convert.to_torch(Bvh2, {f: np.asarray(v) for f, v in jbvh._asdict().items()})
+    carried = convert.to_torch(Bvh2, {f: np.asarray(v) for f, v in jbvh._asdict().items()},
+                               device="cpu")
     back = convert.to_numpy(carried)
     for f, v in jbvh._asdict().items():
         assert back[f].tobytes() == np.asarray(v).tobytes()
@@ -73,13 +74,24 @@ def test_jax_tree_renders_same_in_port():
 
 
 def test_port_imports_no_jax():
+    """In a fresh interpreter: every module of the port, and every import
+    statement of chip_smoke.py, pulls in neither jax nor tpu_bvh."""
     code = (
-        "import sys\n"
-        "import tpu_bvh_torch.models.lbvh, tpu_bvh_torch.ops.raster_gpu\n"
-        "import tpu_bvh_torch.utils.convert, tpu_bvh_torch.utils.image\n"
+        "import ast, pkgutil, importlib, sys\n"
+        "import tpu_bvh_torch\n"
+        "for m in pkgutil.walk_packages(tpu_bvh_torch.__path__, 'tpu_bvh_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "for node in ast.walk(ast.parse(open('chip_smoke.py').read())):\n"
+        "    if isinstance(node, ast.ImportFrom):\n"
+        "        importlib.import_module(node.module)\n"
+        "    elif isinstance(node, ast.Import):\n"
+        "        for a in node.names: importlib.import_module(a.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tpu_bvh' or m.startswith('tpu_bvh.')]\n"
         "assert not bad, bad\n"
+        "assert 'tpu_bvh_torch.ops.collapse_fast' in sys.modules\n"
+        "assert 'tpu_bvh_torch.ops.ray_sweep' in sys.modules\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert res.returncode == 0, res.stderr

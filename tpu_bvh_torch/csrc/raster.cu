@@ -20,9 +20,11 @@
 // and division is IEEE, so the result equals the plain PyTorch version
 // bit for bit.
 //
-// Bound on the card: f32 instruction rate (about 30 flops per ray-prim
-// test, all operands from registers or a shared-memory broadcast); memory
-// traffic is one treelet slab per sweep. Later work: tensor-core planes,
+// Bound on the card: f32 instruction rate (26 flops per ray-prim test:
+// 12 multiplies and 8 adds for the four dot products, 4 multiplies for the
+// test, one division and one multiply for t; all operands from registers
+// or a shared-memory broadcast); memory traffic is one treelet slab per
+// sweep. Later work: tensor-core planes,
 // several rays per thread, skipping dead pairs without a block barrier.
 
 #include <cuda_runtime.h>

@@ -90,6 +90,15 @@ def _cone_vs_aabb(eye, dmin, dmax, bmin, bmax):
     return _interval_cull(bmin - eye, bmax - eye, dmin, dmax)
 
 
+def _obox_vs_aabb(omin, omax, dmin, dmax, bmin, bmax):
+    """`_cone_vs_aabb` widened from a point eye to an origin box
+    [omin, omax]: can any ray with its origin in the box and its direction
+    in [dmin, dmax] hit the AABB? Per axis the reachable interval at t >= 0
+    is [omin + t*dmin, omax + t*dmax]. Used by the general-ray sweep
+    (`ray_sweep.py`), where rays do not share an eye."""
+    return _interval_cull(bmin - omax, bmax - omin, dmin, dmax)
+
+
 def _interval_cull(a, b, dmin, dmax):
     """Exists t >= 0 with t*dmax >= a and t*dmin <= b on every axis."""
     one = torch.ones((), dtype=F32, device=a.device)

@@ -1,9 +1,12 @@
 """Where the time of the port's main path goes, on one GPU.
 
-On `sponza_like(262_000)` it times `lbvh.build_single_pass` and
-`raster_gpu.render_raster_gpu` at 512^2 and 1920x1080 (leaf 64, the caps
-of chip_smoke.py): first the median host-clock ms to a synchronize without
-the profiler, then `--reps` calls each under torch.profiler (CPU + CUDA).
+On `sponza_like(262_000)` it times `lbvh.build_single_pass`,
+`collapse_fast.collapse_lbvh_to_bvh4`, `raster_gpu.render_raster_gpu` at
+512^2 and 1920x1080 (leaf 64, the caps of chip_smoke.py) and
+`ray_sweep.shadow_occlusion` on the live hits of the 1080p frame (the JAX
+bench's shadow workload, caps 4096/32768/32): first the median host-clock
+ms to a synchronize without the profiler, then `--reps` calls each under
+torch.profiler (CPU + CUDA).
 From each Chrome trace it reads:
 
 * device busy: the union of the GPU's kernel, memcpy and memset intervals,
@@ -30,12 +33,13 @@ import time
 import torch
 
 from .models import lbvh
-from .ops import raster, raster_gpu
+from .ops import collapse_fast, raster, raster_gpu, ray_sweep
 from .utils import camera, scenes
 
 SPONZA_TRIS = 262_000
 LEAF = 64
 RENDERS = {(512, 512): (1024, 4096, 32), (1920, 1080): (1024, 8192, 32)}
+SHADOW_CAPS = (4096, 32768, 32)
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -111,14 +115,21 @@ def main():
     dev = torch.device("cuda:0")
     tris = torch.from_numpy(scenes.sponza_like(SPONZA_TRIS)).to(dev)
     tr, cam = scenes.preset("sponza", dev)
-    packed = raster.pack_raster(lbvh.build_single_pass(tris), tris, leaf_size=LEAF)
-    calls = {"build": lambda: lbvh.build_single_pass(tris)}
+    aux = lbvh.build_single_pass_aux(tris)
+    packed = raster.pack_raster(aux[0], tris, leaf_size=LEAF)
+    calls = {"build": lambda: lbvh.build_single_pass(tris),
+             "collapse": lambda: collapse_fast.collapse_lbvh_to_bvh4(*aux)}
     for (w, h), caps in RENDERS.items():
         rays = camera.generate_rays(cam, w, h)
         calls[f"render_{w}x{h}"] = (
             lambda rays=rays, w=w, h=h, caps=caps:
             raster_gpu.render_raster_gpu(packed, rays, tr, w, h, *caps)
         )
+    rays = camera.generate_rays(cam, 1920, 1080)
+    hit = raster_gpu.render_raster_gpu(packed, rays, tr, 1920, 1080, *RENDERS[(1920, 1080)])[0]
+    points, live, light, eps = scenes.shadow_workload(tris, rays, hit)[:4]
+    calls["shadow_occlusion"] = lambda: ray_sweep.shadow_occlusion(
+        packed, points, live, light, tr, eps, *SHADOW_CAPS)
     print(f"card: {smi} | torch {torch.__version__} | cuda {torch.version.cuda}", flush=True)
     rows = []
     for name, fn in calls.items():

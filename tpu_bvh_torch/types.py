@@ -45,6 +45,51 @@ class Bvh2(NamedTuple):
         return self.n_leaves - 1
 
 
+class Bvh4(NamedTuple):
+    """4-wide BVH from a BVH2 collapse. A child id `c < n_internal_cap`
+    is another wide node; otherwise it is wide leaf slot
+    `c - n_internal_cap` (its primitive is `leaf_prim[c - cap]`). Slot
+    AABBs are lane-major: `slot_packed_t[k, :, x]` = slot k of wide node x
+    as (min xyz, -max xyz). The queue-ordered collapse numbers wide nodes
+    in BFS order from root 0; the fast collapse keeps each wide node at
+    its bvh2 index (unused ids have child_count 0) and `root` is the
+    bvh2 root."""
+
+    slot_packed_t: torch.Tensor  # f32[4, 6, K]
+    child_t: torch.Tensor  # i32[4, K] (-1 for empty slots)
+    parent: torch.Tensor  # i32[K]
+    child_count: torch.Tensor  # i32[K]
+    n_nodes: torch.Tensor  # i32[] wide internal nodes in use
+    leaf_prim: torch.Tensor  # i32[N] primitive of each wide leaf slot
+    leaf_parent: torch.Tensor  # i32[N]
+    root: torch.Tensor  # i32[]
+
+    @property
+    def n_internal_cap(self) -> int:
+        """Capacity of the wide-node array; also the leaf id bias."""
+        return self.child_t.shape[-1]
+
+    @property
+    def child(self) -> torch.Tensor:
+        """Row-major i32[K, 4] view."""
+        return self.child_t.T
+
+    @property
+    def child_min(self) -> torch.Tensor:
+        """Row-major f32[K, 4, 3] view."""
+        return self.slot_packed_t[:, 0:3, :].permute(2, 0, 1)
+
+    @property
+    def child_max(self) -> torch.Tensor:
+        return -self.slot_packed_t[:, 3:6, :].permute(2, 0, 1)
+
+    @classmethod
+    def from_rowmajor(cls, child_min, child_max, child, **kw) -> "Bvh4":
+        """Build from [K, 4, 3] slot AABBs and [K, 4] child ids."""
+        sp = torch.cat([child_min.permute(1, 2, 0), -child_max.permute(1, 2, 0)], dim=1)
+        return cls(slot_packed_t=sp.contiguous(), child_t=child.T.contiguous(), **kw)
+
+
 class Camera(NamedTuple):
     """Pinhole camera."""
 

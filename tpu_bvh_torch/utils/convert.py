@@ -1,11 +1,14 @@
 """State carried across from the JAX package, and back.
 
 `to_torch(cls, state, device)` builds one of the port's NamedTuples
-(`Bvh2`, `RasterScene`, `Camera`, `Transformation`, `Rays`, ...) from a
-mapping or NamedTuple of array-likes: for a Bvh2, the field dict that
-`tpu_bvh.utils.serialize.save_bvh` writes (packed_t, left, right, root).
-`to_numpy(obj)` goes back to a dict of numpy arrays. Integer fields that
-are not arrays (RasterScene.n_real, leaf_size) pass through as ints.
+(`Bvh2`, `Bvh4`, `RasterScene`, `Camera`, `Transformation`, `Rays`, ...)
+from a mapping or NamedTuple of array-likes: for a Bvh2, the field dict
+that `tpu_bvh.utils.serialize.save_bvh` writes (packed_t, left, right,
+root); for a Bvh4, the JAX `Bvh4` itself (slot_packed_t, child_t, parent,
+child_count, n_nodes, leaf_prim, leaf_parent, root). The tensors land on
+the GPU unless `device` says otherwise. `to_numpy(obj)` goes back to a
+dict of numpy arrays. Integer fields that are not arrays
+(RasterScene.n_real, leaf_size) pass through as ints.
 """
 from __future__ import annotations
 
@@ -24,9 +27,10 @@ def _field(value, device):
     return torch.as_tensor(np.array(arr, copy=True), device=device)
 
 
-def to_torch(cls, state, device="cpu"):
+def to_torch(cls, state, device="cuda"):
     """`cls` instance with every field of `state` (a mapping or a
-    NamedTuple) as a tensor on `device`."""
+    NamedTuple) as a tensor on `device` (the GPU by default; pass
+    device="cpu" for the plain paths)."""
     items = state if isinstance(state, Mapping) else state._asdict()
     return cls(**{f: _field(items[f], device) for f in cls._fields})
 

@@ -1,10 +1,11 @@
 """Build the CUDA kernels in `csrc/` and load them with ctypes.
 
-All `csrc/*.cu` files compile with nvcc into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds). The
-library lands in `tpu_bvh_torch/_build/`, named by a hash of the sources
-and flags, and is built at first use. Each C entry launches on the stream
-it is given and returns `cudaGetLastError()`; `check` raises on non-zero.
+Each `csrc/*.cu` file compiles with its own nvcc, all started together,
+and the objects link into one shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds). The library lands in
+`tpu_bvh_torch/_build/`, named by a hash of the sources and flags, and is
+built at first use. Each C entry launches on the stream it is given and
+returns `cudaGetLastError()`; `check` raises on non-zero.
 """
 from __future__ import annotations
 
@@ -20,11 +21,11 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-# IEEE division and no FMA contraction: the raster kernel must agree bit
-# for bit with its plain PyTorch version (no --use_fast_math).
+# IEEE division and no FMA contraction: every kernel must agree bit for
+# bit with its plain PyTorch version (no --use_fast_math).
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -35,6 +36,9 @@ _SIGNATURES = {
     "tbvh_refit_dense": [_P, _I, _I, _I, _P, _P, _P, _P],
     "tbvh_raster_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
                           _P, _P, _P, _P, _P, _P],
+    "tbvh_collapse_block": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "tbvh_ray_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -73,13 +77,28 @@ def build() -> str:
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *srcs]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        for s, p, out in zip(srcs, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n{out}")
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     build_seconds = time.perf_counter() - t0
+    report = "".join(outs)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    build_report = res.stdout + res.stderr
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+    build_report = report + res.stdout + res.stderr
     os.replace(tmp, path)
     return path
 

@@ -1,6 +1,7 @@
 """Scene fixtures: cornellbox, the procedural benchmark scenes, and the
 camera/transform presets. Same generators and seeds as `tpu_bvh.utils.scenes`,
-so both packages build the same triangles."""
+so both packages build the same triangles. Also the caterpillar scene of
+the JAX collapse tests and the JAX bench's shadow workload."""
 from __future__ import annotations
 
 import math
@@ -144,6 +145,57 @@ def sponza_like(n_tris: int = 262_000, seed: int = 1) -> np.ndarray:
     return np.concatenate([base, clutter], axis=0).astype(np.float32)
 
 
+CATERPILLAR_CLUSTER = 330  # tiny triangles in the caterpillar's cluster
+CATERPILLAR_CHAIN = 26  # its outliers, one Morton top bit each
+SHADOW_SLICE = 65536  # rays in the shadow workload's strided forward slice
+
+
+def caterpillar() -> np.ndarray:
+    """A chain-shaped crown: a tight cluster of tiny triangles plus outliers
+    at x = 2^-26 ... 0.5, each adding one Morton top bit. Every chain
+    ancestor's leaf range holds the whole cluster, so the long-node count
+    exceeds the fast collapse's bushy-tree capacity (its overflow branch)."""
+    tris = []
+    for i in range(CATERPILLAR_CLUSTER):
+        x = 1e-4 * (i / CATERPILLAR_CLUSTER)
+        tris.append([[x, 0, 0], [x + 1e-6, 1e-6, 0], [x, 0, 1e-6]])
+    for i in range(CATERPILLAR_CHAIN):
+        x = 2.0 ** (i - CATERPILLAR_CHAIN)
+        tris.append([[x, 0, 0], [x + 1e-6, 1e-6, 0], [x, 0, 1e-6]])
+    return np.asarray(tris, np.float32)
+
+
+def shadow_workload(tris, rays, hit):
+    """The JAX bench's shadow workload (bench.py:719-780) from a primary
+    frame: the live hits compacted and padded to a multiple of 4096 (pad
+    entries dead), a point light above the soup's object-space box,
+    eps = 1e-3 x the box diagonal, the forward shadow rays from the hit
+    points to the light over (0, dist - 2 eps), and a strided slice of at
+    most SHADOW_SLICE of them. Returns (points f32[P, 3], live bool[P], light
+    f32[3], eps, forward (origin, direction, tmin, tmax), slice indices
+    i64[S], number of live points)."""
+    tb = tris.reshape(-1, 3)
+    smin3, smax3 = tb.amin(dim=0), tb.amax(dim=0)
+    diag = float(torch.linalg.norm(smax3 - smin3))
+    light = torch.stack([(smin3[0] + smax3[0]) * 0.5, smax3[1] + 0.1 * diag,
+                         (smin3[2] + smax3[2]) * 0.5])
+    eps = 1e-3 * diag
+    idx_live = torch.nonzero(hit.prim_idx >= 0).squeeze(1)
+    n_live = int(idx_live.numel())
+    n_pad = -(-n_live // 4096) * 4096
+    sel = torch.cat([idx_live, idx_live[:1].expand(n_pad - n_live)])
+    live = torch.arange(n_pad, device=tris.device) < n_live
+    t_sel = torch.clamp(hit.t[sel], max=2.0 * diag)
+    points = rays.origin[sel] + rays.direction[sel] * t_sel[:, None]
+    dvec = light[None, :] - points
+    dist = torch.linalg.norm(dvec, dim=1)
+    dl = dvec / torch.clamp(dist, min=1e-9)[:, None]
+    fwd = (points + dl * eps, dl, torch.zeros_like(dist), torch.where(live, dist - 2 * eps, -1.0))
+    nv = min(SHADOW_SLICE, n_pad)
+    vsel = torch.linspace(0, n_pad - 1, nv, dtype=torch.float64, device=tris.device)
+    return points, live, light, eps, fwd, vsel.to(torch.int64), n_live
+
+
 def _quat_axis_angle(x, y, z, w):
     axis = np.array([x, y, z], np.float64)
     axis = axis / np.linalg.norm(axis)
@@ -154,8 +206,10 @@ def _f32(x, device):
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
-def preset(name: str, device="cpu") -> tuple[Transformation, Camera]:
-    """Scene poses (object transform, camera) for cornellbox, bunny, sponza."""
+def preset(name: str, device="cuda") -> tuple[Transformation, Camera]:
+    """Scene poses (object transform, camera) for cornellbox, bunny, sponza,
+    on the GPU unless `device` says otherwise (device="cpu" for the plain
+    paths)."""
     fov = np.float32(45.0 * math.pi / 180.0)
     down_z = _quat_axis_angle(0.0, 0.0, 1.0, -1.57)
     ident = [0.0, 0.0, 0.0, 1.0]

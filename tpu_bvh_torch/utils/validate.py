@@ -57,3 +57,49 @@ def check_parent_child_consistency(bvh) -> bool:
     right = _as_np(bvh.right)[:m]
     want = np.minimum(packed[:, left], packed[:, right])
     return bool(np.array_equal(want, packed[:, :m]))
+
+
+def check_bvh4_isomorphic(fast, oracle) -> bool:
+    """The fast collapse's sparse numbering (wide node x at its bvh2 id)
+    equals the BFS numbering of `cpu_reference.collapse_cpu` (`oracle`)
+    under the oracle's `b2_node` map: counts, children, parents, the used
+    slots' AABBs bit for bit, and the wide leaves."""
+    b2 = oracle["b2_node"]
+    k = oracle["n_nodes"]
+    used = b2[:k]
+    remap = lambda ids: np.where(ids >= 0, b2[np.clip(ids, 0, len(b2) - 1)], -1)
+    o_child = oracle["child"][:k]
+    want_child = np.where(o_child < fast.n_internal_cap, remap(o_child), o_child)
+    slot_used = np.arange(4)[None, :] < oracle["child_count"][:k][:, None]
+    count = _as_np(fast.child_count)
+    return bool(
+        int(_as_np(fast.n_nodes)) == k and int((count > 0).sum()) == k
+        and int(_as_np(fast.root)) == b2[0]
+        and np.array_equal(count[used], oracle["child_count"][:k])
+        and np.array_equal(_as_np(fast.child)[used], want_child)
+        and np.array_equal(_as_np(fast.parent)[used], remap(oracle["parent"][:k]))
+        and all(_as_np(getattr(fast, f))[used][slot_used].tobytes()
+                == oracle[f][:k][slot_used].tobytes() for f in ("child_min", "child_max"))
+        and np.array_equal(_as_np(fast.leaf_prim), oracle["leaf_prim"])
+        and np.array_equal(_as_np(fast.leaf_parent), remap(oracle["leaf_parent"]))
+    )
+
+
+def check_bvh4_correctness(bvh4, n_prims: int) -> bool:
+    """The 4-wide tree visits every primitive exactly once."""
+    child = _as_np(bvh4.child)
+    leaf_prim = _as_np(bvh4.leaf_prim)
+    cap = bvh4.n_internal_cap
+    prims = []
+    stack = [int(_as_np(bvh4.root))]
+    while stack:
+        idx = stack.pop()
+        if idx >= cap:
+            prims.append(leaf_prim[idx - cap])
+        else:
+            for c in child[idx]:
+                if c >= 0:
+                    stack.append(int(c))
+    prims = np.array(prims)
+    uniq = np.unique(prims)
+    return bool(len(prims) == n_prims and len(uniq) == n_prims)
