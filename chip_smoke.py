@@ -2,14 +2,14 @@
 """GPU smoke test of the PyTorch + CUDA port (`tpu_bvh_torch`) on one card.
 
 Drives the port's main path at sponza scale (262K triangles): the
-single-pass LBVH build, the fast BVH2 -> BVH4 collapse, `pack_raster` and
-the raster render at 512^2 and 1920x1080, and the shadow path (reversed
-point-light occlusion of the 1080p primary hits, and the general
-closest-hit trace on a 64K strided slice of the forward shadow rays). On
-the way it
+single-pass and two-pass LBVH builds, the fast BVH2 -> BVH4 collapse,
+`pack_raster` and the raster render at 512^2 and 1920x1080, the shadow
+path (reversed point-light occlusion of the 1080p primary hits, and the
+general closest-hit trace on a 64K strided slice of the forward shadow
+rays), and the PLOC++ and HPLOC builds. On the way it
 
 1. prints the card (name and power limit from nvidia-smi) and versions;
-2. builds the five CUDA kernels from `tpu_bvh_torch/csrc/` (one nvcc per
+2. builds the CUDA kernels from `tpu_bvh_torch/csrc/` (one nvcc per
    source, all started together) and times it;
 3. holds each kernel against its plain PyTorch version on the card, bit
    for bit in every output: the topology scan, the dense refit and the
@@ -18,22 +18,30 @@ the way it
    with the renders' caps; the ray sweep in occlusion mode on every live
    shadow ray (caps 4096/32768/32) and in closest-hit mode on the 64K
    slice (caps 4096/24576/32) and on the 1080p primary rays (caps that
-   cannot overflow), where most rays hit;
-4. runs the main path path by path (build, collapse, render, shadow),
-   every launch counter set to 0 just before each and read just after,
-   and checks: every kernel of each path launched; the GPU Bvh2 and Bvh4
-   are bit-identical to the port's CPU build and collapse; the validity
-   checks; the BVH2 and BVH4 SAH against their pins; the collapse's
-   isomorphism to the sequential oracle `collapse_cpu` on
-   sponza_like(16384); a caterpillar scene takes the collapse's overflow
-   branch on the card and still equals the CPU collapse; no raster or
-   shadow overflow; the reversed occlusion mask equals the forward trace's
-   capped answer outside the boundary strips; the 512^2 image is written
-   as a PNG;
-5. times the build, the collapse, the renders, `shadow_occlusion` and
+   cannot overflow), where most rays hit; the PLOC nearest-neighbour
+   stage on sponza's first-round state at shift 32 and 9, the emission
+   and the whole round (ping-pong and allocating) on three states along
+   the sponza HPLOC build, and the finisher on its hand-over state and at
+   its shared-memory width limit (one cluster more is refused);
+4. runs the main path path by path (build, collapse, render, shadow,
+   ploc), every launch counter set to 0 just before each and read just
+   after, and checks: every kernel of each path launched; the GPU Bvh2s
+   (single-pass, two-pass, PLOC, HPLOC) and the Bvh4 are bit-identical
+   to the port's CPU builds and collapse, and the PLOC and HPLOC trees to
+   the plain round loop's on the card; the validity checks; the BVH2 SAHs
+   and the BVH4 SAH against their pins; the PLOC tree's queue-ordered
+   collapse is a valid Bvh4; the collapse's isomorphism to the sequential
+   oracle `collapse_cpu` on sponza_like(16384); a caterpillar scene takes
+   the collapse's overflow branch on the card and still equals the CPU
+   collapse; no raster or shadow overflow; the reversed occlusion mask
+   equals the forward trace's capped answer outside the boundary strips;
+   the 512^2 image is written as a PNG;
+5. times the builds, the collapse, the renders, `shadow_occlusion` and
    `trace_rays` (medians after warm-up, on CUDA events and on the host
-   clock) and each kernel beside its plain version, and computes each
-   kernel's bound from this run's inputs.
+   clock; PLOC and HPLOC in 10 alternating pairs, with the gap per
+   pair), prints each PLOC build's rounds, finisher launches and host
+   syncs, and times each kernel beside its plain version and computes
+   its bound from this run's inputs.
 
 Any failure raises. The last three lines are the kernels JSON line, the
 nvidia-smi line and {"ok": true, "device": {...}}. Needs one CUDA device
@@ -55,6 +63,7 @@ import time
 SPONZA_TRIS = 262_000
 SAH_PIN = 333.01  # BVH2 SAH of the sponza_like single-pass tree (a tree property)
 SAH4_PIN = 159.13  # its BVH4 SAH after the collapse (a tree property)
+PLOC_SAH_PINS = {"ploc": 280.94, "hploc": 281.14}  # the sponza_like trees (bench.py:91-92)
 LEAF = 64
 RENDERS = {  # (width, height): (cand_cap, pair_cap, group), as the JAX bench uses them
     (512, 512): (1024, 4096, 32),
@@ -67,6 +76,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 # flops per ray-prim test, as counted in the kernels' notes
 FLOPS_PER_TEST = {"raster_sweep": 26, "ray_sweep": 50}
+# flops per PLOC pair area: 6 mins for the union, 6 for the extents
+# (negate, subtract), 5 for the products and their sums, 1 doubling; a
+# lane needs R pair areas (each pair serves both its lanes)
+FLOPS_PER_PAIR = 18
+ROUND_SOURCES = ["tpu_bvh_torch/csrc/ploc_nn.cu", "tpu_bvh_torch/csrc/ploc_round.cu"]
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "scan32": ("tpu_bvh_torch/csrc/scan32.cu", "tpu_bvh/ops/pallas/scan32.py:280"),
     "refit_dense": ("tpu_bvh_torch/csrc/refit_dense.cu", "tpu_bvh/ops/pallas/refit_dense.py:102"),
@@ -74,6 +88,13 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                        "tpu_bvh/ops/pallas/collapse_block.py:481"),
     "raster_sweep": ("tpu_bvh_torch/csrc/raster.cu", "tpu_bvh/ops/raster_tpu.py:366"),
     "ray_sweep": ("tpu_bvh_torch/csrc/ray_sweep.cu", "tpu_bvh/ops/ray_sweep.py:283"),
+    # B6 (and B8, :337): one round is B10's launch then B9's; its count is
+    # rounds, each also counted under ploc_nn and ploc_emit_compact
+    "ploc_round": ("tpu_bvh_torch/csrc/ploc_round.cu", "tpu_bvh/ops/pallas/ploc_round.py:401"),
+    "ploc_finish": ("tpu_bvh_torch/csrc/ploc_finish.cu", "tpu_bvh/ops/pallas/ploc_round.py:616"),
+    "ploc_emit_compact": ("tpu_bvh_torch/csrc/ploc_round.cu",
+                          "tpu_bvh/ops/pallas/ploc_round.py:171"),
+    "ploc_nn": ("tpu_bvh_torch/csrc/ploc_nn.cu", "tpu_bvh/ops/pallas/ploc_nn.py:152"),
 }
 
 
@@ -162,6 +183,31 @@ def sweep_bound(torch, name, args, out):
     return bound(n_bytes, tests * FLOPS_PER_TEST[name]), info
 
 
+def ploc_bounds(nn, nc, radius, shift):
+    """Bounds of B10, B9 and one round (B6) on a state of nc live clusters
+    and its NN output, counting only what each must move. B10 reads the
+    state rows of every live lane (all 8, or 7 at shift 32, where one
+    segment makes the code row unneeded), writes its 8 output rows and
+    computes R pair areas per lane. B9 reads the flag row of every live
+    lane, the 8 state rows of a survivor that did not merge, state rows
+    6-7 and NN rows 0-6 of a merge lane and nothing more of a dropped
+    lane; it writes 8 rows per survivor and per merged node. The round
+    reads the state once (at shift 32 the code row only of survivors) and
+    writes the survivors and the merged nodes."""
+    flags = nn[7, :nc]
+    nm = int((flags == 1).sum())
+    n_keep = nc - int((flags == 2).sum())
+    flops = nc * radius * FLOPS_PER_PAIR
+    state_rows = 7 if shift >= 32 else 8
+    writes = 8 * n_keep + 8 * nm
+    emit_reads = nc + 8 * (n_keep - nm) + 9 * nm
+    round_reads = state_rows * nc + (n_keep if shift >= 32 else 0)
+    info = f"{nc} clusters, {nm} merges, {nc - n_keep} dropped, shift {shift}"
+    return {"ploc_nn": (bound(4 * (state_rows + 8) * nc, flops), info),
+            "ploc_emit_compact": (bound(4 * (emit_reads + writes), 0), info),
+            "ploc_round": (bound(4 * (round_reads + writes), flops), info)}
+
+
 def main():
     args = parse_args()
     import numpy as np
@@ -170,11 +216,13 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from tpu_bvh_torch.models import lbvh
-    from tpu_bvh_torch.ops import (collapse_block, collapse_fast, radix_tree, raster,
-                                   raster_gpu, ray_sweep, refit, refit_dense, scan32)
+    from tpu_bvh_torch.models import lbvh, ploc
+    from tpu_bvh_torch.ops import (collapse, collapse_block, collapse_fast, ploc_nn, ploc_round,
+                                   radix_tree, raster, raster_gpu, ray_sweep, refit, refit_dense,
+                                   scan32)
+    from tpu_bvh_torch.ops import ploc as ploc_ops
     from tpu_bvh_torch.ops.aabb import triangle_aabbs
-    from tpu_bvh_torch.types import Bvh4, Rays
+    from tpu_bvh_torch.types import PLOC_RADIUS, Bvh4, Rays
     from tpu_bvh_torch.utils import camera, image, kernels, scenes, validate
     from tpu_bvh_torch.utils.cost import sah_cost_bvh2, sah_cost_bvh4
     from tpu_bvh_torch.utils.cpu_reference import collapse_cpu
@@ -184,8 +232,13 @@ def main():
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    modules = {"scan32": scan32, "refit_dense": refit_dense, "collapse_block": collapse_block,
-               "raster_sweep": raster_gpu, "ray_sweep": ray_sweep}
+    counters = {  # kernel: (module, name of its launch counter)
+        "scan32": (scan32, "launches"), "refit_dense": (refit_dense, "launches"),
+        "collapse_block": (collapse_block, "launches"), "raster_sweep": (raster_gpu, "launches"),
+        "ray_sweep": (ray_sweep, "launches"), "ploc_round": (ploc_round, "rounds"),
+        "ploc_finish": (ploc_round, "finish_launches"),
+        "ploc_emit_compact": (ploc_round, "emit_launches"), "ploc_nn": (ploc_nn, "launches"),
+    }
     # phase 1: the card
     print(f"[1] device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch "
           f"{torch.__version__} | cuda {torch.version.cuda} | python {sys.version.split()[0]}",
@@ -198,9 +251,9 @@ def main():
         print(f"[2] kernel library found built: {kernels.build()}", flush=True)
     else:
         print(kernels.build_report, flush=True)
-        print(f"[2] kernel build: {time.perf_counter() - t0:.2f} s "
-              f"(nvcc, {len(KERNELS)} sources in parallel: {kernels.build_seconds:.2f} s)",
-              flush=True)
+        print(f"[2] kernel build: {time.perf_counter() - t0:.2f} s (nvcc, "
+              f"{len(set(src for src, _ in KERNELS.values()))} sources in parallel: "
+              f"{kernels.build_seconds:.2f} s)", flush=True)
 
     # phase 3: each kernel against its plain version on the card
     print("[3] kernels vs plain versions", flush=True)
@@ -286,25 +339,96 @@ def main():
         require(bool((got[1] >= 0).any()), f"ray sweep {what}: {int((got[1] >= 0).sum())} hits")
         inputs[f"ray_sweep_{key}"] = (sweep, got)
 
+    # the PLOC kernels: B10 on sponza's first-round state; B9 and the round
+    # (B6 ping-pong, B8 allocating) on three states along the sponza HPLOC
+    # build (the plain rounds on the card); B7 on its hand-over state and on
+    # the first MAX_FIN_WIDTH sorted leaves. Node buffers start as junk, so
+    # a column written by one version only shows.
+    R = PLOC_RADIUS
+    codes, leaf_packed_t, _ = lbvh._sorted_leaves_packed(lbvh.prim_refs_from_triangles(tris), True)
+    n = leaf_packed_t.shape[1]
+    mat0 = ploc_ops.initial_state(leaf_packed_t, codes)
+
+    def junk(shape):
+        return torch.full(shape, -3, dtype=torch.int32, device=dev)
+
+    for shift in (32, ploc.HPLOC_SHIFT0):
+        got = ploc_nn.ploc_nn_round_raw(mat0, n, shift, R)
+        want = ploc_nn.ploc_nn_round_raw_reference(mat0, n, shift, R)
+        torch.cuda.synchronize()
+        same_outputs([got], [want], "ploc_nn", f"sponza first round, n={n}, shift {shift}")
+        if shift == 32:
+            inputs["ploc"] = (mat0, got)
+    states, mat, nc, shift = [], mat0, n, ploc.HPLOC_SHIFT0
+    sink = junk((8, n - 1))
+    while nc > ploc_round.FIN_WIDTH:
+        states.append((mat, nc, shift))
+        mat, _, nm = ploc_round.ploc_round_reference(mat, sink, nc, shift, n - nc, R)
+        nc -= int(nm)
+        shift = min(shift + ploc.HPLOC_SHIFT_STEP, 32)
+    hand_over = (mat, nc, shift)
+    for k in sorted({0, len(states) // 2, len(states) - 1}):
+        st, nc, shift = states[k]
+        base = n - nc
+        what = f"HPLOC round {k} of the {len(states)} before the hand-over, nc={nc}, shift {shift}"
+        nn = ploc_nn.ploc_nn_round_raw_reference(st, nc, shift, R)
+        got = ploc_round.ploc_emit_compact(st, nn, junk((8, n - 1)), nc, base)
+        want = ploc_round.ploc_emit_compact_reference(st, nn, junk((8, n - 1)), nc, base)
+        torch.cuda.synchronize()
+        same_outputs(got, want, "ploc_emit_compact", what)
+        got = ploc_round.ploc_round_pp(st, junk(st.shape), junk((8, n - 1)), nc, shift, base, R)
+        want = ploc_round.ploc_round_pp_reference(st, junk(st.shape), junk((8, n - 1)), nc, shift,
+                                                  base, R)
+        torch.cuda.synchronize()
+        same_outputs(got, want, "ploc_round", what + ", ping-pong (B6)")
+        got = ploc_round.ploc_round_fused(st, junk((8, n - 1)), nc, shift, base, R)
+        want = ploc_round.ploc_round_reference(st, junk((8, n - 1)), nc, shift, base, R)
+        torch.cuda.synchronize()
+        same_outputs(got, want, "ploc_round", what + ", allocating (B8)")
+    mat, nc, shift = hand_over
+    step = ploc.HPLOC_SHIFT_STEP
+    got = ploc_round.ploc_finish(mat, junk((8, n - 1)), nc, shift, n - nc, R, step)
+    want = ploc_round.ploc_finish_reference(mat, junk((8, n - 1)), nc, shift, n - nc, R, step)
+    torch.cuda.synchronize()
+    same_outputs([got], [want], "ploc_finish", f"HPLOC hand-over state, nc={nc}, shift {shift}")
+    inputs["finish"] = (mat, nc, shift, n - nc)
+    W = ploc_round.MAX_FIN_WIDTH
+    lim = mat0[:, :W + 1].contiguous()  # the first W + 1 sorted leaves
+    for shift in (32, ploc.HPLOC_SHIFT0):
+        got = ploc_round.ploc_finish(lim, junk((8, W)), W, shift, 0, R, step)
+        want = ploc_round.ploc_finish_reference(lim, junk((8, W)), W, shift, 0, R, step)
+        torch.cuda.synchronize()
+        same_outputs([got], [want], "ploc_finish",
+                     f"at its width limit, {W} clusters, shift {shift}")
+    before = ploc_round.finish_launches
+    try:
+        ploc_round.ploc_finish(lim, junk((8, W)), W + 1, 32, 0, R, step)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused and ploc_round.finish_launches == before,
+            f"ploc_finish refuses {W + 1} clusters before the launch")
+
     # phase 4: the main path through the entry points a user calls, path by
     # path, each with every launch counter set to 0 just before it
-    print(f"[4] main path on sponza_like({SPONZA_TRIS}): build -> collapse -> render -> shadow",
-          flush=True)
+    print(f"[4] main path on sponza_like({SPONZA_TRIS}): build -> collapse -> render -> shadow "
+          f"-> ploc", flush=True)
     launches = {}
 
     def run_path(path, names, fn):
-        for mod in modules.values():
-            mod.launches = 0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
         out = fn()
         torch.cuda.synchronize()
-        counts = {name: mod.launches for name, mod in modules.items()}
+        counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
         print(f"  launches in the {path} path: {counts}", flush=True)
         require(all(counts[nm] > 0 for nm in names), f"every kernel of the {path} path launched")
         launches.update({nm: counts[nm] for nm in names})
         return out
 
-    bvh, parent, first, last = run_path("build", ["scan32", "refit_dense"],
-                                        lambda: lbvh.build_single_pass_aux(tris))
+    (bvh, parent, first, last), bvh_two = run_path(
+        "build", ["scan32", "refit_dense"],
+        lambda: (lbvh.build_single_pass_aux(tris), lbvh.build_two_pass(tris)))
     wide = run_path("collapse", ["collapse_block"],
                     lambda: collapse_fast.collapse_lbvh_to_bvh4(bvh, parent, first, last))
 
@@ -328,6 +452,15 @@ def main():
 
     work, (occ, _, ovf_occ), (hit_v, _, ovf_v) = run_path("shadow", ["ray_sweep"], shadow)
 
+    def ploc_builds():
+        out = {}
+        for name, build in (("ploc", ploc.build_ploc), ("hploc", ploc.build_hploc)):
+            out[name] = (build(tris), dict(ploc_ops.last_build))
+        return out
+
+    plocs = run_path("ploc", ["ploc_round", "ploc_finish", "ploc_emit_compact", "ploc_nn"],
+                     ploc_builds)
+
     # the build
     cpu = lbvh.build_single_pass_aux(tris.cpu())
     gpu = (bvh, parent, first, last)
@@ -339,6 +472,25 @@ def main():
     require(validate.check_parent_child_consistency(bvh), "check_parent_child_consistency")
     sah = float(sah_cost_bvh2(bvh))
     require(abs(sah - SAH_PIN) <= 0.01 * SAH_PIN, f"BVH2 SAH {sah:.4f} within 1% of {SAH_PIN}")
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    def same_bvh(got, want):
+        return all(g.dtype == w.dtype and torch.equal(bits(g.cpu()), bits(w.cpu()))
+                   for g, w in zip(got, want))
+
+    def valid_bvh2(tree, what, pin):
+        require(validate.check_root_aabb(tree) and validate.check_bvh2_correctness(tree, n_tris)
+                and validate.check_parent_child_consistency(tree),
+                f"{what}: check_root_aabb, check_bvh2_correctness, check_parent_child_consistency")
+        cost = float(sah_cost_bvh2(tree))
+        require(abs(cost - pin) <= 0.01 * pin, f"{what}: BVH2 SAH {cost:.4f} within 1% of {pin}")
+
+    n_tris = tris.shape[0]
+    require(same_bvh(bvh_two, lbvh.build_two_pass(tris.cpu())),
+            "GPU two-pass Bvh2 (packed_t, left, right, root) == CPU build")
+    valid_bvh2(bvh_two, "two-pass", SAH_PIN)
 
     # the collapse
     wide_cpu = collapse_fast.collapse_lbvh_to_bvh4(*cpu)
@@ -401,10 +553,54 @@ def main():
             f"trace_rays on the slice: {int(hit_s.sum())} hits ({int((hit_s & ~boundary).sum())} "
             f"outside the boundary strips), the forward trace's rays outside them")
 
+    # the PLOC and HPLOC builds: the kernel path against the plain round loop on
+    # the card and against the port's CPU build, all at full size
+    m_int = n_tris - 1
+    for name, hploc in (("ploc", False), ("hploc", True)):
+        tree, info = plocs[name]
+        left, right, int_packed_t = ploc_ops.ploc_build_topology_packed_reference(
+            leaf_packed_t, codes, hploc=hploc, shift0=ploc.HPLOC_SHIFT0,
+            shift_step=ploc.HPLOC_SHIFT_STEP)
+        require(torch.equal(tree.left[:m_int], left) and torch.equal(tree.right[:m_int], right)
+                and torch.equal(bits(tree.packed_t[:, :m_int]), bits(int_packed_t)),
+                f"GPU {name} tree == the plain round loop's on the card ({info})")
+        t0 = time.perf_counter()
+        tree_cpu = getattr(ploc, f"build_{name}")(tris.cpu())
+        require(same_bvh(tree, tree_cpu), f"GPU {name} Bvh2 (packed_t, left, right, root) == CPU "
+                                          f"build ({time.perf_counter() - t0:.2f} s on the CPU)")
+        valid_bvh2(tree, name, PLOC_SAH_PINS[name])
+    wide_ploc = collapse.collapse_bvh2_to_bvh4(plocs["ploc"][0])
+    require(validate.check_bvh4_correctness(wide_ploc, n_tris),
+            "collapse_bvh2_to_bvh4 of the PLOC tree: check_bvh4_correctness")
+
     # phase 5: timings (medians after warm-up; host clock end to end)
     print(f"[5] timings on {smi} (ms: CUDA events / host clock to synchronize)", flush=True)
     ev, wall = time_ms(torch, lambda: lbvh.build_single_pass(tris), reps=10)
     print(f"  sponza_like {SPONZA_TRIS} single-pass build: {ev!r} / {wall!r} ms", flush=True)
+    ev, wall = time_ms(torch, lambda: lbvh.build_two_pass(tris), reps=10)
+    print(f"  two-pass build: {ev!r} / {wall!r} ms", flush=True)
+    # PLOC and HPLOC run the same host code, so they are timed in 10
+    # alternating pairs: a gap that holds in every pair is not host drift
+    p_times = {"ploc": ([], []), "hploc": ([], [])}
+    p_info = {}
+    for rep in range(12):  # two warm-up pairs
+        for name in p_times:
+            ev, wall = time_ms(torch, lambda: getattr(ploc, f"build_{name}")(tris), reps=1,
+                               warmup=0)
+            p_info[name] = dict(ploc_ops.last_build)
+            if rep >= 2:
+                p_times[name][0].append(ev)
+                p_times[name][1].append(wall)
+    for name, (evs, walls) in p_times.items():
+        info = p_info[name]
+        print(f"  build_{name}: {statistics.median(evs)!r} / {statistics.median(walls)!r} ms "
+              f"(10 runs, alternating); {info['rounds']} rounds of B6, {info['finish']} B7 "
+              f"launch, {info['host_syncs']} host syncs in the round loop; host ms per run "
+              f"{[round(w, 3) for w in walls]}", flush=True)
+    gaps = [[h - p for h, p in zip(p_times["hploc"][k], p_times["ploc"][k])] for k in (0, 1)]
+    print(f"  build_hploc - build_ploc per pair (median; pairs with HPLOC slower): events "
+          f"{statistics.median(gaps[0])!r} ms ({sum(g > 0 for g in gaps[0])}/10), host "
+          f"{statistics.median(gaps[1])!r} ms ({sum(g > 0 for g in gaps[1])}/10)", flush=True)
     ev, wall = time_ms(torch, lambda: collapse_fast.collapse_lbvh_to_bvh4(bvh, parent, first, last),
                        reps=10)
     print(f"  collapse_lbvh_to_bvh4: {ev!r} / {wall!r} ms", flush=True)
@@ -437,6 +633,24 @@ def main():
         "raster_sweep": sweep_bound(torch, "raster_sweep", r_args, r_out),
         "ray_sweep": sweep_bound(torch, "ray_sweep", so_args, so_out),
     }
+    # PLOC's first round (all clusters, shift 32) for B10, B9 and the round;
+    # the HPLOC hand-over state for B7, whose work is the clusters of each
+    # of its rounds
+    p_mat, p_nn = inputs["ploc"]
+    p_nodes, p_spare = junk((8, n_tris - 1)), junk(p_mat.shape)
+    p_work = ploc_round.round_work(n_tris, dev)
+    f_mat, f_nc, f_shift, f_base = inputs["finish"]
+    f_lanes, f_rounds, st, nc, shift = 0, 0, f_mat, f_nc, f_shift
+    while nc > 1:
+        f_lanes, f_rounds = f_lanes + nc, f_rounds + 1
+        st, _, nm = ploc_round.ploc_round_reference(st, sink, nc, shift, n_tris - nc, R)
+        nc, shift = nc - int(nm), min(shift + step, 32)
+    bounds.update(ploc_bounds(p_nn, n_tris, R, 32))
+    f_rows = 7 if f_shift >= 32 else 8  # the code row is not needed at shift 32
+    bounds["ploc_finish"] = (bound(4 * (f_rows * f_nc + 8 * (f_nc - 1)),
+                                   f_lanes * R * FLOPS_PER_PAIR),
+                             f"{f_nc} clusters, {f_rounds} rounds, {f_lanes} cluster-rounds, "
+                             f"one block on one of the card's SMs")
     timed = {  # kernel, plain, kernel reps, plain reps, plain warm-up
         "scan32": (lambda: scan32.scan_core(inputs["scan"]),
                    lambda: scan32.scan_core_reference(inputs["scan"]), 20, 5, 1),
@@ -448,19 +662,37 @@ def main():
                          lambda: raster_gpu.raster_sweep_reference(*r_args), 20, 3, 1),
         "ray_sweep": (lambda: ray_sweep.ray_sweep_kernel(*so_args, True),
                       lambda: ray_sweep.ray_sweep_reference(*so_args, True), 20, 3, 1),
+        "ploc_round": (
+            lambda: ploc_round.ploc_round_pp(p_mat, p_spare, p_nodes, n_tris, 32, 0, R, p_work),
+            lambda: ploc_round.ploc_round_pp_reference(p_mat, p_spare, p_nodes, n_tris, 32, 0, R),
+            20, 5, 1),
+        "ploc_finish": (
+            lambda: ploc_round.ploc_finish(f_mat, p_nodes, f_nc, f_shift, f_base, R, step),
+            lambda: ploc_round.ploc_finish_reference(f_mat, p_nodes, f_nc, f_shift, f_base, R,
+                                                     step), 20, 3, 1),
+        "ploc_emit_compact": (
+            lambda: ploc_round.ploc_emit_compact(p_mat, p_nn, p_nodes, n_tris, 0),
+            lambda: ploc_round.ploc_emit_compact_reference(p_mat, p_nn, p_nodes, n_tris, 0),
+            20, 5, 1),
+        "ploc_nn": (lambda: ploc_nn.ploc_nn_round_raw(p_mat, n_tris, 32, R),
+                    lambda: ploc_nn.ploc_nn_round_raw_reference(p_mat, n_tris, 32, R), 20, 5, 1),
     }
     rows_json = []
     for name, (kfn, pfn, kreps, preps, pwarm) in timed.items():
         k_ms, k_wall = time_ms(torch, kfn, kreps)
         p_ms, p_wall = time_ms(torch, pfn, preps, warmup=pwarm)
         (b_ms, b_by), info = bounds[name]
+        unit = "rounds (B10 + B9 launches each)" if name == "ploc_round" else "launches"
         print(f"  {name}: kernel {k_ms!r} / {k_wall!r} ms, plain {p_ms!r} / {p_wall!r} ms, "
-              f"bound {b_ms!r} ms ({b_by}), {launches[name]} launches on the main path"
+              f"bound {b_ms!r} ms ({b_by}), {launches[name]} {unit} on the main path"
               + (f"; {info}" if info else ""), flush=True)
-        rows_json.append({"name": name, "route": "cuda", "source": KERNELS[name][0],
-                          "replaces": KERNELS[name][1], "launches": launches[name],
-                          "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
-                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        row = {"name": name, "route": "cuda", "source": KERNELS[name][0],
+               "replaces": KERNELS[name][1], "launches": launches[name],
+               "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        if name == "ploc_round":  # no kernel of its own: B10 then B9
+            row.update(sources=ROUND_SOURCES, launches_are=unit)
+        rows_json.append(row)
     for key, what in (("closest", "the slice"), ("primary", "the 1080p primary rays")):
         c_args, c_out = inputs[f"ray_sweep_{key}"]
         (b_c, _), info_c = sweep_bound(torch, "ray_sweep", c_args, c_out)

@@ -10,10 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_bvh_torch.models import lbvh
-from tpu_bvh_torch.ops import (collapse_block, collapse_fast, radix_tree, raster, raster_gpu,
-                               ray_sweep, refit_dense, scan32)
-from tpu_bvh_torch.types import Bvh4, Rays
+from tpu_bvh_torch.models import lbvh, ploc
+from tpu_bvh_torch.ops import (collapse_block, collapse_fast, ploc_nn, ploc_round, radix_tree,
+                               raster, raster_gpu, ray_sweep, refit_dense, scan32)
+from tpu_bvh_torch.ops import ploc as ploc_ops
+from tpu_bvh_torch.types import PLOC_RADIUS, Bvh4, Rays
 from tpu_bvh_torch.utils import camera, scenes, validate
 
 pytestmark = pytest.mark.cuda
@@ -183,3 +184,154 @@ def test_ray_sweep_kernel_at_its_leaf_size_limit(cuda, leaf):
     for g, x in zip(got, ray_sweep.ray_sweep_reference(*args)):
         assert torch.equal(g, x)
     assert bool((got[1] >= 0).any())
+
+
+# ------------------------------------------------------------------ PLOC
+
+R = PLOC_RADIUS
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _junk(shape, cuda):
+    """A buffer of -3s: a column that only one version writes shows."""
+    return torch.full(shape, -3, dtype=torch.int32, device=cuda)
+
+
+def _ploc_state(cuda, n_tris=16_384):
+    """The first-round cluster state of sponza_like(n_tris)."""
+    tris = torch.from_numpy(scenes.sponza_like(n_tris)).to(cuda)
+    codes, packed_t, _ = lbvh._sorted_leaves_packed(lbvh.prim_refs_from_triangles(tris), True)
+    return ploc_ops.initial_state(packed_t, codes)
+
+
+def _signed_zero_state(cuda, size=640, seed=0):
+    """Boxes with -0.0 and +0.0 faces and many equal areas."""
+    rng = np.random.default_rng(seed)
+    mn = rng.choice(np.array([-1.0, -0.0, 0.0, 0.5], np.float32), (3, size))
+    mx = mn + rng.choice(np.array([0.0, 0.5], np.float32), (3, size))
+    cols = np.concatenate([mn, -mx]).astype(np.float32).view(np.int32)
+    codes = np.sort(rng.integers(0, 1 << 30, size))
+    node = rng.integers(0, 2 * size, size)
+    mat = np.concatenate([cols, codes[None], node[None]]).astype(np.int32)
+    return torch.from_numpy(mat).to(cuda)
+
+
+def _hploc_states(cuda):
+    """(n, [(state, nc, shift) before each of the first six HPLOC rounds])
+    of sponza_like(16384), from the plain rounds on the card."""
+    mat = _ploc_state(cuda)
+    n = mat.shape[1]
+    states, nc, shift = [], n, ploc.HPLOC_SHIFT0
+    sink = _junk((8, n - 1), cuda)
+    while len(states) < 6:
+        states.append((mat, nc, shift))
+        mat, _, nm = ploc_round.ploc_round_reference(mat, sink, nc, shift, n - nc, R)
+        nc -= int(nm)
+        shift = min(shift + ploc.HPLOC_SHIFT_STEP, 32)
+    return n, states
+
+
+@pytest.mark.parametrize("radius", [4, R])
+@pytest.mark.parametrize("state,nc,shift", [("sponza", None, 32), ("sponza", None, 9),
+                                            ("sponza", 5000, 3), ("zeros", 600, 32),
+                                            ("zeros", 640, 24)])
+def test_ploc_nn_kernel_matches_plain(cuda, state, nc, shift, radius):
+    """B10 on the sponza state (the segments of shifts 9 and 3, nc < S) and
+    on signed-zero boxes with tied areas."""
+    mat = _ploc_state(cuda) if state == "sponza" else _signed_zero_state(cuda)
+    nc = mat.shape[1] if nc is None else nc
+    before = ploc_nn.launches
+    got = ploc_nn.ploc_nn_round_raw(mat, nc, shift, radius)
+    torch.cuda.synchronize()
+    assert ploc_nn.launches == before + 1
+    assert torch.equal(got, ploc_nn.ploc_nn_round_raw_reference(mat, nc, shift, radius))
+    assert bool((got[7] == 1).any())
+
+
+@pytest.mark.parametrize("k", [0, 2, 5])
+def test_ploc_round_kernels_match_plain(cuda, k):
+    """B9, B6 (ping-pong) and B8 (allocating) on states along the HPLOC
+    build, in every output: the survivors, the node buffer, n_merged."""
+    n, states = _hploc_states(cuda)
+    mat, nc, shift = states[k]
+    base = n - nc
+    nn = ploc_nn.ploc_nn_round_raw_reference(mat, nc, shift, R)
+    before = (ploc_round.emit_launches, ploc_round.rounds)
+    cases = [
+        (ploc_round.ploc_emit_compact(mat, nn, _junk((8, n - 1), cuda), nc, base),
+         ploc_round.ploc_emit_compact_reference(mat, nn, _junk((8, n - 1), cuda), nc, base)),
+        (ploc_round.ploc_round_pp(mat, _junk(mat.shape, cuda), _junk((8, n - 1), cuda), nc, shift,
+                                  base, R),
+         ploc_round.ploc_round_pp_reference(mat, _junk(mat.shape, cuda), _junk((8, n - 1), cuda),
+                                            nc, shift, base, R)),
+        (ploc_round.ploc_round_fused(mat, _junk((8, n - 1), cuda), nc, shift, base, R),
+         ploc_round.ploc_round_reference(mat, _junk((8, n - 1), cuda), nc, shift, base, R)),
+    ]
+    torch.cuda.synchronize()
+    assert (ploc_round.emit_launches, ploc_round.rounds) == (before[0] + 3, before[1] + 2)
+    for got, want in cases:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert int(cases[0][1][2]) > 0
+
+
+@pytest.mark.parametrize("nc", [1, 2, 3, 300])
+def test_ploc_round_kernel_few_clusters(cuda, nc):
+    mat = _ploc_state(cuda)[:, :1000].contiguous()
+    got = ploc_round.ploc_round_fused(mat, _junk((8, 999), cuda), nc, 32, 0, R)
+    want = ploc_round.ploc_round_reference(mat, _junk((8, 999), cuda), nc, 32, 0, R)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("width,shift,step", [(2, 32, 6), (3, 9, 6), (1000, 9, 6), (4096, 9, 3),
+                                              ("max", 32, 6), ("max", 9, 6)])
+def test_ploc_finish_kernel_matches_plain(cuda, width, shift, step):
+    """B7 down to one cluster, up to its shared-memory width limit
+    MAX_FIN_WIDTH (above the 48 KB a block gets without opting in)."""
+    w = ploc_round.MAX_FIN_WIDTH if width == "max" else width
+    mat = _ploc_state(cuda)[:, :w].contiguous()
+    before = ploc_round.finish_launches
+    got = ploc_round.ploc_finish(mat, _junk((8, w), cuda), w, shift, 0, R, step)
+    torch.cuda.synchronize()
+    assert ploc_round.finish_launches == before + 1
+    want = ploc_round.ploc_finish_reference(mat, _junk((8, w), cuda), w, shift, 0, R, step)
+    assert torch.equal(got, want)
+    assert bool((got[:, :w - 1] != -3).all()) and bool((got[:, w - 1:] == -3).all())
+
+
+def test_ploc_finish_refuses_past_its_width(cuda):
+    w = ploc_round.MAX_FIN_WIDTH + 1
+    mat = _ploc_state(cuda)[:, :w].contiguous()
+    before = ploc_round.finish_launches
+    with pytest.raises(ValueError, match="MAX_FIN_WIDTH"):
+        ploc_round.ploc_finish(mat, _junk((8, w), cuda), w, 32, 0, R, 6)
+    assert ploc_round.finish_launches == before
+
+
+@pytest.mark.parametrize("name,fin", [("ploc", None), ("hploc", None), ("hploc", 256),
+                                      ("two_pass", None)])
+def test_builds_match_cpu(cuda, monkeypatch, name, fin):
+    """The GPU builds equal the port's CPU builds in every Bvh2 field; with
+    the finisher width cut to 256 the GPU's hand-over moves and the tree
+    does not."""
+    build = {"ploc": ploc.build_ploc, "hploc": ploc.build_hploc,
+             "two_pass": lbvh.build_two_pass}[name]
+    tris = torch.from_numpy(scenes.sponza_like(16_384))
+    want = build(tris)
+    if fin is not None:
+        monkeypatch.setattr(ploc_round, "FIN_WIDTH", fin)
+    before = (ploc_round.rounds, ploc_round.finish_launches)
+    got = build(tris.to(cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(_bits(g.cpu()), _bits(w))
+    assert validate.check_bvh2_correctness(got, tris.shape[0])
+    if name != "two_pass":
+        rounds = ploc_ops.last_build["rounds"]
+        assert rounds > 0 and ploc_round.rounds == before[0] + rounds
+        assert ploc_round.finish_launches == before[1] + 1

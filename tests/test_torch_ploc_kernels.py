@@ -1,0 +1,250 @@
+"""The plain versions of the PLOC kernels against JAX, bit for bit.
+
+B10 (`ploc_nn_round_raw`), B9 (`ploc_emit_compact`), B8/B6 (one round,
+`ploc_round_fused` / `ploc_round_pp`) and B7 (`ploc_finish`) run their
+Pallas kernels in interpret mode on the CPU; the port's CPU tensors take
+the plain versions, which the CUDA kernels equal bit for bit on the card
+(tests/test_torch_cuda.py). Every output is compared in full: raw rows at
+every lane, the whole new state, every column of the node buffer.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_bvh.ops import ploc as jploc
+from tpu_bvh.ops.pallas import ploc_nn as jploc_nn
+from tpu_bvh.ops.pallas import ploc_round as jploc_round
+from tpu_bvh_torch.ops import ploc_nn, ploc_round
+
+R = 8
+
+
+def make_state(rng, size, codes=None, n_segs=1, signed_zeros=False):
+    """i32[8, size] cluster state: boxes (min xyz, -max xyz) as f32 bits,
+    sorted codes (segment ids when `codes` is None), random node ids.
+    `signed_zeros` puts -0.0 and +0.0 on box faces and makes areas tie."""
+    if signed_zeros:
+        mn = rng.choice(np.array([-1.0, -0.0, 0.0, 0.5], np.float32), (3, size))
+        mx = mn + rng.choice(np.array([0.0, 0.5], np.float32), (3, size))
+        cols = np.concatenate([mn, -mx]).astype(np.float32)
+    else:
+        m = rng.random((6, size), dtype=np.float32)
+        cols = np.concatenate([m[:3], -(m[:3] + 0.1 + m[3:])])
+    if codes is None:
+        codes = np.sort(rng.integers(0, n_segs, size))
+    node = rng.integers(0, 2 * size, size)
+    rows = [cols.view(np.int32), np.asarray(codes)[None], node[None]]
+    return np.concatenate(rows).astype(np.int32)
+
+
+def morton_like(rng, size):
+    return np.sort(rng.integers(0, 1 << 30, size))
+
+
+def assert_same(got, want):
+    want = np.asarray(want)
+    got = got.numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------------------------------ B10
+
+@pytest.mark.parametrize("size,nc,nsegs", [(256, 256, 1), (384, 300, 7), (128, 5, 2)])
+@pytest.mark.parametrize("radius", [8, 4])
+def test_nn_matches_pallas(size, nc, nsegs, radius):
+    """The cases of test_ploc_nn.py: segments via shift 0, nc < S."""
+    mat = make_state(np.random.default_rng(size + radius), size, n_segs=nsegs)
+    want = jploc_nn.ploc_nn_round_raw(jnp.asarray(mat), nc, 0, radius, interpret=True)
+    assert_same(ploc_nn.ploc_nn_round_raw(torch.from_numpy(mat), nc, 0, radius), want)
+
+
+@pytest.mark.parametrize("size,nc,nsegs", [(1024, 1024, 1), (1024, 900, 11)])
+def test_nn_matches_pallas_multiblock(monkeypatch, size, nc, nsegs):
+    monkeypatch.setattr(jploc_nn, "_BLK", 256)  # four grid steps with halos
+    mat = make_state(np.random.default_rng(99), size, n_segs=nsegs)
+    want = jploc_nn.ploc_nn_round_raw(jnp.asarray(mat), nc, 0, R, interpret=True)
+    assert_same(ploc_nn.ploc_nn_round_raw(torch.from_numpy(mat), nc, 0, R), want)
+
+
+@pytest.mark.parametrize("shift", [32, 24])
+def test_nn_signed_zeros_and_ties(shift):
+    """-0.0 and +0.0 on box faces and many equal areas: the union takes
+    jnp.minimum's -0.0, and equal areas go to the smaller index."""
+    rng = np.random.default_rng(shift)
+    mat = make_state(rng, 640, codes=morton_like(rng, 640), signed_zeros=True)
+    want = jploc_nn.ploc_nn_round_raw(jnp.asarray(mat), 600, shift, R, interpret=True)
+    got = ploc_nn.ploc_nn_round_raw(torch.from_numpy(mat), 600, shift, R)
+    assert_same(got, want)
+    flags = got[7].numpy()
+    assert (flags == 1).sum() == (flags == 2).sum() > 0
+    assert (got[0:6].numpy() == -2**31).any()  # some union face is -0.0
+
+
+@pytest.mark.parametrize("radius", [0, R + 1])
+def test_nn_refuses_radius_outside_the_halo(radius):
+    """The CUDA kernel's halo is sized for PLOC_RADIUS; both versions
+    refuse a radius it cannot hold."""
+    mat = torch.from_numpy(make_state(np.random.default_rng(1), 64))
+    with pytest.raises(ValueError, match="radius"):
+        ploc_nn.ploc_nn_round_raw(mat, 64, 32, radius)
+
+
+def test_nn_unpacked():
+    mat = make_state(np.random.default_rng(5), 256, n_segs=3)
+    want = jploc_nn.ploc_nn_round(jnp.asarray(mat), 250, R, interpret=True, shift_bits=0)
+    got = ploc_nn.ploc_nn_round(torch.from_numpy(mat), 250, R, shift_bits=0)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# ------------------------------------------------------------------ B9
+
+def _nodes(rng, w):
+    return rng.integers(-2**30, 2**30, (8, w)).astype(np.int32)
+
+
+@pytest.mark.parametrize("size,nc,shift", [(512, 500, 32), (1024, 1000, 18)])
+def test_emit_compact_matches_pallas(monkeypatch, size, nc, shift):
+    """Multi-block (_BLK 256); nodes outside [base, base + n_merged) stay."""
+    monkeypatch.setattr(jploc_round, "_BLK", 256)
+    rng = np.random.default_rng(size + shift)
+    mat = make_state(rng, size, codes=morton_like(rng, size))
+    nodes = _nodes(rng, 2 * size + 512)
+    base = 37
+    nn = ploc_nn.ploc_nn_round_raw(torch.from_numpy(mat), nc, shift, R)
+    want_mat, want_nodes = jploc_round.ploc_emit_compact(
+        jnp.asarray(mat), jnp.asarray(nn.numpy()), jnp.asarray(nodes), nc, base, interpret=True)
+    got_mat, got_nodes, nm = ploc_round.ploc_emit_compact(
+        torch.from_numpy(mat), nn, torch.from_numpy(nodes.copy()), nc, base)
+    assert_same(got_mat, want_mat)
+    assert_same(got_nodes, want_nodes)
+    n_merged = int((nn[7, :nc] == 1).sum())
+    assert int(nm) == n_merged > 0
+    untouched = np.ones(nodes.shape[1], bool)
+    untouched[base:base + n_merged] = False
+    np.testing.assert_array_equal(got_nodes.numpy()[:, untouched], nodes[:, untouched])
+
+
+def test_emit_compact_no_merges(monkeypatch):
+    """n_merged == 0 (an HPLOC stall): the state passes through, nodes untouched."""
+    monkeypatch.setattr(jploc_round, "_BLK", 256)
+    rng = np.random.default_rng(3)
+    mat = make_state(rng, 512)
+    nodes = _nodes(rng, 2 * 512 + 512)
+    nn = np.zeros((8, 512), np.int32)
+    want_mat, want_nodes = jploc_round.ploc_emit_compact(
+        jnp.asarray(mat), jnp.asarray(nn), jnp.asarray(nodes), 500, 0, interpret=True)
+    got_mat, got_nodes, nm = ploc_round.ploc_emit_compact(
+        torch.from_numpy(mat), torch.from_numpy(nn), torch.from_numpy(nodes.copy()), 500, 0)
+    assert int(nm) == 0
+    assert_same(got_mat, want_mat)
+    assert_same(got_nodes, want_nodes)
+    np.testing.assert_array_equal(got_nodes.numpy(), nodes)
+
+
+# ------------------------------------------------------------------ B8 / B6
+
+@pytest.mark.parametrize("size,nc", [(384, 384), (512, 300), (1024, 1000)])
+@pytest.mark.parametrize("shift", [32, 18])
+def test_round_matches_pallas_and_xla(monkeypatch, size, nc, shift):
+    """One round (B8) == ploc_round_fused (interpret, _BLK 256) in every
+    column of the state and the nodes, and == the XLA `_round` on the live
+    columns."""
+    monkeypatch.setattr(jploc_round, "_BLK", 256)
+    rng = np.random.default_rng(size + shift + 7)
+    mat = make_state(rng, size, codes=morton_like(rng, size))
+    nodes = _nodes(rng, 2 * size + 512)
+    base = 11
+    want_mat, want_nodes, want_nm = jploc_round.ploc_round_fused(
+        jnp.asarray(mat), jnp.asarray(nodes), nc, shift, base, R, interpret=True)
+    got_mat, got_nodes, nm = ploc_round.ploc_round_fused(
+        torch.from_numpy(mat), torch.from_numpy(nodes.copy()), nc, shift, base, R)
+    assert int(nm) == int(want_nm) > 0
+    assert_same(got_mat, want_mat)
+    assert_same(got_nodes, want_nodes)
+
+    # the XLA round allocates from base = n0 - nc
+    x_nc, _, x_mat, x_nodes = jploc._round(
+        (jnp.asarray(nc, jnp.int32), jnp.asarray(shift, jnp.int32), jnp.asarray(mat),
+         jnp.asarray(nodes)), nc + base, R)
+    n_keep = int(x_nc)
+    np.testing.assert_array_equal(got_mat.numpy()[:, :n_keep], np.asarray(x_mat)[:, :n_keep])
+    np.testing.assert_array_equal(got_nodes.numpy(), np.asarray(x_nodes))
+
+
+def test_round_pp_matches_pallas(monkeypatch):
+    """B6: the ping-pong round writes only the survivors into the second
+    buffer; against `ploc_round_pp` in interpret mode (its padded layout:
+    one block of padding, the data, two blocks of slack)."""
+    blk = 256
+    rng = np.random.default_rng(21)
+    n, nc, shift = 1000, 900, 12
+    mat = make_state(rng, n, codes=morton_like(rng, n))
+    nodes = _nodes(rng, 2 * n + 512)
+    nblk = -(-n // blk)
+    width = (nblk + 2) * blk + jploc_round._WPAD
+    a = np.zeros((8, width), np.int32)
+    a[:, blk:blk + n] = mat
+    b = rng.integers(-2**30, 2**30, (8, width)).astype(np.int32)
+    want_b, want_nodes, want_nm = jploc_round.ploc_round_pp(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(nodes), nc, shift, 5, R, blk,
+        -(-nc // blk), interpret=True)
+    spare = torch.from_numpy(rng.integers(-2**30, 2**30, (8, n)).astype(np.int32))
+    before = spare.clone()
+    got_b, got_nodes, nm = ploc_round.ploc_round_pp(
+        torch.from_numpy(mat), spare, torch.from_numpy(nodes.copy()), nc, shift, 5, R)
+    assert got_b is spare and int(nm) == int(want_nm)
+    n_keep = nc - int(nm)
+    np.testing.assert_array_equal(got_b.numpy()[:, :n_keep],
+                                  np.asarray(want_b)[:, blk:blk + n_keep])
+    assert torch.equal(got_b[:, n_keep:], before[:, n_keep:])
+    assert_same(got_nodes, want_nodes)
+
+
+# ------------------------------------------------------------------ B7
+
+FINISH_CASES = [(512, 500, 9), (512, 512, 12), (300, 300, 32)]
+
+
+@pytest.mark.parametrize("size,nc,shift", FINISH_CASES)
+def test_finish_matches_pallas_at_step_3(monkeypatch, size, nc, shift):
+    """At shift_step 3, the TPU finisher's own step, the plain finisher
+    equals `ploc_finish` (interpret, _FIN_WIDTH 1024) in every node column."""
+    monkeypatch.setattr(jploc_round, "_FIN_WIDTH", 1024)
+    rng = np.random.default_rng(size + nc + shift)
+    mat = make_state(rng, size, codes=morton_like(rng, size))
+    nodes = _nodes(rng, 2 * size + 512)
+    want = jploc_round.ploc_finish(jnp.asarray(mat), jnp.asarray(nodes), nc, shift, 0, R,
+                                   interpret=True)
+    got = ploc_round.ploc_finish(torch.from_numpy(mat), torch.from_numpy(nodes.copy()), nc,
+                                 shift, 0, R, shift_step=3)
+    assert_same(got, want)
+    np.testing.assert_array_equal(got.numpy()[:, nc - 1:], nodes[:, nc - 1:])
+
+
+@pytest.mark.parametrize("size,nc,shift", FINISH_CASES)
+def test_finish_matches_iterated_rounds_at_step_6(size, nc, shift):
+    """At shift_step 6, the HPLOC schedule the port's round loop follows, the
+    finisher equals the XLA `_round` iterated with step 6. The TPU
+    finisher hard-codes a step of 3 (ploc_round.py:574), so it gives
+    another tree whenever the start shift is below 32 (the first two
+    cases); the port takes the step it is given."""
+    rng = np.random.default_rng(size + nc + shift)
+    mat = make_state(rng, size, codes=morton_like(rng, size))
+    nodes = _nodes(rng, 2 * size + 512)
+    state = (jnp.asarray(nc, jnp.int32), jnp.asarray(shift, jnp.int32), jnp.asarray(mat),
+             jnp.asarray(nodes))
+    for _ in range(nc + 16):
+        if int(state[0]) <= 1:
+            break
+        state = jploc._round(state, nc, R, 6)
+    want = np.asarray(state[3])
+    got = ploc_round.ploc_finish(torch.from_numpy(mat), torch.from_numpy(nodes.copy()), nc,
+                                 shift, 0, R, shift_step=6)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if shift < 32:
+        step3 = ploc_round.ploc_finish(torch.from_numpy(mat), torch.from_numpy(nodes.copy()),
+                                       nc, shift, 0, R, shift_step=3)
+        assert not torch.equal(step3, got)

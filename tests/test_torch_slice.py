@@ -92,6 +92,8 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "assert 'tpu_bvh_torch.ops.collapse_fast' in sys.modules\n"
         "assert 'tpu_bvh_torch.ops.ray_sweep' in sys.modules\n"
+        "assert 'tpu_bvh_torch.ops.ploc_round' in sys.modules\n"
+        "assert 'tpu_bvh_torch.models.ploc' in sys.modules\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert res.returncode == 0, res.stderr

@@ -1,0 +1,128 @@
+// Device helpers shared by the PLOC kernels (ploc_nn.cu, ploc_round.cu,
+// ploc_finish.cu).
+//
+// Cluster state is i32[8, *] lane-major: rows 0-5 the AABB (min xyz,
+// -max xyz) as f32 bits, row 6 the Morton code (< 2^31), row 7 the node id.
+// The arithmetic repeats the plain PyTorch versions in
+// tpu_bvh_torch/ops/ploc_nn.py operation by operation (nvcc --fmad=false,
+// and the _rn intrinsics say so again), so every output is bit-exact.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace ploc {
+
+constexpr float kBig = 3.0e38f;  // "no candidate" area
+constexpr int kMaxR = 8;         // largest search radius: PLOC_RADIUS (types.py)
+
+// min as jnp.minimum computes it: NaN propagates and -0.0 < +0.0, so the
+// result does not depend on the order of the arguments
+__device__ __forceinline__ float jmin(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  if (a < b) return a;
+  if (b < a) return b;
+  return __int_as_float(__float_as_int(a) | __float_as_int(b));
+}
+
+// surface area of the union of two packed boxes, in the order of
+// tpu_bvh/ops/ploc.py:_area6: ex = -u3 - u0, ..., 2 * ((ex*ey + ex*ez) + ey*ez)
+__device__ __forceinline__ float union_area(const float* a, const float* b) {
+  float u[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) u[k] = jmin(a[k], b[k]);
+  const float ex = __fsub_rn(-u[3], u[0]);
+  const float ey = __fsub_rn(-u[4], u[1]);
+  const float ez = __fsub_rn(-u[5], u[2]);
+  const float s = __fadd_rn(__fadd_rn(__fmul_rn(ex, ey), __fmul_rn(ex, ez)), __fmul_rn(ey, ez));
+  return __fmul_rn(2.0f, s);
+}
+
+// HPLOC segment id: the code's prefix above `shift` bits; one segment at 32
+__device__ __forceinline__ unsigned seg_of(int code, int shift) {
+  return shift >= 32 ? 0u : ((unsigned)code >> shift);
+}
+
+// Nearest neighbour of lane l among the live lanes [0, nc) within +-R in
+// the same segment: the lexicographic minimum of (union area, neighbour
+// index), found in the order of the TPU kernel (ploc_nn.py:_nn_body):
+// forward offsets 1..R with strict <, then backward offsets 1..R, where a
+// tie goes to the smaller index. `box(j, k)` gives row k of lane j as a
+// float, `seg(j)` its segment. Returns best_rel (the chosen offset, 0 if
+// none), and sets fwd_rel (the best forward offset, 0 if none) and has_nn.
+template <class Box, class Seg>
+__device__ __forceinline__ int nearest(int l, int nc, int R, Box box, Seg seg, int* fwd_rel,
+                                       bool* has_nn) {
+  float own[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) own[k] = box(l, k);
+  const unsigned sg = seg(l);
+  const bool valid = l >= 0 && l < nc;
+  float best = kBig;
+  int rel = 0;
+  for (int d = 1; d <= R; ++d) {
+    const int j = l + d;
+    float a = kBig;
+    if (valid && j < nc && seg(j) == sg) {
+      float nb[6];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) nb[k] = box(j, k);
+      a = union_area(own, nb);
+    }
+    if (a < best) {
+      best = a;
+      rel = d;
+    }
+  }
+  *fwd_rel = rel;
+  for (int d = 1; d <= R; ++d) {
+    const int j = l - d;
+    float a = kBig;
+    if (j >= 0 && l < nc && seg(j) == sg) {  // the pair (j, l) seen from j
+      float nb[6];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) nb[k] = box(j, k);
+      a = union_area(nb, own);
+    }
+    if (a < best || (a == best && -d < rel)) {
+      best = a;
+      rel = -d;
+    }
+  }
+  *has_nn = best < kBig;
+  return rel;
+}
+
+// Exclusive scan over the threads of a block of NT threads (NT a multiple
+// of 32, at most 1024); `warp_sums` is NT / 32 ints of shared memory.
+// Returns this thread's exclusive prefix and sets *total. Every thread of
+// the block must call it.
+template <int NT>
+__device__ __forceinline__ int block_excl_scan(int v, int* warp_sums, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < NT / 32 ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < NT / 32) warp_sums[lane] = w;  // inclusive warp totals
+  }
+  __syncthreads();
+  const int before = warp > 0 ? warp_sums[warp - 1] : 0;
+  *total = warp_sums[NT / 32 - 1];
+  __syncthreads();  // warp_sums may be reused by the next call
+  return before + x - v;
+}
+
+}  // namespace ploc

@@ -1,4 +1,5 @@
-"""Single-pass LBVH build (the port of `tpu_bvh.models.lbvh`'s Apetrei path).
+"""LBVH builders, single-pass (Apetrei layout) and two-pass (Karras
+layout): the port of `tpu_bvh.models.lbvh`.
 
 Front half (column AABBs, scene extents, extended Morton codes, the
 (code, prim_idx) sort) is plain PyTorch on either device; the topology
@@ -8,10 +9,18 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import morton, radix_tree
-from ..types import Bvh2
+from ..ops import aabb, morton, radix_tree
+from ..types import Bvh2, PrimRefs
 
 I32 = torch.int32
+
+
+def prim_refs_from_triangles(tris) -> PrimRefs:
+    """One reference per triangle (no split clipping)."""
+    mn, mx = aabb.triangle_aabbs(tris)
+    n = tris.shape[0]
+    return PrimRefs(aabb_min=mn, aabb_max=mx,
+                    prim_idx=torch.arange(n, dtype=I32, device=tris.device))
 
 
 def _sorted_leaves_cols(mnx, mny, mnz, mxx, mxy, mxz, prim_idx, use_extended):
@@ -40,6 +49,13 @@ def _sorted_leaves_cols(mnx, mny, mnz, mxx, mxy, mxz, prim_idx, use_extended):
     return sorted_codes, leaf_packed_t, leaf_prim
 
 
+def _sorted_leaves_packed(refs: PrimRefs, use_extended: bool):
+    """The contract of `_sorted_leaves_cols`, from PrimRefs."""
+    mn, mx = refs.aabb_min.T, refs.aabb_max.T  # [3, n]
+    return _sorted_leaves_cols(mn[0], mn[1], mn[2], mx[0], mx[1], mx[2], refs.prim_idx,
+                               use_extended)
+
+
 def _sorted_leaves_from_tris(tris, use_extended: bool):
     """Triangle-soup front end in column form; the contract of
     `_sorted_leaves_cols`."""
@@ -64,10 +80,35 @@ def _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root):
     return Bvh2(packed_t=node_packed, left=left, right=right, root=root)
 
 
+def _two_pass(codes, leaf_packed_t, leaf_prim) -> Bvh2:
+    left, right, int_packed_t = radix_tree.karras_build_packed(codes, leaf_packed_t)
+    root = torch.zeros((), dtype=I32, device=leaf_prim.device)
+    return _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root)
+
+
+def build_two_pass(tris, use_extended: bool = True) -> Bvh2:
+    """Two-pass (Karras-layout) LBVH: the single-pass scans and refit, then
+    one relabel sort; the root is node 0. tris: f32[N, 3, 3]."""
+    return _two_pass(*_sorted_leaves_from_tris(tris, use_extended))
+
+
+def build_two_pass_refs(refs: PrimRefs, use_extended: bool = True) -> Bvh2:
+    """`build_two_pass` from PrimRefs."""
+    return _two_pass(*_sorted_leaves_packed(refs, use_extended))
+
+
 def build_single_pass(tris, use_extended: bool = True) -> Bvh2:
     """Single-pass (Apetrei-layout) LBVH: internal node i sits at Morton
     boundary i; the root index is data-dependent. tris: f32[N, 3, 3]."""
     return build_single_pass_aux(tris, use_extended)[0]
+
+
+def build_single_pass_refs(refs: PrimRefs, use_extended: bool = True) -> Bvh2:
+    """`build_single_pass` from PrimRefs."""
+    codes, leaf_packed_t, leaf_prim = _sorted_leaves_packed(refs, use_extended)
+    left, right, _parent, int_packed_t, root = radix_tree.apetrei_build_packed(
+        codes, leaf_packed_t)
+    return _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root)
 
 
 def build_single_pass_aux(tris, use_extended: bool = True):

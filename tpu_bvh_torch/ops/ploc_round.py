@@ -1,0 +1,239 @@
+"""PLOC merge rounds: emission and survivor compaction, one whole round,
+and the single-block finisher.
+
+The contracts of `tpu_bvh.ops.pallas.ploc_round`. State `mat` i32[8, S]
+in the layout of `ploc_nn` (rows 0-5 box bits, 6 Morton code, 7 node id),
+live clusters i < nc at the front; `nodes` i32[8, W] is the node buffer,
+column c = [left child, right child, union box bits (min xyz, -max xyz)].
+Node ids are allocated bottom-up: the `base` clusters already merged
+own ids [0, base), and a round's merges take [base, base + n_merged) in
+cluster order (the round loop flips them to root-at-0 once at the end).
+
+* `ploc_emit_compact` (B9): given the NN output, write each merge's node
+  column and front-compact the kept clusters (merged ones carry the union
+  and their new id, and keep their own code). Node columns outside
+  [base, base + n_merged) are not touched.
+* `ploc_round_fused` (B8) and `ploc_round_pp` (B6): one round = the NN
+  stage on the live lanes, then the emission. B8 allocates its outputs;
+  B6 writes the survivors into the caller's second buffer (the round loop
+  swaps the two) and reuses the caller's scratch, so a round allocates
+  nothing and its work is sized to the live count.
+* `ploc_finish` (B7): every remaining round of at most MAX_FIN_WIDTH
+  clusters in one launch. The HPLOC segment shift grows by `shift_step`
+  per round, as in the plain round loop; the TPU kernel hard-codes 3
+  (tpu_bvh/ops/pallas/ploc_round.py:574).
+
+A CUDA tensor launches `csrc/ploc_nn.cu`, `csrc/ploc_round.cu` and
+`csrc/ploc_finish.cu`; a CPU tensor takes the `*_reference` versions,
+which run on any device. Both update `nodes` in place and return it.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..utils import kernels
+from ..utils.platform import on_cuda
+from . import ploc_nn
+
+I32 = torch.int32
+FIN_WIDTH = 4096  # the round loop hands the last FIN_WIDTH clusters to the finisher
+# finisher state: 32 B of rows and 1 B of best_rel per cluster in dynamic
+# shared memory, within the 232,448 B a block may opt in to on the H100,
+# less the kernel's 128 B of static shared memory
+MAX_FIN_WIDTH = (232_448 - 128) // 33
+_EMIT_BLOCK = 256  # lanes per block of csrc/ploc_round.cu
+rounds = 0  # B6/B8 rounds (each one B10 and one B9 launch) since the last reset
+emit_launches = 0  # B9 launches (one per kernel round too)
+finish_launches = 0  # B7 launches
+
+
+class RoundWork(NamedTuple):
+    """Scratch a round reuses: the NN output and the block counts."""
+
+    nn: torch.Tensor  # i32[8, capacity]
+    scan: torch.Tensor  # i32[2 * ceil(capacity / 256) + 2]
+
+
+def round_work(capacity: int, device) -> RoundWork:
+    nb = -(-capacity // _EMIT_BLOCK)
+    return RoundWork(torch.empty((8, capacity), dtype=I32, device=device),
+                     torch.empty((2 * nb + 2,), dtype=I32, device=device))
+
+
+# ---------------------------------------------------------------- B9
+
+def ploc_emit_compact(mat, nn, nodes, n_clusters: int, base: int):
+    """Returns (new_mat i32[8, S] with zeros past the survivors, nodes,
+    n_merged i32[] on mat's device); dispatch by device."""
+    if on_cuda(mat):
+        out = torch.zeros_like(mat)
+        nm = _emit_compact_cuda(mat, nn, nodes, int(n_clusters), int(base), out, None)
+        return out, nodes, nm
+    return ploc_emit_compact_reference(mat, nn, nodes, n_clusters, base)
+
+
+def ploc_emit_compact_reference(mat, nn, nodes, n_clusters: int, base: int, out=None):
+    """Plain PyTorch version (any device): cumsum ranks, masked selects.
+    Writes the survivors to the front of `out` (a new zero state if None)."""
+    S = mat.shape[1]
+    nc, base = int(n_clusters), int(base)
+    dev = mat.device
+    lanes = torch.arange(S, dtype=I32, device=dev)
+    valid = lanes < nc
+    merge = valid & (nn[7] == 1)
+    keep = valid & (nn[7] != 2)
+    mi = merge.to(I32)
+    new_id = base + torch.cumsum(mi, 0, dtype=I32) - mi
+    emit = torch.cat([mat[7:8], nn[6:7], nn[0:6]])[:, merge]
+    nodes[:, base:base + emit.shape[1]] = emit
+    surv = torch.where(merge, torch.cat([nn[0:6], mat[6:7], new_id[None]]), mat)[:, keep]
+    if out is None:
+        out = torch.zeros_like(mat)
+    out[:, :surv.shape[1]] = surv
+    return out, nodes, mi.sum(dtype=I32)
+
+
+def _emit_compact_cuda(mat, nn, nodes, nc: int, base: int, out, scan):
+    global emit_launches
+    for name, x in (("mat", mat), ("nn", nn), ("out", out), ("nodes", nodes)):
+        kernels.require(x, name, I32)
+        if x.dim() != 2 or x.shape[0] != 8:
+            raise ValueError(f"ploc_emit_compact: {name} must be i32[8, *]")
+    if not 1 <= nc <= min(mat.shape[1], nn.shape[1], out.shape[1]):
+        raise ValueError(f"ploc_emit_compact needs 1 <= n_clusters <= width, got {nc}")
+    if base < 0 or base + nc // 2 > nodes.shape[1]:
+        raise ValueError(f"ploc_emit_compact: ids [{base}, {base + nc // 2}) exceed the "
+                         f"{nodes.shape[1]} node columns")
+    nb = -(-nc // _EMIT_BLOCK)
+    if scan is None:
+        scan = torch.empty((2 * nb + 2,), dtype=I32, device=mat.device)
+    elif scan.numel() < 2 * nb + 2:
+        raise ValueError("ploc_emit_compact: scan scratch too small")
+    err = kernels.lib().tbvh_ploc_emit_compact(
+        mat.data_ptr(), mat.shape[1], nn.data_ptr(), nn.shape[1], nc, base,
+        out.data_ptr(), out.shape[1], nodes.data_ptr(), nodes.shape[1], scan.data_ptr(),
+        kernels.stream_of(mat),
+    )
+    kernels.check("tbvh_ploc_emit_compact", err)
+    emit_launches += 1
+    return scan[2 * nb]  # n_merged, as the kernel left it
+
+
+# ---------------------------------------------------------------- B8 / B6
+
+def ploc_round_fused(mat, nodes, n_clusters: int, shift_bits: int, base: int, radius: int):
+    """One full round. Returns (new_mat i32[8, S] with zeros past the
+    survivors, nodes, n_merged i32[]); dispatch by device."""
+    if on_cuda(mat):
+        out = torch.zeros_like(mat)
+        nm = _round_cuda(mat, out, nodes, int(n_clusters), int(shift_bits), int(base), radius,
+                         round_work(int(n_clusters), mat.device))
+        return out, nodes, nm
+    return ploc_round_reference(mat, nodes, n_clusters, shift_bits, base, radius)
+
+
+def ploc_round_reference(mat, nodes, n_clusters: int, shift_bits: int, base: int, radius: int,
+                         out=None):
+    """Plain PyTorch version (any device): the plain NN stage on the live
+    lanes, then the plain emission into `out` (a new zero state if None)."""
+    nc = int(n_clusters)
+    live = mat[:, :nc]
+    nn = ploc_nn.ploc_nn_round_raw_reference(live, nc, shift_bits, radius)
+    if out is None:
+        out = torch.zeros_like(mat)
+    return ploc_emit_compact_reference(live, nn, nodes, nc, base, out)
+
+
+def ploc_round_pp(matA, matB, nodes, n_clusters: int, shift_bits: int, base: int, radius: int,
+                  work: RoundWork | None = None):
+    """Ping-pong round: reads the live lanes of matA, writes the survivors
+    to the front of matB (nothing else of matB) and the merges to nodes.
+    Returns (matB, nodes, n_merged i32[]); dispatch by device. On the card
+    n_merged is a view of `work`, valid until the next round."""
+    if on_cuda(matA):
+        if work is None:
+            work = round_work(matA.shape[1], matA.device)
+        nm = _round_cuda(matA, matB, nodes, int(n_clusters), int(shift_bits), int(base), radius,
+                         work)
+        return matB, nodes, nm
+    return ploc_round_pp_reference(matA, matB, nodes, n_clusters, shift_bits, base, radius)
+
+
+def ploc_round_pp_reference(matA, matB, nodes, n_clusters: int, shift_bits: int, base: int,
+                            radius: int, work=None):
+    """Plain version of `ploc_round_pp` (any device; `work` is not used)."""
+    return ploc_round_reference(matA, nodes, n_clusters, shift_bits, base, radius, out=matB)
+
+
+def _round_cuda(mat, out, nodes, nc: int, shift_bits: int, base: int, radius: int,
+                work: RoundWork):
+    global rounds
+    if nc < 1:
+        raise ValueError(f"a PLOC round needs n_clusters >= 1, got {nc}")
+    ploc_nn.launch(mat, nc, shift_bits, radius, work.nn, nc)
+    nm = _emit_compact_cuda(mat, work.nn, nodes, nc, base, out, work.scan)
+    rounds += 1
+    return nm
+
+
+# ---------------------------------------------------------------- B7
+
+def ploc_finish(mat, nodes, n_clusters: int, shift_bits: int, base: int, radius: int,
+                shift_step: int = 3):
+    """Every remaining round of the nc live clusters of `mat` (nc <=
+    MAX_FIN_WIDTH on the card): writes node columns [base, base + nc - 1).
+    Returns nodes; dispatch by device."""
+    nc = int(n_clusters)
+    if nc <= 1:
+        return nodes
+    if on_cuda(mat):
+        return _finish_cuda(mat, nodes, nc, int(shift_bits), int(base), radius, int(shift_step))
+    return ploc_finish_reference(mat, nodes, nc, shift_bits, base, radius, shift_step)
+
+
+def ploc_finish_reference(mat, nodes, n_clusters: int, shift_bits: int, base: int, radius: int,
+                          shift_step: int = 3):
+    """Plain version (any device): plain rounds until one cluster is left,
+    at most nc + 16 of them (the TPU kernel's bound)."""
+    nc0 = nc = int(n_clusters)
+    shift = int(shift_bits)
+    mat = mat[:, :nc]
+    for _ in range(nc0 + 16):
+        if nc <= 1:
+            return nodes
+        mat, nodes, nm = ploc_round_reference(mat, nodes, nc, shift, int(base) + nc0 - nc, radius)
+        nc -= int(nm)
+        mat = mat[:, :nc]
+        shift = min(shift + shift_step, 32)
+    if nc > 1:
+        raise RuntimeError(f"ploc_finish: {nc} clusters left after {nc0 + 16} rounds "
+                           "(non-finite boxes?)")
+    return nodes
+
+
+def _finish_cuda(mat, nodes, nc: int, shift_bits: int, base: int, radius: int, step: int):
+    global finish_launches
+    ploc_nn._check(radius)
+    for name, x in (("mat", mat), ("nodes", nodes)):
+        kernels.require(x, name, I32)
+        if x.dim() != 2 or x.shape[0] != 8:
+            raise ValueError(f"ploc_finish: {name} must be i32[8, *]")
+    if not nc <= min(MAX_FIN_WIDTH, mat.shape[1]):
+        raise ValueError(f"ploc_finish takes n_clusters <= MAX_FIN_WIDTH = {MAX_FIN_WIDTH} "
+                         f"(and <= the state's width), got {nc}")
+    if base < 0 or base + nc - 1 > nodes.shape[1]:
+        raise ValueError(f"ploc_finish: ids [{base}, {base + nc - 1}) exceed the "
+                         f"{nodes.shape[1]} node columns")
+    err = torch.zeros((1,), dtype=I32, device=mat.device)
+    code = kernels.lib().tbvh_ploc_finish(
+        mat.data_ptr(), mat.shape[1], nc, shift_bits, step, base, radius,
+        nodes.data_ptr(), nodes.shape[1], err.data_ptr(), kernels.stream_of(mat),
+    )
+    kernels.check("tbvh_ploc_finish", code)
+    finish_launches += 1
+    if int(err) != 0:  # one host sync
+        raise RuntimeError(f"ploc_finish: clusters left after {nc + 16} rounds "
+                           "(non-finite boxes?)")
+    return nodes

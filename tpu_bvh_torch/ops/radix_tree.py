@@ -1,4 +1,5 @@
-"""LBVH radix-tree topology in the single-pass (Apetrei) layout.
+"""LBVH radix-tree topology in the single-pass (Apetrei) layout, and its
+relabelling into the two-pass (Karras) layout.
 
 Internal node i sits at Morton boundary i (between sorted leaves i and
 i+1) and covers leaves [psv(i) + 1, nsv(i)] of the adjacent-delta array;
@@ -43,6 +44,40 @@ def _topology_scans(codes):
     dlt = remap_deltas(dlt_raw)
     psv, psv_val, lc, nsv, nsv_val, rc = scan_core(dlt_raw)
     return dlt, psv + 1, nsv, psv_val, nsv_val, psv, lc, rc
+
+
+def karras_build_packed(codes, leaf_packed_t):
+    """Two-pass (Karras-layout) build: the same scans and refit, then one
+    relabel sort. Boundary node i splits its range at boundary i, and
+    Karras numbers children by split position, so its left child is Karras
+    node i (lc >= 0) or leaf i, its right child Karras node i + 1 (rc >= 0)
+    or leaf i + 1. Node i moves to Karras slot pi = (right child ? first :
+    last), the root to 0; pi is unique, so any sort on it gives the same
+    order. Returns (left, right, int_packed_t f32[6, m]); root is node 0."""
+    n = codes.shape[0]
+    m = n - 1
+    dev = codes.device
+    _dlt, first, last, psv_val, nsv_val, _psv, lc, rc = _topology_scans(codes)
+    idx = torch.arange(m, dtype=I32, device=dev)
+    is_root = (first == 0) & (last == n - 1)
+    pi = torch.where(is_root, 0, torch.where(psv_val > nsv_val, first, last))
+    left_k = torch.where(lc >= 0, idx, m + idx)
+    right_k = torch.where(rc >= 0, idx + 1, m + idx + 1)
+    int_b = _refit.refit_anchored_packed(leaf_packed_t, first, last)
+    order = torch.sort(pi).indices
+    leaf_none = torch.full((n,), -1, dtype=I32, device=dev)
+    left = torch.cat([left_k[order].to(I32), leaf_none])
+    right = torch.cat([right_k[order].to(I32), leaf_none])
+    return left, right, int_b[:, order]
+
+
+def karras_build(codes, leaf_min, leaf_max):
+    """Row-major wrapper around `karras_build_packed`.
+    Returns (left, right, int_min, int_max); root is node 0."""
+    leaf_packed_t = torch.cat([leaf_min, -leaf_max], dim=1).T
+    left, right, int_packed_t = karras_build_packed(codes, leaf_packed_t)
+    out = int_packed_t.T
+    return left, right, out[:, :3], -out[:, 3:]
 
 
 def apetrei_build_packed(codes, leaf_packed_t):

@@ -1,6 +1,7 @@
 """Where the time of the port's main path goes, on one GPU.
 
 On `sponza_like(262_000)` it times `lbvh.build_single_pass`,
+`lbvh.build_two_pass`, `ploc.build_ploc`, `ploc.build_hploc`,
 `collapse_fast.collapse_lbvh_to_bvh4`, `raster_gpu.render_raster_gpu` at
 512^2 and 1920x1080 (leaf 64, the caps of chip_smoke.py) and
 `ray_sweep.shadow_occlusion` on the live hits of the 1080p frame (the JAX
@@ -32,7 +33,7 @@ import time
 
 import torch
 
-from .models import lbvh
+from .models import lbvh, ploc
 from .ops import collapse_fast, raster, raster_gpu, ray_sweep
 from .utils import camera, scenes
 
@@ -118,6 +119,9 @@ def main():
     aux = lbvh.build_single_pass_aux(tris)
     packed = raster.pack_raster(aux[0], tris, leaf_size=LEAF)
     calls = {"build": lambda: lbvh.build_single_pass(tris),
+             "build_two_pass": lambda: lbvh.build_two_pass(tris),
+             "build_ploc": lambda: ploc.build_ploc(tris),
+             "build_hploc": lambda: ploc.build_hploc(tris),
              "collapse": lambda: collapse_fast.collapse_lbvh_to_bvh4(*aux)}
     for (w, h), caps in RENDERS.items():
         rays = camera.generate_rays(cam, w, h)

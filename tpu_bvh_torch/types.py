@@ -11,6 +11,7 @@ from typing import NamedTuple
 import torch
 
 FLT_MAX = 3.402823466e38
+PLOC_RADIUS = 8  # PLOC nearest-neighbour search radius in Morton order
 
 
 class Bvh2(NamedTuple):
@@ -88,6 +89,15 @@ class Bvh4(NamedTuple):
         """Build from [K, 4, 3] slot AABBs and [K, 4] child ids."""
         sp = torch.cat([child_min.permute(1, 2, 0), -child_max.permute(1, 2, 0)], dim=1)
         return cls(slot_packed_t=sp.contiguous(), child_t=child.T.contiguous(), **kw)
+
+
+class PrimRefs(NamedTuple):
+    """Primitive references: one AABB and source primitive per reference
+    (one per triangle without split clipping)."""
+
+    aabb_min: torch.Tensor  # f32[R, 3]
+    aabb_max: torch.Tensor  # f32[R, 3]
+    prim_idx: torch.Tensor  # i32[R]
 
 
 class Camera(NamedTuple):

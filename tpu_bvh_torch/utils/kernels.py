@@ -39,6 +39,9 @@ _SIGNATURES = {
     "tbvh_collapse_block": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "tbvh_ray_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P],
+    "tbvh_ploc_nn": [_P, _I, _I, _I, _I, _I, _P, _I, _P],
+    "tbvh_ploc_emit_compact": [_P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P],
+    "tbvh_ploc_finish": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P],
 }
 
 _lib = None
@@ -46,8 +49,8 @@ build_seconds = None  # wall time of the last build in this process
 build_report = ""  # nvcc and ptxas output of that build
 
 
-def _sources():
-    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cu"))
+def _sources(suffixes=(".cu",)):
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(suffixes))
 
 
 def _nvcc() -> str:
@@ -69,7 +72,7 @@ def build() -> str:
     global build_seconds, build_report
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in _sources((".cu", ".cuh")):  # the headers count too
         with open(s, "rb") as f:
             h.update(f.read())
     path = os.path.join(BUILD_DIR, f"libtbvh_{h.hexdigest()[:16]}.so")
