@@ -6,7 +6,8 @@ single-pass and two-pass LBVH builds, the fast BVH2 -> BVH4 collapse,
 `pack_raster` and the raster render at 512^2 and 1920x1080, the shadow
 path (reversed point-light occlusion of the 1080p primary hits, and the
 general closest-hit trace on a 64K strided slice of the forward shadow
-rays), and the PLOC++ and HPLOC builds. On the way it
+rays), the PLOC++ and HPLOC builds, and the gather-free topologies
+(`apetrei_topology_fast`, `karras_topology_fast`). On the way it
 
 1. prints the card (name and power limit from nvidia-smi) and versions;
 2. builds the CUDA kernels from `tpu_bvh_torch/csrc/` (one nvcc per
@@ -22,10 +23,19 @@ rays), and the PLOC++ and HPLOC builds. On the way it
    stage on sponza's first-round state at shift 32 and 9, the emission
    and the whole round (ping-pong and allocating) on three states along
    the sponza HPLOC build, and the finisher on its hand-over state and at
-   its shared-memory width limit (one cluster more is refused);
-4. runs the main path path by path (build, collapse, render, shadow,
-   ploc), every launch counter set to 0 just before each and read just
-   after, and checks: every kernel of each path launched; the GPU Bvh2s
+   its shared-memory width limit (one cluster more is refused); the
+   threshold scans (B12/B13, B14, B15) on sponza's and the dup soup's
+   deltas and on 262,144 random deltas in [0, 53) (values repeat), the
+   plane scan (B11) on sponza's [m, 64] threshold plane, min and max,
+   forward and reverse, and the two V=32 scan halves (B16) on sponza's
+   and dup's deltas, forward and flipped, also against B1's outputs;
+4. runs the main path path by path (build, topology, collapse, render,
+   shadow, ploc), every launch counter set to 0 just before each and read
+   just after, and checks: every kernel of each path launched; the fast
+   topologies equal B1's route (`apetrei_build_packed_full`,
+   `karras_build_packed`), the plain oracles (`apetrei_topology`,
+   `karras_topology`) on the card and the port's CPU run, on sponza and
+   on dup; the GPU Bvh2s
    (single-pass, two-pass, PLOC, HPLOC) and the Bvh4 are bit-identical
    to the port's CPU builds and collapse, and the PLOC and HPLOC trees to
    the plain round loop's on the card; the validity checks; the BVH2 SAHs
@@ -36,12 +46,12 @@ rays), and the PLOC++ and HPLOC builds. On the way it
    collapse; no raster or shadow overflow; the reversed occlusion mask
    equals the forward trace's capped answer outside the boundary strips;
    the 512^2 image is written as a PNG;
-5. times the builds, the collapse, the renders, `shadow_occlusion` and
-   `trace_rays` (medians after warm-up, on CUDA events and on the host
+5. times the builds, the fast topologies, the collapse, the renders,
+   `shadow_occlusion` and `trace_rays` (medians after warm-up, on CUDA events and on the host
    clock; PLOC and HPLOC in 10 alternating pairs, with the gap per
    pair), prints each PLOC build's rounds, finisher launches and host
    syncs, and times each kernel beside its plain version and computes
-   its bound from this run's inputs.
+   its bound from this run's inputs (B11 also beside `torch.cummin`).
 
 Any failure raises. The last three lines are the kernels JSON line, the
 nvidia-smi line and {"ok": true, "device": {...}}. Needs one CUDA device
@@ -81,20 +91,35 @@ FLOPS_PER_TEST = {"raster_sweep": 26, "ray_sweep": 50}
 # lane needs R pair areas (each pair serves both its lanes)
 FLOPS_PER_PAIR = 18
 ROUND_SOURCES = ["tpu_bvh_torch/csrc/ploc_nn.cu", "tpu_bvh_torch/csrc/ploc_round.cu"]
-KERNELS = {  # name: (source, the TPU kernel it replaces)
-    "scan32": ("tpu_bvh_torch/csrc/scan32.cu", "tpu_bvh/ops/pallas/scan32.py:280"),
-    "refit_dense": ("tpu_bvh_torch/csrc/refit_dense.cu", "tpu_bvh/ops/pallas/refit_dense.py:102"),
-    "collapse_block": ("tpu_bvh_torch/csrc/collapse_block.cu",
+THR_SOURCE = "tpu_bvh_torch/csrc/threshold_scan.cu"
+THR_TPU = "tpu_bvh/ops/pallas/threshold_core.py"
+KERNELS = {  # name: (TPU kernel, source, the TPU kernel it replaces), B1 to B16
+    "scan32": ("B1", "tpu_bvh_torch/csrc/scan32.cu", "tpu_bvh/ops/pallas/scan32.py:280"),
+    "refit_dense": ("B2", "tpu_bvh_torch/csrc/refit_dense.cu",
+                    "tpu_bvh/ops/pallas/refit_dense.py:102"),
+    "collapse_block": ("B3", "tpu_bvh_torch/csrc/collapse_block.cu",
                        "tpu_bvh/ops/pallas/collapse_block.py:481"),
-    "raster_sweep": ("tpu_bvh_torch/csrc/raster.cu", "tpu_bvh/ops/raster_tpu.py:366"),
-    "ray_sweep": ("tpu_bvh_torch/csrc/ray_sweep.cu", "tpu_bvh/ops/ray_sweep.py:283"),
-    # B6 (and B8, :337): one round is B10's launch then B9's; its count is
+    "raster_sweep": ("B4", "tpu_bvh_torch/csrc/raster.cu", "tpu_bvh/ops/raster_tpu.py:366"),
+    "ray_sweep": ("B5", "tpu_bvh_torch/csrc/ray_sweep.cu", "tpu_bvh/ops/ray_sweep.py:283"),
+    # B6 and B8: one round is B10's launch then B9's; their counts are
     # rounds, each also counted under ploc_nn and ploc_emit_compact
-    "ploc_round": ("tpu_bvh_torch/csrc/ploc_round.cu", "tpu_bvh/ops/pallas/ploc_round.py:401"),
-    "ploc_finish": ("tpu_bvh_torch/csrc/ploc_finish.cu", "tpu_bvh/ops/pallas/ploc_round.py:616"),
-    "ploc_emit_compact": ("tpu_bvh_torch/csrc/ploc_round.cu",
+    "ploc_round": ("B6", "tpu_bvh_torch/csrc/ploc_round.cu",
+                   "tpu_bvh/ops/pallas/ploc_round.py:401"),
+    "ploc_finish": ("B7", "tpu_bvh_torch/csrc/ploc_finish.cu",
+                    "tpu_bvh/ops/pallas/ploc_round.py:616"),
+    "ploc_round_fused": ("B8", "tpu_bvh_torch/csrc/ploc_round.cu",
+                         "tpu_bvh/ops/pallas/ploc_round.py:337"),
+    "ploc_emit_compact": ("B9", "tpu_bvh_torch/csrc/ploc_round.cu",
                           "tpu_bvh/ops/pallas/ploc_round.py:171"),
-    "ploc_nn": ("tpu_bvh_torch/csrc/ploc_nn.cu", "tpu_bvh/ops/pallas/ploc_nn.py:152"),
+    "ploc_nn": ("B10", "tpu_bvh_torch/csrc/ploc_nn.cu", "tpu_bvh/ops/pallas/ploc_nn.py:152"),
+    "plane_scan": ("B11", "tpu_bvh_torch/csrc/plane_scan.cu",
+                   "tpu_bvh/ops/pallas/plane_scan.py:60"),
+    # B12 and B13 (the TPU's sublane and lane layouts) are one kernel here
+    "psv_nsv_packed": ("B12", THR_SOURCE, f"{THR_TPU}:256"),
+    "psv_nsv_packed_lanes": ("B13", THR_SOURCE, f"{THR_TPU}:204"),
+    "psv_nsv_payload": ("B14", THR_SOURCE, f"{THR_TPU}:482"),
+    "child_positions": ("B15", "tpu_bvh_torch/csrc/child_scan.cu", f"{THR_TPU}:673"),
+    "scan32_halves": ("B16", "tpu_bvh_torch/csrc/scan32.cu", "tpu_bvh/ops/pallas/scan32.py:260"),
 }
 
 
@@ -205,11 +230,14 @@ def ploc_bounds(nn, nc, radius, shift):
     info = f"{nc} clusters, {nm} merges, {nc - n_keep} dropped, shift {shift}"
     return {"ploc_nn": (bound(4 * (state_rows + 8) * nc, flops), info),
             "ploc_emit_compact": (bound(4 * (emit_reads + writes), 0), info),
-            "ploc_round": (bound(4 * (round_reads + writes), flops), info)}
+            "ploc_round": (bound(4 * (round_reads + writes), flops), info),
+            # B8 writes the whole new state, zeros past the survivors
+            "ploc_round_fused": (bound(4 * (round_reads + 8 * nc + 8 * nm), flops), info)}
 
 
 def main():
     args = parse_args()
+    t_start = time.perf_counter()
     import numpy as np
     import torch
 
@@ -217,9 +245,9 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_bvh_torch.models import lbvh, ploc
-    from tpu_bvh_torch.ops import (collapse, collapse_block, collapse_fast, ploc_nn, ploc_round,
-                                   radix_tree, raster, raster_gpu, ray_sweep, refit, refit_dense,
-                                   scan32)
+    from tpu_bvh_torch.ops import (collapse, collapse_block, collapse_fast, plane_scan, ploc_nn,
+                                   ploc_round, radix_tree, raster, raster_gpu, ray_sweep, refit,
+                                   refit_dense, scan32, threshold_core)
     from tpu_bvh_torch.ops import ploc as ploc_ops
     from tpu_bvh_torch.ops.aabb import triangle_aabbs
     from tpu_bvh_torch.types import PLOC_RADIUS, Bvh4, Rays
@@ -238,6 +266,12 @@ def main():
         "ray_sweep": (ray_sweep, "launches"), "ploc_round": (ploc_round, "rounds"),
         "ploc_finish": (ploc_round, "finish_launches"),
         "ploc_emit_compact": (ploc_round, "emit_launches"), "ploc_nn": (ploc_nn, "launches"),
+        "ploc_round_fused": (ploc_round, "fused_rounds"), "plane_scan": (plane_scan, "launches"),
+        "psv_nsv_packed": (threshold_core, "launches"),
+        "psv_nsv_packed_lanes": (threshold_core, "launches"),
+        "psv_nsv_payload": (threshold_core, "payload_launches"),
+        "child_positions": (threshold_core, "child_launches"),
+        "scan32_halves": (scan32, "half_launches"),
     }
     # phase 1: the card
     print(f"[1] device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch "
@@ -252,21 +286,42 @@ def main():
     else:
         print(kernels.build_report, flush=True)
         print(f"[2] kernel build: {time.perf_counter() - t0:.2f} s (nvcc, "
-              f"{len(set(src for src, _ in KERNELS.values()))} sources in parallel: "
+              f"{len({src for _, src, _ in KERNELS.values()})} sources in parallel: "
               f"{kernels.build_seconds:.2f} s)", flush=True)
 
     # phase 3: each kernel against its plain version on the card
-    print("[3] kernels vs plain versions", flush=True)
+    print(f"[3] kernels vs plain versions (at {time.perf_counter() - t_start:.1f} s)", flush=True)
     sponza = scenes.sponza_like(SPONZA_TRIS)
     rng = np.random.default_rng(0)
     dup = np.repeat(sponza[rng.choice(len(sponza), 4096, replace=False)], 64, axis=0)
     errs = {name: 0.0 for name in KERNELS}
     inputs = {}
+    topo_inputs = {}  # scene: (sorted codes, leaf_packed_t)
+    pay_rng = np.random.default_rng(1)
 
     def same_outputs(got, want, name, what):
         for k, (g, w) in enumerate(zip(got, want)):
             require(torch.equal(g, w), f"{name} kernel output {k} == plain, bit-exact, {what}")
         errs[name] = max(errs[name], max_err(got, want))
+
+    def check_threshold(dlt, what):
+        """B12/B13, B14 (a random payload) and B15 on deltas in [0, 63]."""
+        pay = torch.from_numpy(pay_rng.integers(0, 1 << 22, dlt.shape[0]).astype(np.int32))
+        pay = pay.to(dev)
+        cases = (("psv_nsv_packed", threshold_core.psv_nsv_packed,
+                  threshold_core.psv_nsv_packed_reference, (dlt,)),
+                 ("psv_nsv_packed_lanes", threshold_core.psv_nsv_packed_lanes,
+                  threshold_core.psv_nsv_packed_reference, (dlt,)),
+                 ("psv_nsv_payload", threshold_core.psv_nsv_payload_auto,
+                  threshold_core.psv_nsv_payload_reference, (dlt, pay)),
+                 ("child_positions", threshold_core.child_positions_auto,
+                  threshold_core.child_positions_reference, (dlt,)))
+        for name, kfn, pfn, a in cases:
+            got = kfn(*a)
+            want = pfn(*a)
+            torch.cuda.synchronize()
+            same_outputs(got, want, name, what)
+        return pay
 
     for name, soup in (("sponza", sponza), ("dup", dup)):
         tris = torch.from_numpy(soup).to(dev)
@@ -277,7 +332,20 @@ def main():
         want = scan32.scan_core_reference(dlt_raw)
         torch.cuda.synchronize()
         same_outputs(got, want, "scan32", f"{name} m={m}")
-        first, last = got[0] + 1, got[3]
+        b1 = got
+        dlt32 = scan32.dlt32_from_raw(dlt_raw)
+        flipped = torch.flip(dlt32, [0])
+        got = (*scan32.scan_fwd(dlt32), *scan32.scan_rev(flipped, m))
+        want = (*scan32.scan_fwd_reference(dlt32), *scan32.scan_rev_reference(flipped, m))
+        torch.cuda.synchronize()
+        same_outputs(got, want, "scan32_halves", f"{name} V=32 deltas, forward and flipped")
+        require(all(torch.equal(g, w) for g, w in zip(
+            (*got[:3], *(torch.flip(x, [0]) for x in got[3:])), b1)),
+            f"B16's halves (the reverse flipped back) == B1's outputs, {name}")
+        dlt = scan32.remap_deltas(dlt_raw)
+        pay = check_threshold(dlt, f"{name} deltas, m={m}")
+        topo_inputs[name] = (codes, leaf_packed_t)
+        first, last = b1[0] + 1, b1[3]
         n = m + 1
         edge = torch.full((1,), n - 1, dtype=torch.int32, device=dev)
         mat = torch.cat([leaf_packed_t.contiguous().view(torch.int32),
@@ -294,8 +362,29 @@ def main():
         same_outputs([got_m, *got_a], [want_m, *want_a], "collapse_block", f"{name} W={n}")
         if name == "sponza":
             inputs["scan"] = dlt_raw
+            inputs["halves"] = (dlt32, flipped, m)
+            inputs["threshold"] = (dlt, pay)
+            # B11 on the threshold planes of the scans' plain versions
+            packed = torch.arange(m, dtype=torch.int32, device=dev) * 64 + dlt
+            below = dlt[:, None] < torch.arange(threshold_core.V, device=dev)[None, :]
+            planes = {True: torch.where(below, packed[:, None], threshold_core.BIG),
+                      False: torch.where(below, packed[:, None], -1)}
+            for is_min in (True, False):
+                for reverse in (False, True):
+                    got = plane_scan.plane_scan(planes[is_min], is_min=is_min, reverse=reverse)
+                    want = plane_scan.plane_scan_reference(planes[is_min], is_min=is_min,
+                                                           reverse=reverse)
+                    torch.cuda.synchronize()
+                    same_outputs([got], [want], "plane_scan",
+                                 f"sponza's threshold plane {tuple(got.shape)}, "
+                                 f"{'min' if is_min else 'max'}, "
+                                 f"{'reverse' if reverse else 'forward'}")
+            inputs["planes"] = planes
             inputs["refit"] = (mat, n)
             inputs["collapse"] = (rows, aux[0].n_internal, [got_m, *got_a])
+
+    draws = torch.from_numpy(rng.integers(0, 53, 262_144).astype(np.int32)).to(dev)
+    check_threshold(draws, "262,144 random deltas in [0, 53)")
 
     tris = torch.from_numpy(sponza).to(dev)
     tr, cam = scenes.preset("sponza", dev)
@@ -384,7 +473,7 @@ def main():
         got = ploc_round.ploc_round_fused(st, junk((8, n - 1)), nc, shift, base, R)
         want = ploc_round.ploc_round_reference(st, junk((8, n - 1)), nc, shift, base, R)
         torch.cuda.synchronize()
-        same_outputs(got, want, "ploc_round", what + ", allocating (B8)")
+        same_outputs(got, want, "ploc_round_fused", what + ", allocating (B8)")
     mat, nc, shift = hand_over
     step = ploc.HPLOC_SHIFT_STEP
     got = ploc_round.ploc_finish(mat, junk((8, n - 1)), nc, shift, n - nc, R, step)
@@ -411,8 +500,8 @@ def main():
 
     # phase 4: the main path through the entry points a user calls, path by
     # path, each with every launch counter set to 0 just before it
-    print(f"[4] main path on sponza_like({SPONZA_TRIS}): build -> collapse -> render -> shadow "
-          f"-> ploc", flush=True)
+    print(f"[4] main path on sponza_like({SPONZA_TRIS}): build -> topology -> collapse -> render "
+          f"-> shadow -> ploc (at {time.perf_counter() - t_start:.1f} s)", flush=True)
     launches = {}
 
     def run_path(path, names, fn):
@@ -423,12 +512,17 @@ def main():
         counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
         print(f"  launches in the {path} path: {counts}", flush=True)
         require(all(counts[nm] > 0 for nm in names), f"every kernel of the {path} path launched")
-        launches.update({nm: counts[nm] for nm in names})
+        for nm, c in counts.items():  # over the whole main path
+            launches[nm] = launches.get(nm, 0) + c
         return out
 
     (bvh, parent, first, last), bvh_two = run_path(
         "build", ["scan32", "refit_dense"],
         lambda: (lbvh.build_single_pass_aux(tris), lbvh.build_two_pass(tris)))
+    t_codes = topo_inputs["sponza"][0]
+    topo = run_path("topology", ["psv_nsv_packed", "psv_nsv_packed_lanes", "psv_nsv_payload"],
+                    lambda: (radix_tree.apetrei_topology_fast(t_codes),
+                             radix_tree.karras_topology_fast(t_codes)))
     wide = run_path("collapse", ["collapse_block"],
                     lambda: collapse_fast.collapse_lbvh_to_bvh4(bvh, parent, first, last))
 
@@ -491,6 +585,32 @@ def main():
     require(same_bvh(bvh_two, lbvh.build_two_pass(tris.cpu())),
             "GPU two-pass Bvh2 (packed_t, left, right, root) == CPU build")
     valid_bvh2(bvh_two, "two-pass", SAH_PIN)
+
+    # the fast topologies against B1's route, the plain oracles on the card
+    # and the port's CPU run
+    def same_all(got, want):
+        return all(g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want))
+
+    for name, (c, lv) in topo_inputs.items():
+        ape, kar = topo if name == "sponza" else (radix_tree.apetrei_topology_fast(c),
+                                                  radix_tree.karras_topology_fast(c))
+        b1_ape = radix_tree.apetrei_build_packed_full(c, lv)  # (l, r, parent, aabbs, root, f, l)
+        b1_kar = radix_tree.karras_build_packed(c, lv)
+        n_c = c.shape[0]
+        require(same_all(ape, [b1_ape[k] for k in (0, 1, 2, 5, 6, 4)]),
+                f"{name} (n={n_c}): apetrei_topology_fast == apetrei_build_packed_full's left, "
+                f"right, parent, first, last, root (B1's route)")
+        require(same_all(kar[:2], b1_kar[:2]),
+                f"{name}: karras_topology_fast's left, right == karras_build_packed's (B1's route)")
+        require(same_all(ape, radix_tree.apetrei_topology(c)),
+                f"{name}: apetrei_topology_fast == the plain apetrei_topology on the card")
+        require(same_all(kar, radix_tree.karras_topology(c)),
+                f"{name}: karras_topology_fast == the plain karras_topology on the card")
+        t0 = time.perf_counter()
+        cpu_topo = (radix_tree.apetrei_topology_fast(c.cpu()), radix_tree.karras_topology_fast(c.cpu()))
+        require(same_all(ape, cpu_topo[0]) and same_all(kar, cpu_topo[1]),
+                f"{name}: both fast topologies == the port's CPU run "
+                f"({time.perf_counter() - t0:.2f} s on the CPU)")
 
     # the collapse
     wide_cpu = collapse_fast.collapse_lbvh_to_bvh4(*cpu)
@@ -574,11 +694,16 @@ def main():
             "collapse_bvh2_to_bvh4 of the PLOC tree: check_bvh4_correctness")
 
     # phase 5: timings (medians after warm-up; host clock end to end)
-    print(f"[5] timings on {smi} (ms: CUDA events / host clock to synchronize)", flush=True)
+    print(f"[5] timings on {smi} (ms: CUDA events / host clock to synchronize; at "
+          f"{time.perf_counter() - t_start:.1f} s)", flush=True)
     ev, wall = time_ms(torch, lambda: lbvh.build_single_pass(tris), reps=10)
     print(f"  sponza_like {SPONZA_TRIS} single-pass build: {ev!r} / {wall!r} ms", flush=True)
     ev, wall = time_ms(torch, lambda: lbvh.build_two_pass(tris), reps=10)
     print(f"  two-pass build: {ev!r} / {wall!r} ms", flush=True)
+    for topo_fn in (radix_tree.apetrei_topology_fast, radix_tree.karras_topology_fast):
+        ev, wall = time_ms(torch, lambda: topo_fn(t_codes), reps=10)
+        print(f"  {topo_fn.__name__} (sponza codes, n={t_codes.shape[0]}): {ev!r} / {wall!r} ms",
+              flush=True)
     # PLOC and HPLOC run the same host code, so they are timed in 10
     # alternating pairs: a gap that holds in every pair is not host drift
     p_times = {"ploc": ([], []), "hploc": ([], [])}
@@ -647,6 +772,17 @@ def main():
         nc, shift = nc - int(nm), min(shift + step, 32)
     bounds.update(ploc_bounds(p_nn, n_tris, R, 32))
     f_rows = 7 if f_shift >= 32 else 8  # the code row is not needed at shift 32
+    # the threshold scans and B16 per row of sponza's deltas: B12/B13 read 4 B
+    # and write 8, B14 8 and 16, B15 4 and 8, each B16 half 4 and 12; B11
+    # reads and writes its plane once
+    t_dlt, t_pay = inputs["threshold"]
+    h32, h32f, h_m = inputs["halves"]
+    plane = inputs["planes"][True]
+    m_t = t_dlt.shape[0]
+    per_row = {"psv_nsv_packed": 12, "psv_nsv_packed_lanes": 12, "psv_nsv_payload": 24,
+               "child_positions": 12, "scan32_halves": 32}
+    bounds.update({nm: (bound(b * m_t, 0), f"m {m_t}") for nm, b in per_row.items()})
+    bounds["plane_scan"] = (bound(2 * nbytes(plane), 0), f"plane {tuple(plane.shape)}, min, forward")
     bounds["ploc_finish"] = (bound(4 * (f_rows * f_nc + 8 * (f_nc - 1)),
                                    f_lanes * R * FLOPS_PER_PAIR),
                              f"{f_nc} clusters, {f_rounds} rounds, {f_lanes} cluster-rounds, "
@@ -676,23 +812,69 @@ def main():
             20, 5, 1),
         "ploc_nn": (lambda: ploc_nn.ploc_nn_round_raw(p_mat, n_tris, 32, R),
                     lambda: ploc_nn.ploc_nn_round_raw_reference(p_mat, n_tris, 32, R), 20, 5, 1),
+        "ploc_round_fused": (
+            lambda: ploc_round.ploc_round_fused(p_mat, p_nodes, n_tris, 32, 0, R),
+            lambda: ploc_round.ploc_round_reference(p_mat, p_nodes, n_tris, 32, 0, R), 20, 5, 1),
+        "plane_scan": (lambda: plane_scan.plane_scan(plane, is_min=True, reverse=False),
+                       lambda: plane_scan.plane_scan_reference(plane, is_min=True, reverse=False),
+                       20, 3, 1),
+        "psv_nsv_packed": (lambda: threshold_core.psv_nsv_packed(t_dlt),
+                           lambda: threshold_core.psv_nsv_packed_reference(t_dlt), 20, 5, 1),
+        "psv_nsv_packed_lanes": (lambda: threshold_core.psv_nsv_packed_lanes(t_dlt),
+                                 lambda: threshold_core.psv_nsv_packed_reference(t_dlt), 20, 5, 1),
+        "psv_nsv_payload": (lambda: threshold_core.psv_nsv_payload_auto(t_dlt, t_pay),
+                            lambda: threshold_core.psv_nsv_payload_reference(t_dlt, t_pay), 20, 5,
+                            1),
+        "child_positions": (lambda: threshold_core.child_positions_auto(t_dlt),
+                            lambda: threshold_core.child_positions_reference(t_dlt), 20, 3, 1),
+        "scan32_halves": (lambda: (scan32.scan_fwd(h32), scan32.scan_rev(h32f, h_m)),
+                          lambda: (scan32.scan_fwd_reference(h32),
+                                   scan32.scan_rev_reference(h32f, h_m)), 20, 3, 1),
+    }
+    timed = {nm: timed[nm] for nm in KERNELS}  # rows in the order B1 to B16
+    # one PyTorch call that computes the same function, timed as a yardstick
+    library = {"plane_scan": lambda: torch.cummin(plane, dim=0)}
+    notes = {  # what a row's launches count, where it is not kernel launches
+        "ploc_round": "rounds of ploc_round_pp (B10 + B9 launches each)",
+        "ploc_round_fused": "rounds of ploc_round_fused (B10 + B9 launches each)",
+        "psv_nsv_packed": "calls of the one psv/nsv kernel that B12 and B13 share",
+        "psv_nsv_packed_lanes": "calls of the one psv/nsv kernel that B12 and B13 share",
+        "scan32_halves": "launches of either half",
     }
     rows_json = []
     for name, (kfn, pfn, kreps, preps, pwarm) in timed.items():
         k_ms, k_wall = time_ms(torch, kfn, kreps)
         p_ms, p_wall = time_ms(torch, pfn, preps, warmup=pwarm)
+        lib_ms = time_ms(torch, library[name], kreps)[0] if name in library else None
         (b_ms, b_by), info = bounds[name]
-        unit = "rounds (B10 + B9 launches each)" if name == "ploc_round" else "launches"
-        print(f"  {name}: kernel {k_ms!r} / {k_wall!r} ms, plain {p_ms!r} / {p_wall!r} ms, "
-              f"bound {b_ms!r} ms ({b_by}), {launches[name]} {unit} on the main path"
-              + (f"; {info}" if info else ""), flush=True)
-        row = {"name": name, "route": "cuda", "source": KERNELS[name][0],
-               "replaces": KERNELS[name][1], "launches": launches[name],
-               "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-        if name == "ploc_round":  # no kernel of its own: B10 then B9
-            row.update(sources=ROUND_SOURCES, launches_are=unit)
+        tpu, source, replaces = KERNELS[name]
+        print(f"  {tpu} {name}: kernel {k_ms!r} / {k_wall!r} ms, plain {p_ms!r} / {p_wall!r} ms"
+              + (f", library {lib_ms!r} ms" if lib_ms is not None else "")
+              + f", bound {b_ms!r} ms ({b_by}), {launches[name]} "
+              f"{notes.get(name, 'launches')} on the main path" + (f"; {info}" if info else ""),
+              flush=True)
+        row = {"name": name, "tpu_kernel": tpu, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
+               "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": lib_ms}
+        if name in ("ploc_round", "ploc_round_fused"):  # no kernel of their own: B10 then B9
+            row["sources"] = ROUND_SOURCES
+        if name in notes:
+            row["launches_are"] = notes[name]
         rows_json.append(row)
+    for is_min in (True, False):  # B11's other modes, on the plane of its own op
+        for reverse in (False, True):
+            x = inputs["planes"][is_min]
+            k_ms, _ = time_ms(torch, lambda: plane_scan.plane_scan(x, is_min=is_min,
+                                                                   reverse=reverse), 20)
+            p_ms, _ = time_ms(torch, lambda: plane_scan.plane_scan_reference(
+                x, is_min=is_min, reverse=reverse), 3, warmup=1)
+            lib = ""
+            if not reverse:  # one call computes only the forward scan
+                fn = torch.cummin if is_min else torch.cummax
+                lib = f", torch.{fn.__name__} {time_ms(torch, lambda: fn(x, dim=0), 20)[0]!r} ms"
+            print(f"  plane_scan {'min' if is_min else 'max'} {'reverse' if reverse else 'forward'}:"
+                  f" kernel {k_ms!r} ms, plain {p_ms!r} ms{lib}", flush=True)
     for key, what in (("closest", "the slice"), ("primary", "the 1080p primary rays")):
         c_args, c_out = inputs[f"ray_sweep_{key}"]
         (b_c, _), info_c = sweep_bound(torch, "ray_sweep", c_args, c_out)
@@ -701,6 +883,7 @@ def main():
         print(f"  ray_sweep closest-hit on {what}: kernel {k_ms!r} ms, plain {p_ms!r} ms, "
               f"bound {b_c!r} ms; {info_c}", flush=True)
 
+    print(f"  done at {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows_json}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,8 +11,9 @@ import pytest
 import torch
 
 from tpu_bvh_torch.models import lbvh, ploc
-from tpu_bvh_torch.ops import (collapse_block, collapse_fast, ploc_nn, ploc_round, radix_tree,
-                               raster, raster_gpu, ray_sweep, refit_dense, scan32)
+from tpu_bvh_torch.ops import (collapse_block, collapse_fast, plane_scan, ploc_nn, ploc_round,
+                               radix_tree, raster, raster_gpu, ray_sweep, refit_dense, scan32,
+                               threshold_core)
 from tpu_bvh_torch.ops import ploc as ploc_ops
 from tpu_bvh_torch.types import PLOC_RADIUS, Bvh4, Rays
 from tpu_bvh_torch.utils import camera, scenes, validate
@@ -335,3 +336,114 @@ def test_builds_match_cpu(cuda, monkeypatch, name, fin):
         rounds = ploc_ops.last_build["rounds"]
         assert rounds > 0 and ploc_round.rounds == before[0] + rounds
         assert ploc_round.finish_launches == before[1] + 1
+
+
+# ------------------------------------------------------ threshold scans
+
+def _deltas(kind, m, cuda):
+    """Deltas in [0, 52]: drawn at random (values repeat), all equal, or the
+    remapped deltas of sorted codes (unique range minima)."""
+    if kind == "draws":
+        d = np.random.default_rng(m).integers(0, 53, m).astype(np.int32)
+        return torch.from_numpy(d).to(cuda)
+    if kind == "zeros":
+        return torch.zeros(m, dtype=torch.int32, device=cuda)
+    return scan32.remap_deltas(radix_tree.adjacent_deltas(_codes(kind, m + 1).to(cuda)))
+
+
+@pytest.mark.parametrize("kind", ["draws", "zeros", "random", "dups"])
+@pytest.mark.parametrize("m", [1, 1000, 1025, 262_144])
+def test_threshold_kernels_match_plain(cuda, kind, m):
+    """B12/B13, B14 and B15 against their plain versions, one launch each."""
+    dlt = _deltas(kind, m, cuda)
+    pay = torch.from_numpy(np.random.default_rng(1).integers(0, 2**22, m).astype(np.int32))
+    pay = pay.to(cuda)
+    counters = ("launches", "payload_launches", "child_launches")
+    before = [getattr(threshold_core, c) for c in counters]
+    got = [threshold_core.psv_nsv_packed(dlt), threshold_core.psv_nsv_payload_auto(dlt, pay),
+           threshold_core.child_positions_auto(dlt)]
+    torch.cuda.synchronize()
+    assert [getattr(threshold_core, c) for c in counters] == [b + 1 for b in before]
+    want = [threshold_core.psv_nsv_packed_reference(dlt),
+            threshold_core.psv_nsv_payload_reference(dlt, pay),
+            threshold_core.child_positions_reference(dlt)]
+    for gs, ws in zip(got, want):
+        for g, w in zip(gs, ws):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("which", ["psv_nsv", "payload", "child"])
+def test_threshold_kernels_refuse_large_m(cuda, which):
+    """m >= 2^25 (64 * pos packing) and, for B15, m >= 2^22 (22-bit
+    positions) raise before any launch."""
+    limit = threshold_core.MAX_M_CHILD if which == "child" else threshold_core.MAX_M
+    dlt = torch.zeros(limit, dtype=torch.int32, device=cuda)
+    fn = {"psv_nsv": threshold_core.psv_nsv_packed,
+          "payload": lambda d: threshold_core.psv_nsv_payload_auto(d, d),
+          "child": threshold_core.child_positions_auto}[which]
+    before = (threshold_core.launches, threshold_core.payload_launches,
+              threshold_core.child_launches)
+    with pytest.raises(ValueError, match=f"m < {limit}"):
+        fn(dlt)
+    assert (threshold_core.launches, threshold_core.payload_launches,
+            threshold_core.child_launches) == before
+    got = fn(dlt[:-1])  # one row less launches: equal deltas have no smaller
+    torch.cuda.synchronize()  # value and empty child windows
+    assert bool((got[0] == -1).all())
+
+
+@pytest.mark.parametrize("is_min", [True, False])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("m,v", [(1, 64), (1000, 64), (262_144, 64), (300, 5), (700, 130)])
+def test_plane_scan_kernel_matches_plain(cuda, is_min, reverse, m, v):
+    x = np.random.default_rng(m + v).integers(-(2**31), 2**31 - 1, size=(m, v), dtype=np.int64)
+    x = torch.from_numpy(x.astype(np.int32)).to(cuda)
+    before = plane_scan.launches
+    got = plane_scan.plane_scan(x, is_min=is_min, reverse=reverse)
+    torch.cuda.synchronize()
+    assert plane_scan.launches == before + 1
+    assert torch.equal(got, plane_scan.plane_scan_reference(x, is_min=is_min, reverse=reverse))
+
+
+@pytest.mark.parametrize("kind", ["random", "dups", "all_equal", "sorted_line"])
+@pytest.mark.parametrize("n", [2, 97, 100_003])
+def test_scan_halves_match_plain_and_b1(cuda, kind, n):
+    """B16's halves against their plain versions and against B1's outputs."""
+    dlt_raw = radix_tree.adjacent_deltas(_codes(kind, n).to(cuda))
+    dlt32 = scan32.dlt32_from_raw(dlt_raw)
+    m = n - 1
+    before = scan32.half_launches
+    fwd = scan32.scan_fwd(dlt32)
+    rev = scan32.scan_rev(torch.flip(dlt32, [0]), m)
+    torch.cuda.synchronize()
+    assert scan32.half_launches == before + 2
+    want = (scan32.scan_fwd_reference(dlt32), scan32.scan_rev_reference(torch.flip(dlt32, [0]), m))
+    for gs, ws in zip((fwd, rev), want):
+        for g, w in zip(gs, ws):
+            assert torch.equal(g, w)
+    b1 = scan32.scan_core(dlt_raw)
+    for g, w in zip(fwd + tuple(torch.flip(x, [0]) for x in rev), b1):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("scene", ["sponza_like", "dup"])
+def test_fast_topologies_match_b1_route(cuda, scene):
+    """Both fast topologies launch the threshold kernels and equal B1's
+    route, the plain oracles and the port's CPU run."""
+    tris = torch.from_numpy(_soup(scene)).to(cuda)
+    codes, leaves, _ = lbvh._sorted_leaves_from_tris(tris, True)
+    before = (threshold_core.launches, threshold_core.payload_launches)
+    ape = radix_tree.apetrei_topology_fast(codes)
+    kar = radix_tree.karras_topology_fast(codes)
+    torch.cuda.synchronize()
+    assert threshold_core.launches == before[0] + 2
+    assert threshold_core.payload_launches == before[1] + 1
+    left, right, parent, _, root, first, last = radix_tree.apetrei_build_packed_full(codes, leaves)
+    kl, kr, _ = radix_tree.karras_build_packed(codes, leaves)
+    for got, want in ((ape, (left, right, parent, first, last, root)), (kar[:2], (kl, kr)),
+                      (ape, radix_tree.apetrei_topology(codes)),
+                      (kar, radix_tree.karras_topology(codes)),
+                      (ape, radix_tree.apetrei_topology_fast(codes.cpu())),
+                      (kar, radix_tree.karras_topology_fast(codes.cpu()))):
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu())

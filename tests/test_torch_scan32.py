@@ -63,3 +63,25 @@ def test_threshold_reference_forms_match_jax(kind):
     got += list(threshold_core.child_positions_reference(torch.from_numpy(dlt)))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n", [97, 4097])
+def test_scan_halves_match_pallas(kind, n):
+    """B16: `scan_fwd` / `scan_rev` equal `scan32._run` with `_fwd_kernel` on
+    the V=32 deltas and `_rev_kernel` on their flip (interpret mode)."""
+    codes = _codes(kind, n, seed=2)
+    dlt_raw = np.array(jradix.adjacent_deltas(jnp.asarray(codes)))
+    dlt32 = np.where(dlt_raw <= 31, dlt_raw - 2, 30).astype(np.int32)
+    m = dlt32.shape[0]
+    t32 = torch.from_numpy(dlt32)
+    assert torch.equal(scan32.dlt32_from_raw(torch.from_numpy(dlt_raw)), t32)
+    assert torch.equal(scan32.raw_from_dlt32(t32), torch.from_numpy(dlt_raw))
+    fwd = jscan32._run(jscan32._fwd_kernel, jnp.asarray(dlt32), True)
+    rev = jscan32._run(jscan32._rev_kernel, jnp.asarray(dlt32[::-1].copy()), True, m=m)
+    for got, want in ((scan32.scan_fwd(t32), fwd),
+                      (scan32.scan_rev(torch.flip(t32, [0]), m), rev)):
+        assert len(got) == 3
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))

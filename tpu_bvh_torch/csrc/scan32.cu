@@ -22,6 +22,17 @@
 // step (a few bytes per step; ~2m atomics in total), not bandwidth. The
 // design keeps every thread's state in registers and touches each node
 // once; later work can batch the climb per warp.
+//
+// The same climb also replaces tpu_bvh/ops/pallas/scan32.py:_run (B16),
+// which launches _fwd_kernel on the V=32 deltas (distinct codes raw - 2,
+// every tie on lane 30) for (psv_pos, psv_val, lc), and _rev_kernel on
+// their flip for (nsv_pos, nsv_val, rc) in flipped order and true
+// coordinates. tbvh_scan32_fwd / tbvh_scan32_rev rebuild the raw delta
+// exactly (a lane-30 tie at true position j is the ruler value
+// 32 + clz(j ^ (j + 1)); in the flipped array true position j sits at
+// m - 1 - j), climb, and write that half's three outputs. Each half must
+// read 4 B and write 12 B per row; like B1 it is bound by the climb's
+// dependent loads.
 
 #include <cuda_runtime.h>
 
@@ -29,7 +40,32 @@ namespace {
 
 __device__ __forceinline__ int remap(int raw) { return raw <= 31 ? raw - 2 : raw - 11; }
 
-__global__ void climb_kernel(const int* __restrict__ dlt, int m, int* __restrict__ other,
+// The raw adjacent deltas (B1's input).
+struct RawDeltas {
+  const int* d;
+  __device__ int operator()(int j) const { return d[j]; }
+};
+
+// The raw delta rebuilt from the V=32 deltas of B16 (distinct codes raw - 2
+// in [0, 29], every tie on lane 30), in true order or flipped (true
+// position j at index m - 1 - j): a tie at true position j has the ruler
+// value 32 + clz(j ^ (j + 1)), as radix_tree.adjacent_deltas computes it.
+struct Dlt32Deltas {
+  const int* d;
+  int m;
+  bool flipped;
+  __device__ int operator()(int j) const {
+    const int v = d[flipped ? m - 1 - j : j];
+    return v == 30 ? 32 + __clz(j ^ (j + 1)) : v + 2;
+  }
+};
+
+enum Half { kBoth, kFwd, kRev };  // which outputs a launch writes
+
+// kFwd writes psv_pos, psv_val, lc; kRev writes nsv_pos, nsv_val, rc at
+// index m - 1 - p (flipped order, true coordinates); kBoth all six.
+template <class Delta, int kHalf>
+__global__ void climb_kernel(Delta dlt, int m, int* __restrict__ other,
                              int* __restrict__ psv_pos, int* __restrict__ psv_val,
                              int* __restrict__ lc, int* __restrict__ nsv_pos,
                              int* __restrict__ nsv_val, int* __restrict__ rc) {
@@ -37,40 +73,67 @@ __global__ void climb_kernel(const int* __restrict__ dlt, int m, int* __restrict
   if (i > m) return;  // n = m + 1 leaves
   int l = i, r = i, node = -1;  // start at leaf i; -1 marks a leaf child
   while (true) {
-    int dl = l > 0 ? dlt[l - 1] : -1;
-    int dr = r < m ? dlt[r] : -1;
+    int dl = l > 0 ? dlt(l - 1) : -1;
+    int dr = r < m ? dlt(r) : -1;
     if (dl < 0 && dr < 0) return;  // the root: done
     int p;
     if (dl > dr) {  // right child of boundary l-1
       p = l - 1;
-      rc[p] = node;
+      if (kHalf != kFwd) rc[kHalf == kRev ? m - 1 - p : p] = node;
       int got = atomicExch(&other[p], r);
       if (got < 0) return;  // first arrival
       l = got;
     } else {  // left child of boundary r
       p = r;
-      lc[p] = node;
+      if (kHalf != kRev) lc[p] = node;
       int got = atomicExch(&other[p], l);
       if (got < 0) return;
       r = got;
     }
     node = p;  // second arrival: node p covers [l, r]
-    psv_pos[p] = l - 1;
-    psv_val[p] = l > 0 ? remap(dlt[l - 1]) : -1;
-    nsv_pos[p] = r;
-    nsv_val[p] = r < m ? remap(dlt[r]) : -1;
+    if (kHalf != kRev) {
+      psv_pos[p] = l - 1;
+      psv_val[p] = l > 0 ? remap(dlt(l - 1)) : -1;
+    }
+    if (kHalf != kFwd) {
+      const int at = kHalf == kRev ? m - 1 - p : p;
+      nsv_pos[at] = r;
+      nsv_val[at] = r < m ? remap(dlt(r)) : -1;
+    }
   }
+}
+
+// every slot of `other` starts at -1 (all bits set): no child has arrived yet
+template <int kHalf, class Delta>
+int climb(Delta dlt, int m, int* other, int* psv_pos, int* psv_val, int* lc, int* nsv_pos,
+          int* nsv_val, int* rc, cudaStream_t stream) {
+  const int threads = 256;
+  cudaError_t err = cudaMemsetAsync(other, 0xFF, (size_t)m * sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  climb_kernel<Delta, kHalf><<<(m + 1 + threads - 1) / threads, threads, 0, stream>>>(
+      dlt, m, other, psv_pos, psv_val, lc, nsv_pos, nsv_val, rc);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int tbvh_scan32(const int* dlt_raw, int m, int* other, int* psv_pos, int* psv_val,
                            int* lc, int* nsv_pos, int* nsv_val, int* rc, cudaStream_t stream) {
-  const int threads = 256;
-  // every slot starts at -1 (all bits set): no child has arrived yet
-  cudaError_t err = cudaMemsetAsync(other, 0xFF, (size_t)m * sizeof(int), stream);
-  if (err != cudaSuccess) return (int)err;
-  climb_kernel<<<(m + 1 + threads - 1) / threads, threads, 0, stream>>>(
-      dlt_raw, m, other, psv_pos, psv_val, lc, nsv_pos, nsv_val, rc);
-  return (int)cudaGetLastError();
+  return climb<kBoth>(RawDeltas{dlt_raw}, m, other, psv_pos, psv_val, lc, nsv_pos, nsv_val, rc,
+                      stream);
+}
+
+// B16, forward half: (psv_pos, psv_val, lc) from the V=32 deltas
+extern "C" int tbvh_scan32_fwd(const int* dlt32, int m, int* other, int* psv_pos, int* psv_val,
+                               int* lc, cudaStream_t stream) {
+  return climb<kFwd>(Dlt32Deltas{dlt32, m, false}, m, other, psv_pos, psv_val, lc, nullptr,
+                     nullptr, nullptr, stream);
+}
+
+// B16, reverse half: (nsv_pos, nsv_val, rc) from the flipped V=32 deltas,
+// written in flipped order
+extern "C" int tbvh_scan32_rev(const int* dlt32_flipped, int m, int* other, int* nsv_pos,
+                               int* nsv_val, int* rc, cudaStream_t stream) {
+  return climb<kRev>(Dlt32Deltas{dlt32_flipped, m, true}, m, other, nullptr, nullptr, nullptr,
+                     nsv_pos, nsv_val, rc, stream);
 }

@@ -45,6 +45,7 @@ FIN_WIDTH = 4096  # the round loop hands the last FIN_WIDTH clusters to the fini
 MAX_FIN_WIDTH = (232_448 - 128) // 33
 _EMIT_BLOCK = 256  # lanes per block of csrc/ploc_round.cu
 rounds = 0  # B6/B8 rounds (each one B10 and one B9 launch) since the last reset
+fused_rounds = 0  # of those, B8 rounds (`ploc_round_fused`)
 emit_launches = 0  # B9 launches (one per kernel round too)
 finish_launches = 0  # B7 launches
 
@@ -126,10 +127,12 @@ def _emit_compact_cuda(mat, nn, nodes, nc: int, base: int, out, scan):
 def ploc_round_fused(mat, nodes, n_clusters: int, shift_bits: int, base: int, radius: int):
     """One full round. Returns (new_mat i32[8, S] with zeros past the
     survivors, nodes, n_merged i32[]); dispatch by device."""
+    global fused_rounds
     if on_cuda(mat):
         out = torch.zeros_like(mat)
         nm = _round_cuda(mat, out, nodes, int(n_clusters), int(shift_bits), int(base), radius,
                          round_work(int(n_clusters), mat.device))
+        fused_rounds += 1
         return out, nodes, nm
     return ploc_round_reference(mat, nodes, n_clusters, shift_bits, base, radius)
 

@@ -9,6 +9,13 @@ values -1, children -1 (= leaf).
 
 A CUDA tensor launches `csrc/scan32.cu` (a bottom-up Apetrei climb); a
 CPU tensor takes `scan_core_reference`, the vectorised threshold scans.
+
+`scan_fwd` and `scan_rev` are the two halves of the TPU's V=32 form
+(`scan32._run` with `_fwd_kernel` / `_rev_kernel`): from the V=32 deltas
+of sorted codes (distinct codes raw - 2, every tie on lane 30) the first
+three outputs, and from their flip the last three in flipped order. On the
+card each rebuilds the raw deltas (a tie at position j is the ruler value
+32 + clz(j ^ (j + 1))) and runs the same climb.
 """
 from __future__ import annotations
 
@@ -19,11 +26,25 @@ from ..utils.platform import on_cuda
 from . import threshold_core
 
 launches = 0  # kernel launches by `scan_core` since the last reset
+half_launches = 0  # kernel launches by `scan_fwd` and `scan_rev`
 
 
 def remap_deltas(dlt_raw):
     """Raw deltas -> [0, 52]: distinct [2, 31] -> [0, 29], ties [41, 63] -> [30, 52]."""
     return torch.where(dlt_raw <= 31, dlt_raw - 2, dlt_raw - 11)
+
+
+def dlt32_from_raw(dlt_raw):
+    """Raw deltas -> the V=32 form: distinct [2, 31] -> [0, 29], ties -> 30."""
+    return torch.where(dlt_raw <= 31, dlt_raw - 2, 30)
+
+
+def raw_from_dlt32(dlt32):
+    """The raw deltas of sorted codes back from their V=32 form."""
+    m = dlt32.shape[0]
+    j = torch.arange(m, dtype=torch.int64, device=dlt32.device)
+    ruler = 64 - torch.frexp((j ^ (j + 1)).to(torch.float64)).exponent  # 32 + clz32
+    return torch.where(dlt32 == 30, ruler.to(torch.int32), dlt32 + 2)
 
 
 def scan_core(dlt_raw):
@@ -66,4 +87,48 @@ def _scan_core_cuda(dlt_raw):
     )
     kernels.check("tbvh_scan32", err)
     launches += 1
+    return tuple(outs)
+
+
+def scan_fwd(dlt32):
+    """(psv_pos, psv_val, lc) i32[m] from the V=32 deltas; dispatch by device."""
+    if on_cuda(dlt32):
+        return _scan_half_cuda(dlt32, dlt32.shape[0], False)
+    return scan_fwd_reference(dlt32)
+
+
+def scan_fwd_reference(dlt32):
+    """Plain version (any device): `scan_core_reference` of the raw deltas."""
+    return scan_core_reference(raw_from_dlt32(dlt32))[:3]
+
+
+def scan_rev(dlt32_flipped, m: int):
+    """(nsv_pos, nsv_val, rc) i32[m] in flipped order (entry g is true
+    position m - 1 - g), true coordinates, from the flipped V=32 deltas;
+    dispatch by device."""
+    if dlt32_flipped.shape[0] != m:
+        raise ValueError(f"scan_rev: m = {m} but {dlt32_flipped.shape[0]} deltas")
+    if on_cuda(dlt32_flipped):
+        return _scan_half_cuda(dlt32_flipped, m, True)
+    return scan_rev_reference(dlt32_flipped, m)
+
+
+def scan_rev_reference(dlt32_flipped, m: int):
+    """Plain version (any device)."""
+    raw = raw_from_dlt32(torch.flip(dlt32_flipped, [0]))
+    return tuple(torch.flip(x, [0]) for x in scan_core_reference(raw)[3:])
+
+
+def _scan_half_cuda(dlt32, m: int, flipped: bool):
+    global half_launches
+    kernels.require(dlt32, "dlt32", torch.int32, (m,))
+    if not 1 <= m < (1 << 22):
+        raise ValueError(f"scan_fwd / scan_rev need 1 <= m < 2^22, got {m}")
+    outs = [torch.empty(m, dtype=torch.int32, device=dlt32.device) for _ in range(3)]
+    other = torch.empty(m, dtype=torch.int32, device=dlt32.device)  # scratch
+    fn = kernels.lib().tbvh_scan32_rev if flipped else kernels.lib().tbvh_scan32_fwd
+    err = fn(dlt32.data_ptr(), m, other.data_ptr(), *(o.data_ptr() for o in outs),
+             kernels.stream_of(dlt32))
+    kernels.check("tbvh_scan32_rev" if flipped else "tbvh_scan32_fwd", err)
+    half_launches += 1
     return tuple(outs)

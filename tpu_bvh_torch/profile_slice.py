@@ -5,7 +5,11 @@ On `sponza_like(262_000)` it times `lbvh.build_single_pass`,
 `collapse_fast.collapse_lbvh_to_bvh4`, `raster_gpu.render_raster_gpu` at
 512^2 and 1920x1080 (leaf 64, the caps of chip_smoke.py) and
 `ray_sweep.shadow_occlusion` on the live hits of the 1080p frame (the JAX
-bench's shadow workload, caps 4096/32768/32): first the median host-clock
+bench's shadow workload, caps 4096/32768/32), the gather-free topologies
+`radix_tree.apetrei_topology_fast` and `karras_topology_fast` on the
+sorted codes, and the kernels off the main path on sponza's deltas
+(`plane_scan` min forward on the [m, 64] threshold plane,
+`child_positions_auto`, the two `scan32` halves): first the median host-clock
 ms to a synchronize without the profiler, then `--reps` calls each under
 torch.profiler (CPU + CUDA).
 From each Chrome trace it reads:
@@ -34,7 +38,8 @@ import time
 import torch
 
 from .models import lbvh, ploc
-from .ops import collapse_fast, raster, raster_gpu, ray_sweep
+from .ops import collapse_fast, plane_scan, radix_tree, raster, raster_gpu, ray_sweep, scan32
+from .ops import threshold_core
 from .utils import camera, scenes
 
 SPONZA_TRIS = 262_000
@@ -134,6 +139,20 @@ def main():
     points, live, light, eps = scenes.shadow_workload(tris, rays, hit)[:4]
     calls["shadow_occlusion"] = lambda: ray_sweep.shadow_occlusion(
         packed, points, live, light, tr, eps, *SHADOW_CAPS)
+    codes = lbvh._sorted_leaves_from_tris(tris, True)[0]
+    calls["apetrei_topology_fast"] = lambda: radix_tree.apetrei_topology_fast(codes)
+    calls["karras_topology_fast"] = lambda: radix_tree.karras_topology_fast(codes)
+    dlt_raw = radix_tree.adjacent_deltas(codes)
+    dlt = scan32.remap_deltas(dlt_raw)
+    below = dlt[:, None] < torch.arange(threshold_core.V, device=dev)[None, :]
+    packed_keys = torch.arange(dlt.shape[0], dtype=torch.int32, device=dev) * 64 + dlt
+    plane = torch.where(below, packed_keys[:, None], threshold_core.BIG)
+    calls["plane_scan"] = lambda: plane_scan.plane_scan(plane, is_min=True, reverse=False)
+    calls["child_positions"] = lambda: threshold_core.child_positions_auto(dlt)
+    dlt32 = scan32.dlt32_from_raw(dlt_raw)
+    flipped = torch.flip(dlt32, [0])
+    calls["scan32_halves"] = lambda: (scan32.scan_fwd(dlt32),
+                                      scan32.scan_rev(flipped, dlt32.shape[0]))
     print(f"card: {smi} | torch {torch.__version__} | cuda {torch.version.cuda}", flush=True)
     rows = []
     for name, fn in calls.items():

@@ -42,6 +42,12 @@ _SIGNATURES = {
     "tbvh_ploc_nn": [_P, _I, _I, _I, _I, _I, _P, _I, _P],
     "tbvh_ploc_emit_compact": [_P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P],
     "tbvh_ploc_finish": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P],
+    "tbvh_scan32_fwd": [_P, _I, _P, _P, _P, _P, _P],
+    "tbvh_scan32_rev": [_P, _I, _P, _P, _P, _P, _P],
+    "tbvh_psv_nsv": [_P, _I, _P, _P, _P, _P],
+    "tbvh_psv_nsv_payload": [_P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "tbvh_child_positions": [_P, _I, _P, _P, _P, _P, _P],
+    "tbvh_plane_scan": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 _lib = None
