@@ -19,7 +19,9 @@ rays), the PLOC++ and HPLOC builds, and the gather-free topologies
    with the renders' caps; the ray sweep in occlusion mode on every live
    shadow ray (caps 4096/32768/32) and in closest-hit mode on the 64K
    slice (caps 4096/24576/32) and on the 1080p primary rays (caps that
-   cannot overflow), where most rays hit; the PLOC nearest-neighbour
+   cannot overflow), where most rays hit, printing for each the ray-prim
+   tests the split sweep ran beside the ones the serial rule counts, and
+   its pair sweeps on the busiest SM; the PLOC nearest-neighbour
    stage on sponza's first-round state at shift 32 and 9, the emission
    and the whole round (ping-pong and allocating) on three states along
    the sponza HPLOC build, and the finisher on its hand-over state and at
@@ -31,7 +33,9 @@ rays), the PLOC++ and HPLOC builds, and the gather-free topologies
    and dup's deltas, forward and flipped, also against B1's outputs;
 4. runs the main path path by path (build, topology, collapse, render,
    shadow, ploc), every launch counter set to 0 just before each and read
-   just after, and checks: every kernel of each path launched; the fast
+   just after, and checks: every kernel of each path launched (on the
+   ploc path one fused-round launch per round and none of B9's or B10's,
+   host syncs = rounds + 1 per build); the fast
    topologies equal B1's route (`apetrei_build_packed_full`,
    `karras_build_packed`), the plain oracles (`apetrei_topology`,
    `karras_topology`) on the card and the port's CPU run, on sponza and
@@ -90,7 +94,7 @@ FLOPS_PER_TEST = {"raster_sweep": 26, "ray_sweep": 50}
 # (negate, subtract), 5 for the products and their sums, 1 doubling; a
 # lane needs R pair areas (each pair serves both its lanes)
 FLOPS_PER_PAIR = 18
-ROUND_SOURCES = ["tpu_bvh_torch/csrc/ploc_nn.cu", "tpu_bvh_torch/csrc/ploc_round.cu"]
+ROUND_SOURCE = "tpu_bvh_torch/csrc/ploc_round_fused.cu"
 THR_SOURCE = "tpu_bvh_torch/csrc/threshold_scan.cu"
 THR_TPU = "tpu_bvh/ops/pallas/threshold_core.py"
 KERNELS = {  # name: (TPU kernel, source, the TPU kernel it replaces), B1 to B16
@@ -101,14 +105,11 @@ KERNELS = {  # name: (TPU kernel, source, the TPU kernel it replaces), B1 to B16
                        "tpu_bvh/ops/pallas/collapse_block.py:481"),
     "raster_sweep": ("B4", "tpu_bvh_torch/csrc/raster.cu", "tpu_bvh/ops/raster_tpu.py:366"),
     "ray_sweep": ("B5", "tpu_bvh_torch/csrc/ray_sweep.cu", "tpu_bvh/ops/ray_sweep.py:283"),
-    # B6 and B8: one round is B10's launch then B9's; their counts are
-    # rounds, each also counted under ploc_nn and ploc_emit_compact
-    "ploc_round": ("B6", "tpu_bvh_torch/csrc/ploc_round.cu",
-                   "tpu_bvh/ops/pallas/ploc_round.py:401"),
+    # B6 and B8 share one kernel: a round is one launch
+    "ploc_round": ("B6", ROUND_SOURCE, "tpu_bvh/ops/pallas/ploc_round.py:401"),
     "ploc_finish": ("B7", "tpu_bvh_torch/csrc/ploc_finish.cu",
                     "tpu_bvh/ops/pallas/ploc_round.py:616"),
-    "ploc_round_fused": ("B8", "tpu_bvh_torch/csrc/ploc_round.cu",
-                         "tpu_bvh/ops/pallas/ploc_round.py:337"),
+    "ploc_round_fused": ("B8", ROUND_SOURCE, "tpu_bvh/ops/pallas/ploc_round.py:337"),
     "ploc_emit_compact": ("B9", "tpu_bvh_torch/csrc/ploc_round.cu",
                           "tpu_bvh/ops/pallas/ploc_round.py:171"),
     "ploc_nn": ("B10", "tpu_bvh_torch/csrc/ploc_nn.cu", "tpu_bvh/ops/pallas/ploc_nn.py:152"),
@@ -206,6 +207,17 @@ def sweep_bound(torch, name, args, out):
     info = (f"{tests} ray-prim tests; sweeps per 256-ray block: mean {float(sweeps.mean())!r}, "
             f"max {int(sweeps.max())}")
     return bound(n_bytes, tests * FLOPS_PER_TEST[name]), info
+
+
+def split_info(torch, stats, out, L):
+    """What the split sweep did (its device counters) beside what the serial
+    rule counts (the count output)."""
+    s = stats.cpu()
+    counted = int(out[4].sum(dtype=torch.int64))
+    return (f"ray-prim tests run {int(s[0])} against {counted} counted "
+            f"({int(s[0]) / max(counted, 1)!r}x), {int(s[1])} pair sweeps, most on one SM "
+            f"{int(s[4:].max())} (of {int((s[4:] > 0).sum())} SMs), "
+            f"{int(s[2])} subgroups re-swept; L {L}")
 
 
 def ploc_bounds(nn, nc, radius, shift):
@@ -422,10 +434,12 @@ def main():
         sweep, _, _, ovf = ray_sweep.prepare_trace(packed, rays, tr, *caps)
         require(not bool(ovf), f"ray sweep {what}: fits its caps {caps}")
         got = ray_sweep.ray_sweep_kernel(*sweep, occlusion)
+        split = split_info(torch, ray_sweep.last_stats, got, sweep[1].shape[1])
         want = ray_sweep.ray_sweep_reference(*sweep, occlusion)
         torch.cuda.synchronize()
         same_outputs(got, want, "ray_sweep", what)
         require(bool((got[1] >= 0).any()), f"ray sweep {what}: {int((got[1] >= 0).sum())} hits")
+        print(f"  ray sweep {what}: {split}", flush=True)
         inputs[f"ray_sweep_{key}"] = (sweep, got)
 
     # the PLOC kernels: B10 on sponza's first-round state; B9 and the round
@@ -514,17 +528,17 @@ def main():
         require(all(counts[nm] > 0 for nm in names), f"every kernel of the {path} path launched")
         for nm, c in counts.items():  # over the whole main path
             launches[nm] = launches.get(nm, 0) + c
-        return out
+        return out, counts
 
-    (bvh, parent, first, last), bvh_two = run_path(
+    ((bvh, parent, first, last), bvh_two), _ = run_path(
         "build", ["scan32", "refit_dense"],
         lambda: (lbvh.build_single_pass_aux(tris), lbvh.build_two_pass(tris)))
     t_codes = topo_inputs["sponza"][0]
-    topo = run_path("topology", ["psv_nsv_packed", "psv_nsv_packed_lanes", "psv_nsv_payload"],
-                    lambda: (radix_tree.apetrei_topology_fast(t_codes),
-                             radix_tree.karras_topology_fast(t_codes)))
-    wide = run_path("collapse", ["collapse_block"],
-                    lambda: collapse_fast.collapse_lbvh_to_bvh4(bvh, parent, first, last))
+    topo, _ = run_path("topology", ["psv_nsv_packed", "psv_nsv_packed_lanes", "psv_nsv_payload"],
+                       lambda: (radix_tree.apetrei_topology_fast(t_codes),
+                                radix_tree.karras_topology_fast(t_codes)))
+    wide, _ = run_path("collapse", ["collapse_block"],
+                       lambda: collapse_fast.collapse_lbvh_to_bvh4(bvh, parent, first, last))
 
     def render():
         pk = raster.pack_raster(bvh, tris, leaf_size=LEAF)
@@ -534,7 +548,7 @@ def main():
             out[(rw, rh)] = (rr, raster_gpu.render_raster_gpu(pk, rr, tr, rw, rh, *caps))
         return pk, out
 
-    packed, renders = run_path("render", ["raster_sweep"], render)
+    (packed, renders), _ = run_path("render", ["raster_sweep"], render)
 
     def shadow():
         rr, (hit, _, _) = renders[(1920, 1080)]
@@ -544,7 +558,7 @@ def main():
         trace = ray_sweep.trace_rays(packed, Rays(*(x[vs] for x in fw)), tr, *TRACE_CAPS)
         return work, occ, trace
 
-    work, (occ, _, ovf_occ), (hit_v, _, ovf_v) = run_path("shadow", ["ray_sweep"], shadow)
+    (work, (occ, _, ovf_occ), (hit_v, _, ovf_v)), _ = run_path("shadow", ["ray_sweep"], shadow)
 
     def ploc_builds():
         out = {}
@@ -552,8 +566,14 @@ def main():
             out[name] = (build(tris), dict(ploc_ops.last_build))
         return out
 
-    plocs = run_path("ploc", ["ploc_round", "ploc_finish", "ploc_emit_compact", "ploc_nn"],
-                     ploc_builds)
+    plocs, p_counts = run_path("ploc", ["ploc_round", "ploc_finish"], ploc_builds)
+    n_rounds = sum(info["rounds"] for _, info in plocs.values())
+    require(p_counts["ploc_round"] == n_rounds and p_counts["ploc_nn"] == 0
+            and p_counts["ploc_emit_compact"] == 0,
+            f"ploc path: {p_counts['ploc_round']} fused-round launches for {n_rounds} rounds, "
+            f"no B10 (ploc_nn) or B9 (ploc_emit_compact) launch")
+    require(all(i["host_syncs"] == i["rounds"] + i["finish"] for _, i in plocs.values()),
+            "ploc path: host syncs per build = rounds + 1 (the finisher's flag)")
 
     # the build
     cpu = lbvh.build_single_pass_aux(tris.cpu())
@@ -835,8 +855,10 @@ def main():
     # one PyTorch call that computes the same function, timed as a yardstick
     library = {"plane_scan": lambda: torch.cummin(plane, dim=0)}
     notes = {  # what a row's launches count, where it is not kernel launches
-        "ploc_round": "rounds of ploc_round_pp (B10 + B9 launches each)",
-        "ploc_round_fused": "rounds of ploc_round_fused (B10 + B9 launches each)",
+        "collapse_block": "calls of collapse_block (3 CUDA launches each)",
+        "ray_sweep": "calls of ray_sweep_kernel (3 CUDA launches each: init, sweep, finish)",
+        "ploc_round": "rounds of ploc_round_pp (one fused-kernel launch each)",
+        "ploc_round_fused": "rounds of ploc_round_fused (one fused-kernel launch each)",
         "psv_nsv_packed": "calls of the one psv/nsv kernel that B12 and B13 share",
         "psv_nsv_packed_lanes": "calls of the one psv/nsv kernel that B12 and B13 share",
         "scan32_halves": "launches of either half",
@@ -857,8 +879,6 @@ def main():
                "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": lib_ms}
-        if name in ("ploc_round", "ploc_round_fused"):  # no kernel of their own: B10 then B9
-            row["sources"] = ROUND_SOURCES
         if name in notes:
             row["launches_are"] = notes[name]
         rows_json.append(row)
@@ -875,13 +895,18 @@ def main():
                 lib = f", torch.{fn.__name__} {time_ms(torch, lambda: fn(x, dim=0), 20)[0]!r} ms"
             print(f"  plane_scan {'min' if is_min else 'max'} {'reverse' if reverse else 'forward'}:"
                   f" kernel {k_ms!r} ms, plain {p_ms!r} ms{lib}", flush=True)
-    for key, what in (("closest", "the slice"), ("primary", "the 1080p primary rays")):
+    for key, what, occl in (("occl", "the shadow rays, occlusion", True),
+                            ("closest", "the slice, closest-hit", False),
+                            ("primary", "the 1080p primary rays, closest-hit", False)):
         c_args, c_out = inputs[f"ray_sweep_{key}"]
         (b_c, _), info_c = sweep_bound(torch, "ray_sweep", c_args, c_out)
-        k_ms, _ = time_ms(torch, lambda: ray_sweep.ray_sweep_kernel(*c_args, False), 20)
-        p_ms, _ = time_ms(torch, lambda: ray_sweep.ray_sweep_reference(*c_args, False), 3, warmup=1)
-        print(f"  ray_sweep closest-hit on {what}: kernel {k_ms!r} ms, plain {p_ms!r} ms, "
-              f"bound {b_c!r} ms; {info_c}", flush=True)
+        k_ms, _ = time_ms(torch, lambda: ray_sweep.ray_sweep_kernel(*c_args, occl), 20)
+        split = split_info(torch, ray_sweep.last_stats, c_out, c_args[1].shape[1])
+        p_ms = (time_ms(torch, lambda: ray_sweep.ray_sweep_reference(*c_args, occl), 3,
+                        warmup=1)[0] if not occl else None)
+        print(f"  ray_sweep on {what}: kernel {k_ms!r} ms"
+              + (f", plain {p_ms!r} ms" if p_ms is not None else "")
+              + f", bound {b_c!r} ms; {info_c}; last timed call: {split}", flush=True)
 
     print(f"  done at {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows_json}), flush=True)

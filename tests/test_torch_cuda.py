@@ -187,6 +187,67 @@ def test_ray_sweep_kernel_at_its_leaf_size_limit(cuda, leaf):
     assert bool((got[1] >= 0).any())
 
 
+def _inside_sponza_rays(cuda, n=16_384):
+    """Rays from one point inside the sponza hall in every direction: many
+    pairs per group, and the serial rule stops each subgroup somewhere
+    along its list."""
+    soup = scenes.sponza_like(16_384)
+    pts = soup.reshape(-1, 3)
+    centre = torch.from_numpy((pts.min(0) + pts.max(0)) / 2) + torch.tensor([0.0, 0.5, 0.0])
+    d = np.random.default_rng(13).normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = Rays(centre.expand(n, 3).contiguous().to(cuda), torch.from_numpy(d).to(cuda),
+                torch.zeros(n, device=cuda), torch.full((n,), 1000.0, device=cuda))
+    return torch.from_numpy(soup).to(cuda), rays
+
+
+@pytest.mark.parametrize("inflate", [False, True])
+@pytest.mark.parametrize("occlusion", [False, True])
+def test_ray_sweep_split_over_many_chunks(cuda, occlusion, inflate):
+    """B5 where a subgroup's swept pairs span many chunks; with the entry
+    bounds tripled (still sorted, no longer below every hit) the least key
+    may lie past the stop pair and the finish pass re-sweeps."""
+    tris, rays = _inside_sponza_rays(cuda)
+    packed = raster.pack_raster(lbvh.build_single_pass(tris), tris, leaf_size=16)
+    tr, _ = scenes.preset("sponza", cuda)
+    args, _, _, ovf = ray_sweep.prepare_trace(packed, rays, tr, 4096, 1 << 16, 32)
+    assert not bool(ovf)
+    if inflate:
+        args = list(args)
+        args[3] = torch.where(args[3] < ray_sweep.BIG, args[3] * 3.0 + 0.5, args[3])
+    before = ray_sweep.launches
+    got = ray_sweep.ray_sweep_kernel(*args, occlusion)
+    torch.cuda.synchronize()
+    assert ray_sweep.launches == before + 1
+    for g, x in zip(got, ray_sweep.ray_sweep_reference(*args, occlusion)):
+        assert torch.equal(g, x)
+    sweeps = got[4].reshape(-1, 256)[:, 0] // 16
+    assert int(sweeps.max()) > 4 * ray_sweep.CHUNK
+    stats = ray_sweep.last_stats.cpu()
+    assert int(stats[1]) >= int(sweeps.sum())  # pair sweeps, speculation included
+    assert int(stats[4:].sum()) == int(stats[1])
+    assert int(stats[0]) >= int(got[4].sum(dtype=torch.int64))
+
+
+def test_ray_sweep_refuses_2_pow_23_pairs(cuda):
+    tris = torch.from_numpy(scenes.sponza_like(4096)).to(cuda)
+    packed = raster.pack_raster(lbvh.build_single_pass(tris), tris, leaf_size=64)
+    tr, cam = scenes.preset("sponza", cuda)
+    args, _, _, _ = ray_sweep.prepare_trace(packed, camera.generate_rays(cam, 64, 64), tr,
+                                            64, 4096, 32)
+    P = ray_sweep.MAX_P
+    pad = lambda x, v: torch.cat([x, torch.full((P - x.shape[0],), v, dtype=x.dtype, device=cuda)])
+    big = (*args[:2], pad(args[2], -1), pad(args[3], ray_sweep.BIG), pad(args[4], 0), *args[5:])
+    before = ray_sweep.launches
+    with pytest.raises(ValueError, match="2\\^23"):
+        ray_sweep.ray_sweep_kernel(*big)
+    assert ray_sweep.launches == before
+    got = ray_sweep.ray_sweep_kernel(*(x[:-1] if i in (2, 3, 4) else x for i, x in enumerate(big)))
+    torch.cuda.synchronize()  # one pair less launches
+    for g, x in zip(got, ray_sweep.ray_sweep_reference(*args)):
+        assert torch.equal(g, x)
+
+
 # ------------------------------------------------------------------ PLOC
 
 R = PLOC_RADIUS
@@ -272,7 +333,8 @@ def test_ploc_round_kernels_match_plain(cuda, k):
          ploc_round.ploc_round_reference(mat, _junk((8, n - 1), cuda), nc, shift, base, R)),
     ]
     torch.cuda.synchronize()
-    assert (ploc_round.emit_launches, ploc_round.rounds) == (before[0] + 3, before[1] + 2)
+    # B9 launches once; each round is one launch of the fused kernel
+    assert (ploc_round.emit_launches, ploc_round.rounds) == (before[0] + 1, before[1] + 2)
     for got, want in cases:
         for g, w in zip(got, want):
             assert torch.equal(g, w)
@@ -287,6 +349,53 @@ def test_ploc_round_kernel_few_clusters(cuda, nc):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("nc", [1, 2, 3, 255, 256, 257, 300, 5000, "all"])
+def test_ploc_round_one_launch_matches_plain(cuda, nc):
+    """B6 and B8 around the fused kernel's block edges and on the whole
+    16K state: one launch a round, no B9 or B10 launch."""
+    mat = _ploc_state(cuda)
+    n = mat.shape[1]
+    nc = n if nc == "all" else nc
+    before = (ploc_round.rounds, ploc_round.emit_launches, ploc_nn.launches)
+    got = [ploc_round.ploc_round_pp(mat, _junk(mat.shape, cuda), _junk((8, n - 1), cuda), nc, 9,
+                                    0, R),
+           ploc_round.ploc_round_fused(mat, _junk((8, n - 1), cuda), nc, 9, 0, R)]
+    torch.cuda.synchronize()
+    assert (ploc_round.rounds, ploc_round.emit_launches, ploc_nn.launches) == (
+        before[0] + 2, before[1], before[2])
+    want = [ploc_round.ploc_round_pp_reference(mat, _junk(mat.shape, cuda),
+                                               _junk((8, n - 1), cuda), nc, 9, 0, R),
+            ploc_round.ploc_round_reference(mat, _junk((8, n - 1), cuda), nc, 9, 0, R)]
+    for gs, ws in zip(got, want):
+        for g, w in zip(gs, ws):
+            assert torch.equal(g, w)
+
+
+def test_ploc_rounds_reuse_their_scratch(cuda):
+    """Twenty consecutive rounds on one RoundWork (the ticket and the
+    look-back epochs are reused), held round by round against the plain
+    round: survivors, node buffer and n_merged."""
+    mat = _ploc_state(cuda)
+    n = mat.shape[1]
+    work = ploc_round.round_work(n, cuda)
+    got_m, got_s, got_n = mat, _junk(mat.shape, cuda), _junk((8, n - 1), cuda)
+    want_m, want_n = mat, _junk((8, n - 1), cuda)
+    nc, shift = n, ploc.HPLOC_SHIFT0
+    for _ in range(20):
+        _, _, nm = ploc_round.ploc_round_pp(got_m, got_s, got_n, nc, shift, n - nc, R, work)
+        want_s, _, want_nm = ploc_round.ploc_round_pp_reference(
+            want_m, _junk(mat.shape, cuda), want_n, nc, shift, n - nc, R)
+        torch.cuda.synchronize()
+        assert int(nm) == int(want_nm)
+        keep = nc - int((ploc_nn.ploc_nn_round_raw_reference(want_m[:, :nc], nc, shift, R)[7]
+                         == 2).sum())
+        assert torch.equal(got_s[:, :keep], want_s[:, :keep]) and torch.equal(got_n, want_n)
+        assert int(work.ctl[0]) == 0 and int(work.ctl[2]) == keep
+        nc -= int(nm)
+        got_m, got_s, want_m = got_s, got_m, want_s
+        shift = min(shift + ploc.HPLOC_SHIFT_STEP, 32)
 
 
 @pytest.mark.parametrize("width,shift,step", [(2, 32, 6), (3, 9, 6), (1000, 9, 6), (4096, 9, 3),

@@ -14,18 +14,20 @@ cluster order (the round loop flips them to root-at-0 once at the end).
   and their new id, and keep their own code). Node columns outside
   [base, base + n_merged) are not touched.
 * `ploc_round_fused` (B8) and `ploc_round_pp` (B6): one round = the NN
-  stage on the live lanes, then the emission. B8 allocates its outputs;
-  B6 writes the survivors into the caller's second buffer (the round loop
-  swaps the two) and reuses the caller's scratch, so a round allocates
-  nothing and its work is sized to the live count.
+  stage on the live lanes, then the emission. On the card both are one
+  launch of `csrc/ploc_round_fused.cu`. B8 allocates its outputs; B6
+  writes the survivors into the caller's second buffer (the round loop
+  swaps the two) and reuses the caller's scratch (`RoundWork`), so a
+  round allocates nothing and its work is sized to the live count.
 * `ploc_finish` (B7): every remaining round of at most MAX_FIN_WIDTH
   clusters in one launch. The HPLOC segment shift grows by `shift_step`
   per round, as in the plain round loop; the TPU kernel hard-codes 3
   (tpu_bvh/ops/pallas/ploc_round.py:574).
 
-A CUDA tensor launches `csrc/ploc_nn.cu`, `csrc/ploc_round.cu` and
-`csrc/ploc_finish.cu`; a CPU tensor takes the `*_reference` versions,
-which run on any device. Both update `nodes` in place and return it.
+A CUDA tensor launches `csrc/ploc_round.cu` (B9), `csrc/ploc_round_fused.cu`
+(B6/B8) and `csrc/ploc_finish.cu` (B7); a CPU tensor takes the `*_reference`
+versions, which run on any device. Both update `nodes` in place and
+return it.
 """
 from __future__ import annotations
 
@@ -43,24 +45,35 @@ FIN_WIDTH = 4096  # the round loop hands the last FIN_WIDTH clusters to the fini
 # shared memory, within the 232,448 B a block may opt in to on the H100,
 # less the kernel's 128 B of static shared memory
 MAX_FIN_WIDTH = (232_448 - 128) // 33
-_EMIT_BLOCK = 256  # lanes per block of csrc/ploc_round.cu
-rounds = 0  # B6/B8 rounds (each one B10 and one B9 launch) since the last reset
+_EMIT_BLOCK = 256  # lanes per block of csrc/ploc_round.cu and csrc/ploc_round_fused.cu
+rounds = 0  # B6/B8 rounds on the card (one launch each) since the last reset
 fused_rounds = 0  # of those, B8 rounds (`ploc_round_fused`)
-emit_launches = 0  # B9 launches (one per kernel round too)
+emit_launches = 0  # B9 launches (`ploc_emit_compact`)
 finish_launches = 0  # B7 launches
+_epoch = 0  # rounds launched in this process: tags the look-back status words
 
 
 class RoundWork(NamedTuple):
-    """Scratch a round reuses: the NN output and the block counts."""
+    """Scratch a round reuses: the blocks' look-back status words, and the
+    ticket with the round's (n_merged, n_keep)."""
 
-    nn: torch.Tensor  # i32[8, capacity]
-    scan: torch.Tensor  # i32[2 * ceil(capacity / 256) + 2]
+    status: torch.Tensor  # i64[2 * ceil(capacity / 256)]: (merges, keeps) per block
+    ctl: torch.Tensor  # i32[4]: ticket (0 between launches), n_merged, n_keep, 0
+    n_merged: torch.Tensor  # i32[], a view of ctl[1]
 
 
 def round_work(capacity: int, device) -> RoundWork:
     nb = -(-capacity // _EMIT_BLOCK)
-    return RoundWork(torch.empty((8, capacity), dtype=I32, device=device),
-                     torch.empty((2 * nb + 2,), dtype=I32, device=device))
+    ctl = torch.zeros((4,), dtype=I32, device=device)
+    return RoundWork(torch.zeros((2 * nb,), dtype=torch.int64, device=device), ctl, ctl[1])
+
+
+def _require_states(what: str, **states):
+    """Each argument a contiguous CUDA i32[8, *]; raises naming `what`."""
+    for name, x in states.items():
+        kernels.require(x, name, I32)
+        if x.dim() != 2 or x.shape[0] != 8:
+            raise ValueError(f"{what}: {name} must be i32[8, *]")
 
 
 # ---------------------------------------------------------------- B9
@@ -98,10 +111,7 @@ def ploc_emit_compact_reference(mat, nn, nodes, n_clusters: int, base: int, out=
 
 def _emit_compact_cuda(mat, nn, nodes, nc: int, base: int, out, scan):
     global emit_launches
-    for name, x in (("mat", mat), ("nn", nn), ("out", out), ("nodes", nodes)):
-        kernels.require(x, name, I32)
-        if x.dim() != 2 or x.shape[0] != 8:
-            raise ValueError(f"ploc_emit_compact: {name} must be i32[8, *]")
+    _require_states("ploc_emit_compact", mat=mat, nn=nn, out=out, nodes=nodes)
     if not 1 <= nc <= min(mat.shape[1], nn.shape[1], out.shape[1]):
         raise ValueError(f"ploc_emit_compact needs 1 <= n_clusters <= width, got {nc}")
     if base < 0 or base + nc // 2 > nodes.shape[1]:
@@ -172,13 +182,28 @@ def ploc_round_pp_reference(matA, matB, nodes, n_clusters: int, shift_bits: int,
 
 def _round_cuda(mat, out, nodes, nc: int, shift_bits: int, base: int, radius: int,
                 work: RoundWork):
-    global rounds
-    if nc < 1:
-        raise ValueError(f"a PLOC round needs n_clusters >= 1, got {nc}")
-    ploc_nn.launch(mat, nc, shift_bits, radius, work.nn, nc)
-    nm = _emit_compact_cuda(mat, work.nn, nodes, nc, base, out, work.scan)
+    global rounds, _epoch
+    ploc_nn._check(radius)
+    _require_states("a PLOC round", mat=mat, out=out, nodes=nodes)
+    if not 1 <= nc <= min(mat.shape[1], out.shape[1]):
+        raise ValueError(f"a PLOC round needs 1 <= n_clusters <= width, got {nc}")
+    if base < 0 or base + nc // 2 > nodes.shape[1]:
+        raise ValueError(f"a PLOC round: ids [{base}, {base + nc // 2}) exceed the "
+                         f"{nodes.shape[1]} node columns")
+    nb = -(-nc // _EMIT_BLOCK)
+    kernels.require(work.status, "RoundWork.status", torch.int64)
+    kernels.require(work.ctl, "RoundWork.ctl", I32, (4,))
+    if work.status.numel() < 2 * nb:
+        raise ValueError(f"a PLOC round of {nc} clusters needs RoundWork.status i64[>= {2 * nb}]")
+    _epoch = _epoch % ((1 << 30) - 1) + 1  # 30 bits, never 0 (a zeroed word)
+    err = kernels.lib().tbvh_ploc_round(
+        mat.data_ptr(), mat.shape[1], nc, shift_bits, radius, base, out.data_ptr(),
+        out.shape[1], nodes.data_ptr(), nodes.shape[1], work.status.data_ptr(),
+        work.ctl.data_ptr(), _epoch, kernels.stream_of(mat),
+    )
+    kernels.check("tbvh_ploc_round", err)
     rounds += 1
-    return nm
+    return work.n_merged  # as the kernel left it
 
 
 # ---------------------------------------------------------------- B7
@@ -219,10 +244,7 @@ def ploc_finish_reference(mat, nodes, n_clusters: int, shift_bits: int, base: in
 def _finish_cuda(mat, nodes, nc: int, shift_bits: int, base: int, radius: int, step: int):
     global finish_launches
     ploc_nn._check(radius)
-    for name, x in (("mat", mat), ("nodes", nodes)):
-        kernels.require(x, name, I32)
-        if x.dim() != 2 or x.shape[0] != 8:
-            raise ValueError(f"ploc_finish: {name} must be i32[8, *]")
+    _require_states("ploc_finish", mat=mat, nodes=nodes)
     if not nc <= min(MAX_FIN_WIDTH, mat.shape[1]):
         raise ValueError(f"ploc_finish takes n_clusters <= MAX_FIN_WIDTH = {MAX_FIN_WIDTH} "
                          f"(and <= the state's width), got {nc}")

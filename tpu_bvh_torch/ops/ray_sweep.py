@@ -19,8 +19,11 @@ per-(pair, subgroup) cull bitmask from `_obox_vs_aabb` (the cone test for
 an origin box). The sweep (`ray_sweep_kernel`) runs `csrc/ray_sweep.cu` on
 CUDA tensors and `ray_sweep_reference` on CPU tensors; both sum the dot
 products in the same order with separately rounded f32 operations, so they
-agree bit for bit. Occlusion mode (`shadow_occlusion`) answers the boolean
-query only: any hit in range writes t = 0 and prim = 0.
+agree bit for bit. The plain version walks each subgroup's pairs in order;
+the kernel splits them into chunks over the SMs and finds the same stop
+pair and winners (the argument is in its source note). Occlusion mode
+(`shadow_occlusion`) answers the boolean query only: any hit in range
+writes t = 0 and prim = 0.
 """
 from __future__ import annotations
 
@@ -45,7 +48,13 @@ PRIM_WORDS = 32  # floats per prim in a slab
 # static shared memory (as ptxas reports it) fit the 48 KB a launch gets
 # without opting in
 MAX_L = (48 * 1024 - 48) // (PRIM_WORDS * 4)
-launches = 0  # kernel launches by `ray_sweep_kernel` since the last reset
+MAX_P = 1 << 23  # pair indices fill 23 bits of the kernel's 64-bit hit key
+CHUNK = 8  # pair slots per work item of the split sweep (kChunk in the .cu)
+STATS = 4 + 1024  # the kernel's counters (kStats + kSmSlots in the .cu)
+launches = 0  # calls of `ray_sweep_kernel` on the card since the last reset (3 launches each)
+# the last call's device counters, i64[STATS]: ray-prim tests run, pair
+# sweeps, subgroups re-swept serially, 0, then pair sweeps per SM id
+last_stats = None
 
 
 def _plucker_slabs(wt, prim_ids, leaf_size: int):
@@ -176,7 +185,9 @@ def ray_sweep_reference(feats, slabs, p_tid, p_tlb, p_bits, t_start, t_end,
 
 
 def _ray_sweep_cuda(feats, slabs, p_tid, p_tlb, p_bits, t_start, t_end, occlusion):
-    global launches
+    """The split sweep of `csrc/ray_sweep.cu`. Needs p_tlb non-decreasing
+    within each group's [t_start, t_end), as `prepare_trace` makes it."""
+    global launches, last_stats
     n_ct = feats.shape[0]
     nt, L = slabs.shape[0], slabs.shape[1]
     P = p_tid.shape[0]
@@ -189,15 +200,24 @@ def _ray_sweep_cuda(feats, slabs, p_tid, p_tlb, p_bits, t_start, t_end, occlusio
     kernels.require(t_end, "t_end", I32, (n_ct,))
     if n_ct == 0 or not 1 <= L <= MAX_L:
         raise ValueError(f"ray_sweep needs n_ct >= 1 and 1 <= L <= {MAX_L}, got {n_ct}, {L}")
+    if P >= MAX_P:
+        raise ValueError(f"ray_sweep needs P < 2^23 = {MAX_P} pairs (the hit key), got {P}")
     dev = feats.device
     out = [torch.empty((n_ct, RPG), dtype=dt, device=dev) for dt in (F32, I32, F32, F32, I32)]
+    # scratch: a 64-bit hit key and an event index per ray, a stop bound per
+    # subgroup, chunk counts and order per group, the ticket and the level table
+    keys = torch.empty((n_ct * RPG,), dtype=torch.int64, device=dev)
+    ints = torch.empty((n_ct * (RPG + NSUB + 2) + 4 + P // CHUNK + 2,), dtype=I32, device=dev)
+    stats = torch.empty((STATS,), dtype=torch.int64, device=dev)
     err = kernels.lib().tbvh_ray_sweep(
         feats.data_ptr(), slabs.data_ptr(), p_tid.data_ptr(), p_tlb.data_ptr(),
-        p_bits.data_ptr(), t_start.data_ptr(), t_end.data_ptr(), n_ct, L, int(occlusion),
-        *(o.data_ptr() for o in out), kernels.stream_of(feats),
+        p_bits.data_ptr(), t_start.data_ptr(), t_end.data_ptr(), n_ct, P, L, int(occlusion),
+        *(o.data_ptr() for o in out), keys.data_ptr(), ints.data_ptr(), stats.data_ptr(),
+        kernels.stream_of(feats),
     )
     kernels.check("tbvh_ray_sweep", err)
     launches += 1
+    last_stats = stats
     return tuple(out)
 
 

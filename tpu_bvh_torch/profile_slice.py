@@ -9,7 +9,13 @@ bench's shadow workload, caps 4096/32768/32), the gather-free topologies
 `radix_tree.apetrei_topology_fast` and `karras_topology_fast` on the
 sorted codes, and the kernels off the main path on sponza's deltas
 (`plane_scan` min forward on the [m, 64] threshold plane,
-`child_positions_auto`, the two `scan32` halves): first the median host-clock
+`child_positions_auto`, the two `scan32` halves), and the kernels whose
+CUDA-event times in chip_smoke.py are set by the host's launch path, each
+alone at the main path's shapes: one PLOC round (B6 `ploc_round_pp` and B8
+`ploc_round_fused` on PLOC's first-round state, B10 `ploc_nn_round_raw`
+and B9 `ploc_emit_compact` on it), B12 `psv_nsv_packed` and B14
+`psv_nsv_payload_auto` on sponza's deltas, and B5 `ray_sweep_kernel` on
+the shadow rays (occlusion): first the median host-clock
 ms to a synchronize without the profiler, then `--reps` calls each under
 torch.profiler (CPU + CUDA).
 From each Chrome trace it reads:
@@ -38,8 +44,10 @@ import time
 import torch
 
 from .models import lbvh, ploc
-from .ops import collapse_fast, plane_scan, radix_tree, raster, raster_gpu, ray_sweep, scan32
-from .ops import threshold_core
+from .ops import (collapse_fast, plane_scan, ploc_nn, ploc_round, radix_tree, raster, raster_gpu,
+                  ray_sweep, scan32, threshold_core)
+from .ops import ploc as ploc_ops
+from .types import PLOC_RADIUS
 from .utils import camera, scenes
 
 SPONZA_TRIS = 262_000
@@ -153,6 +161,25 @@ def main():
     flipped = torch.flip(dlt32, [0])
     calls["scan32_halves"] = lambda: (scan32.scan_fwd(dlt32),
                                       scan32.scan_rev(flipped, dlt32.shape[0]))
+    pay = (torch.arange(dlt.shape[0], dtype=torch.int32, device=dev) * 7919) % (1 << 22)
+    calls["psv_nsv_packed"] = lambda: threshold_core.psv_nsv_packed(dlt)
+    calls["psv_nsv_payload"] = lambda: threshold_core.psv_nsv_payload_auto(dlt, pay)
+    leaf_codes, leaf_packed_t, _ = lbvh._sorted_leaves_packed(
+        lbvh.prim_refs_from_triangles(tris), True)
+    mat0 = ploc_ops.initial_state(leaf_packed_t, leaf_codes)
+    n = mat0.shape[1]
+    nodes, spare = torch.zeros((8, n - 1), dtype=torch.int32, device=dev), torch.empty_like(mat0)
+    work = ploc_round.round_work(n, dev)
+    nn = ploc_nn.ploc_nn_round_raw(mat0, n, 32, PLOC_RADIUS)
+    calls["ploc_round"] = lambda: ploc_round.ploc_round_pp(mat0, spare, nodes, n, 32, 0,
+                                                           PLOC_RADIUS, work)
+    calls["ploc_round_fused"] = lambda: ploc_round.ploc_round_fused(mat0, nodes, n, 32, 0,
+                                                                    PLOC_RADIUS)
+    calls["ploc_nn"] = lambda: ploc_nn.ploc_nn_round_raw(mat0, n, 32, PLOC_RADIUS)
+    calls["ploc_emit_compact"] = lambda: ploc_round.ploc_emit_compact(mat0, nn, nodes, n, 0)
+    sweep = ray_sweep.prepare_trace(packed, ray_sweep.shadow_rays(points, live, light, eps), tr,
+                                    *SHADOW_CAPS)[0]
+    calls["ray_sweep"] = lambda: ray_sweep.ray_sweep_kernel(*sweep, True)
     print(f"card: {smi} | torch {torch.__version__} | cuda {torch.version.cuda}", flush=True)
     rows = []
     for name, fn in calls.items():

@@ -37,8 +37,9 @@ _SIGNATURES = {
     "tbvh_raster_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
                           _P, _P, _P, _P, _P, _P],
     "tbvh_collapse_block": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
-    "tbvh_ray_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _P, _P, _P, _P, _P, _P],
+    "tbvh_ray_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "tbvh_ploc_round": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P],
     "tbvh_ploc_nn": [_P, _I, _I, _I, _I, _I, _P, _I, _P],
     "tbvh_ploc_emit_compact": [_P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P],
     "tbvh_ploc_finish": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P],
