@@ -16,7 +16,9 @@ rays), the PLOC++ and HPLOC builds, and the gather-free topologies
    for bit in every output: the topology scan, the dense refit and the
    collapse kernel on sponza and on a soup of duplicated triangles
    (tie-heavy Morton codes); the raster sweep at 512^2 and at 1920x1080
-   with the renders' caps; the ray sweep in occlusion mode on every live
+   with the renders' caps, printing its split's device counters (tests
+   run against counted, pair sweeps on the busiest SM, re-swept
+   subtiles); the ray sweep in occlusion mode on every live
    shadow ray (caps 4096/32768/32) and in closest-hit mode on the 64K
    slice (caps 4096/24576/32) and on the 1080p primary rays (caps that
    cannot overflow), where most rays hit, printing for each the ray-prim
@@ -24,8 +26,11 @@ rays), the PLOC++ and HPLOC builds, and the gather-free topologies
    its pair sweeps on the busiest SM; the PLOC nearest-neighbour
    stage on sponza's first-round state at shift 32 and 9, the emission
    and the whole round (ping-pong and allocating) on three states along
-   the sponza HPLOC build, and the finisher on its hand-over state and at
-   its shared-memory width limit (one cluster more is refused); the
+   the sponza HPLOC build, and the finisher on the HPLOC states where the
+   round loop hands over at 4096 (its width before the cluster design)
+   and at 16384 (the TPU kernel's and the port's), and at its
+   shared-memory width limit (one cluster more is refused), printing its
+   device counters (rounds and clock64 cycles per regime and phase); the
    threshold scans (B12/B13, B14, B15) on sponza's and the dup soup's
    deltas and on 262,144 random deltas in [0, 53) (values repeat), the
    plane scan (B11) on sponza's [m, 64] threshold plane, min and max,
@@ -53,9 +58,11 @@ rays), the PLOC++ and HPLOC builds, and the gather-free topologies
 5. times the builds, the fast topologies, the collapse, the renders,
    `shadow_occlusion` and `trace_rays` (medians after warm-up, on CUDA events and on the host
    clock; PLOC and HPLOC in 10 alternating pairs, with the gap per
-   pair), prints each PLOC build's rounds, finisher launches and host
-   syncs, and times each kernel beside its plain version and computes
-   its bound from this run's inputs (B11 also beside `torch.cummin`).
+   pair, at the hand-over widths 4096 and 16384 in turn), prints each
+   PLOC build's rounds, finisher launches and host syncs, and times each
+   kernel beside its plain version and computes its bound from this run's
+   inputs (B11 also beside `torch.cummin`), and B4 at both sizes with its
+   split's counters.
 
 Any failure raises. The last three lines are the kernels JSON line, the
 nvidia-smi line and {"ok": true, "device": {...}}. Needs one CUDA device
@@ -79,6 +86,7 @@ SAH_PIN = 333.01  # BVH2 SAH of the sponza_like single-pass tree (a tree propert
 SAH4_PIN = 159.13  # its BVH4 SAH after the collapse (a tree property)
 PLOC_SAH_PINS = {"ploc": 280.94, "hploc": 281.14}  # the sponza_like trees (bench.py:91-92)
 LEAF = 64
+HAND_OVERS = (4096, 16384)  # B7's hand-over widths to check: before this design, the TPU's
 RENDERS = {  # (width, height): (cand_cap, pair_cap, group), as the JAX bench uses them
     (512, 512): (1024, 4096, 32),
     (1920, 1080): (1024, 8192, 32),
@@ -209,15 +217,33 @@ def sweep_bound(torch, name, args, out):
     return bound(n_bytes, tests * FLOPS_PER_TEST[name]), info
 
 
-def split_info(torch, stats, out, L):
-    """What the split sweep did (its device counters) beside what the serial
-    rule counts (the count output)."""
+def split_info(torch, stats, out, L, unit="subgroups"):
+    """What a split sweep (B4, B5) did (its device counters) beside what the
+    serial rule counts (the count output)."""
     s = stats.cpu()
     counted = int(out[4].sum(dtype=torch.int64))
     return (f"ray-prim tests run {int(s[0])} against {counted} counted "
             f"({int(s[0]) / max(counted, 1)!r}x), {int(s[1])} pair sweeps, most on one SM "
             f"{int(s[4:].max())} (of {int((s[4:] > 0).sum())} SMs), "
-            f"{int(s[2])} subgroups re-swept; L {L}")
+            f"{int(s[2])} {unit} re-swept; L {L}")
+
+
+FIN_PHASES = ("nn", "scan", "emit", "compact", "barrier")
+FIN_REGIMES = ("cluster", "one CTA", "one warp")
+
+
+def finish_info(stats, sm_mhz):
+    """B7's device counters (clock64 deltas of one thread, per regime):
+    rounds, cycles and the share of each phase."""
+    out = []
+    for name, row in zip(FIN_REGIMES, stats.cpu().tolist()):
+        if row[0] == 0:
+            continue
+        total = max(row[1], 1)
+        shares = ", ".join(f"{p} {row[2 + j] / total:.3f}" for j, p in enumerate(FIN_PHASES))
+        out.append(f"{name}: {row[0]} rounds, {row[1]} cycles ({row[1] / sm_mhz!r} us at "
+                   f"{sm_mhz} MHz; {shares})")
+    return "; ".join(out)
 
 
 def ploc_bounds(nn, nc, radius, shift):
@@ -272,6 +298,9 @@ def main():
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    sm_mhz = int(subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip())
     counters = {  # kernel: (module, name of its launch counter)
         "scan32": (scan32, "launches"), "refit_dense": (refit_dense, "launches"),
         "collapse_block": (collapse_block, "launches"), "raster_sweep": (raster_gpu, "launches"),
@@ -410,10 +439,13 @@ def main():
         sweep, _, ovf = raster_gpu.prepare_sweep(packed, rays, tr, w, h, *caps)
         require(not bool(ovf), f"{rw}x{rh} pair list fits its caps {caps}")
         got = raster_gpu.raster_sweep(*sweep)
+        split = split_info(torch, raster_gpu.last_stats, got, sweep[1].shape[1], "subtiles")
         want = raster_gpu.raster_sweep_reference(*sweep)
         torch.cuda.synchronize()
         same_outputs(got, want, "raster_sweep", f"{rw}x{rh}")
         require(bool((got[1] >= 0).any()), f"raster {rw}x{rh}: {int((got[1] >= 0).sum())} hits")
+        print(f"  raster sweep {rw}x{rh}: {split}", flush=True)
+        inputs[f"raster_{rw}x{rh}"] = (sweep, got)
         if (rw, rh) == (512, 512):
             inputs["raster"] = (sweep, got)
 
@@ -462,14 +494,22 @@ def main():
         same_outputs([got], [want], "ploc_nn", f"sponza first round, n={n}, shift {shift}")
         if shift == 32:
             inputs["ploc"] = (mat0, got)
-    states, mat, nc, shift = [], mat0, n, ploc.HPLOC_SHIFT0
+    # the HPLOC state where the round loop hands over at each width in
+    # HAND_OVERS (the finisher's width before this design, the TPU kernel's,
+    # the port's)
+    widths = sorted({*HAND_OVERS, ploc_round.FIN_WIDTH}, reverse=True)
+    states, hand_overs, mat, nc, shift = [], {}, mat0, n, ploc.HPLOC_SHIFT0
     sink = junk((8, n - 1))
-    while nc > ploc_round.FIN_WIDTH:
-        states.append((mat, nc, shift))
+    while widths:
+        if nc <= widths[0]:
+            hand_overs[widths.pop(0)] = (mat, nc, shift)
+            continue
+        if nc > ploc_round.FIN_WIDTH:
+            states.append((mat, nc, shift))
         mat, _, nm = ploc_round.ploc_round_reference(mat, sink, nc, shift, n - nc, R)
         nc -= int(nm)
         shift = min(shift + ploc.HPLOC_SHIFT_STEP, 32)
-    hand_over = (mat, nc, shift)
+    hand_over = hand_overs[ploc_round.FIN_WIDTH]
     for k in sorted({0, len(states) // 2, len(states) - 1}):
         st, nc, shift = states[k]
         base = n - nc
@@ -488,13 +528,18 @@ def main():
         want = ploc_round.ploc_round_reference(st, junk((8, n - 1)), nc, shift, base, R)
         torch.cuda.synchronize()
         same_outputs(got, want, "ploc_round_fused", what + ", allocating (B8)")
-    mat, nc, shift = hand_over
     step = ploc.HPLOC_SHIFT_STEP
-    got = ploc_round.ploc_finish(mat, junk((8, n - 1)), nc, shift, n - nc, R, step)
-    want = ploc_round.ploc_finish_reference(mat, junk((8, n - 1)), nc, shift, n - nc, R, step)
-    torch.cuda.synchronize()
-    same_outputs([got], [want], "ploc_finish", f"HPLOC hand-over state, nc={nc}, shift {shift}")
+    for width, (mat, nc, shift) in sorted(hand_overs.items()):
+        got = ploc_round.ploc_finish(mat, junk((8, n - 1)), nc, shift, n - nc, R, step)
+        want = ploc_round.ploc_finish_reference(mat, junk((8, n - 1)), nc, shift, n - nc, R, step)
+        torch.cuda.synchronize()
+        same_outputs([got], [want], "ploc_finish",
+                     f"HPLOC hand-over state at FIN_WIDTH {width}, nc={nc}, shift {shift}")
+        print(f"  B7 counters, hand-over at {width}: "
+              f"{finish_info(ploc_round.last_finish_stats, sm_mhz)}", flush=True)
+    mat, nc, shift = hand_over
     inputs["finish"] = (mat, nc, shift, n - nc)
+    inputs["hand_overs"] = {w: (m, c, s, n - c) for w, (m, c, s) in hand_overs.items()}
     W = ploc_round.MAX_FIN_WIDTH
     lim = mat0[:, :W + 1].contiguous()  # the first W + 1 sorted leaves
     for shift in (32, ploc.HPLOC_SHIFT0):
@@ -503,6 +548,8 @@ def main():
         torch.cuda.synchronize()
         same_outputs([got], [want], "ploc_finish",
                      f"at its width limit, {W} clusters, shift {shift}")
+        print(f"  B7 counters, {W} clusters, shift {shift}: "
+              f"{finish_info(ploc_round.last_finish_stats, sm_mhz)}", flush=True)
     before = ploc_round.finish_launches
     try:
         ploc_round.ploc_finish(lim, junk((8, W)), W + 1, 32, 0, R, step)
@@ -725,23 +772,30 @@ def main():
         print(f"  {topo_fn.__name__} (sponza codes, n={t_codes.shape[0]}): {ev!r} / {wall!r} ms",
               flush=True)
     # PLOC and HPLOC run the same host code, so they are timed in 10
-    # alternating pairs: a gap that holds in every pair is not host drift
-    p_times = {"ploc": ([], []), "hploc": ([], [])}
+    # alternating pairs: a gap that holds in every pair is not host drift.
+    # The hand-over widths take turns in the same loop.
+    fin_width = ploc_round.FIN_WIDTH
+    b_widths = sorted({*HAND_OVERS, fin_width})
+    b_times = {(w, name): ([], []) for w in b_widths for name in ("ploc", "hploc")}
     p_info = {}
-    for rep in range(12):  # two warm-up pairs
-        for name in p_times:
+    for rep in range(12):  # two warm-up rounds
+        for w, name in b_times:
+            ploc_round.FIN_WIDTH = w
             ev, wall = time_ms(torch, lambda: getattr(ploc, f"build_{name}")(tris), reps=1,
                                warmup=0)
-            p_info[name] = dict(ploc_ops.last_build)
+            p_info[(w, name)] = dict(ploc_ops.last_build)
             if rep >= 2:
-                p_times[name][0].append(ev)
-                p_times[name][1].append(wall)
-    for name, (evs, walls) in p_times.items():
-        info = p_info[name]
-        print(f"  build_{name}: {statistics.median(evs)!r} / {statistics.median(walls)!r} ms "
+                b_times[(w, name)][0].append(ev)
+                b_times[(w, name)][1].append(wall)
+    ploc_round.FIN_WIDTH = fin_width
+    for (w, name), (evs, walls) in b_times.items():
+        info = p_info[(w, name)]
+        print(f"  build_{name} (FIN_WIDTH {w}{', the default' if w == fin_width else ''}): "
+              f"{statistics.median(evs)!r} / {statistics.median(walls)!r} ms "
               f"(10 runs, alternating); {info['rounds']} rounds of B6, {info['finish']} B7 "
               f"launch, {info['host_syncs']} host syncs in the round loop; host ms per run "
               f"{[round(w, 3) for w in walls]}", flush=True)
+    p_times = {name: b_times[(fin_width, name)] for name in ("ploc", "hploc")}
     gaps = [[h - p for h, p in zip(p_times["hploc"][k], p_times["ploc"][k])] for k in (0, 1)]
     print(f"  build_hploc - build_ploc per pair (median; pairs with HPLOC slower): events "
           f"{statistics.median(gaps[0])!r} ms ({sum(g > 0 for g in gaps[0])}/10), host "
@@ -806,7 +860,7 @@ def main():
     bounds["ploc_finish"] = (bound(4 * (f_rows * f_nc + 8 * (f_nc - 1)),
                                    f_lanes * R * FLOPS_PER_PAIR),
                              f"{f_nc} clusters, {f_rounds} rounds, {f_lanes} cluster-rounds, "
-                             f"one block on one of the card's SMs")
+                             f"a cluster of {ploc_round.FIN_CTAS} CTAs")
     timed = {  # kernel, plain, kernel reps, plain reps, plain warm-up
         "scan32": (lambda: scan32.scan_core(inputs["scan"]),
                    lambda: scan32.scan_core_reference(inputs["scan"]), 20, 5, 1),
@@ -856,6 +910,8 @@ def main():
     library = {"plane_scan": lambda: torch.cummin(plane, dim=0)}
     notes = {  # what a row's launches count, where it is not kernel launches
         "collapse_block": "calls of collapse_block (3 CUDA launches each)",
+        "raster_sweep": "calls of raster_sweep (3 CUDA launches each: init, sweep, finish)",
+        "ploc_finish": f"cluster launches of ploc_finish ({ploc_round.FIN_CTAS} CTAs each)",
         "ray_sweep": "calls of ray_sweep_kernel (3 CUDA launches each: init, sweep, finish)",
         "ploc_round": "rounds of ploc_round_pp (one fused-kernel launch each)",
         "ploc_round_fused": "rounds of ploc_round_fused (one fused-kernel launch each)",
@@ -879,6 +935,9 @@ def main():
                "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": lib_ms}
+        if name == "ploc_finish":
+            print(f"  B7 counters, last timed call: "
+                  f"{finish_info(ploc_round.last_finish_stats, sm_mhz)}", flush=True)
         if name in notes:
             row["launches_are"] = notes[name]
         rows_json.append(row)
@@ -907,6 +966,20 @@ def main():
         print(f"  ray_sweep on {what}: kernel {k_ms!r} ms"
               + (f", plain {p_ms!r} ms" if p_ms is not None else "")
               + f", bound {b_c!r} ms; {info_c}; last timed call: {split}", flush=True)
+    for (rw, rh) in RENDERS:
+        c_args, c_out = inputs[f"raster_{rw}x{rh}"]
+        (b_c, _), info_c = sweep_bound(torch, "raster_sweep", c_args, c_out)
+        k_ms, _ = time_ms(torch, lambda: raster_gpu.raster_sweep(*c_args), 20)
+        split = split_info(torch, raster_gpu.last_stats, c_out, c_args[1].shape[1], "subtiles")
+        print(f"  raster_sweep at {rw}x{rh}: kernel {k_ms!r} ms, bound {b_c!r} ms; {info_c}; "
+              f"last timed call: {split}", flush=True)
+    for width, (mat, nc, shift, base) in sorted(inputs["hand_overs"].items()):
+        buf = junk((8, base + nc - 1))  # B7 at each hand-over width
+        k_ms, _ = time_ms(torch, lambda: ploc_round.ploc_finish(mat, buf, nc, shift, base, R,
+                                                                step), 20)
+        print(f"  ploc_finish on the HPLOC hand-over state at {width} (nc={nc}): kernel "
+              f"{k_ms!r} ms; last timed call: "
+              f"{finish_info(ploc_round.last_finish_stats, sm_mhz)}", flush=True)
 
     print(f"  done at {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows_json}), flush=True)

@@ -103,6 +103,72 @@ def test_raster_kernel_matches_plain(cuda, scene, preset, w, h, leaf, caps):
     assert bool((got[1] >= 0).any())
 
 
+RENDER_CAPS = {(512, 512): (1024, 4096, 32), (1920, 1080): (1024, 8192, 32)}
+
+
+@pytest.mark.parametrize("w,h", list(RENDER_CAPS))
+def test_raster_split_matches_plain(cuda, w, h):
+    """B4 on the renders' sponza workload (262K triangles, leaf 64, their
+    caps), where one subtile sweeps tens of pairs and most sweep none: all
+    five outputs bit for bit, the pair sweeps spread over the SMs."""
+    tris = torch.from_numpy(scenes.sponza_like(262_000)).to(cuda)
+    packed = raster.pack_raster(lbvh.build_single_pass(tris), tris, leaf_size=64)
+    tr, cam = scenes.preset("sponza", cuda)
+    rays, wp, hp = raster_gpu.pad_rays(camera.generate_rays(cam, w, h), w, h)
+    args, _, ovf = raster_gpu.prepare_sweep(packed, rays, tr, wp, hp, *RENDER_CAPS[(w, h)])
+    assert not bool(ovf)
+    before = raster_gpu.launches
+    got = raster_gpu.raster_sweep(*args)
+    torch.cuda.synchronize()
+    assert raster_gpu.launches == before + 1
+    for g, x in zip(got, raster_gpu.raster_sweep_reference(*args)):
+        assert torch.equal(g, x)
+    sweeps = got[4].reshape(-1, 256)[:, 0] // 64
+    assert int(sweeps.max()) > 10 * float(sweeps.float().mean())  # heavily imbalanced
+    stats = raster_gpu.last_stats.cpu()
+    assert int(stats[1]) >= int(sweeps.sum()) and int(stats[4:].sum()) == int(stats[1])
+    assert int(stats[0]) >= int(got[4].sum(dtype=torch.int64))
+    assert int((stats[4:] > 0).sum()) > 64  # the sweeps spread over the SMs
+
+
+def test_raster_split_resweeps_with_inflated_bounds(cuda):
+    """B4 with every entry bound tripled (still sorted, no longer below
+    every hit) on small triangles before a slanted backdrop, one prim a
+    treelet: hits past the stop pair beat the serial walk's, and the finish
+    pass re-sweeps those subtiles serially."""
+    rng = np.random.default_rng(5)
+    small = rng.uniform(-1.5, 1.5, (120, 1, 3)) + rng.uniform(-0.3, 0.3, (120, 3, 3))
+    back = np.array([[[-30.0, -30.0, 4.0], [30.0, -30.0, 4.0], [0.0, 40.0, -40.0]]])
+    tris = torch.from_numpy(np.concatenate([small, back] * 2).astype(np.float32)).to(cuda)
+    packed = raster.pack_raster(lbvh.build_single_pass(tris), tris, leaf_size=1)
+    tr, cam = scenes.preset("cornellbox", cuda)
+    args, _, ovf = raster_gpu.prepare_sweep(packed, camera.generate_rays(cam, 128, 128), tr, 128,
+                                            128, 256, 8192, 4)
+    assert not bool(ovf)
+    args = list(args)
+    args[3] = torch.where(args[3] < raster_gpu.BIG, args[3] * 3.0 + 0.5, args[3])
+    got = raster_gpu.raster_sweep(*args)
+    torch.cuda.synchronize()
+    for g, x in zip(got, raster_gpu.raster_sweep_reference(*args)):
+        assert torch.equal(g, x)
+    assert int(raster_gpu.last_stats[2]) > 0
+
+
+def test_raster_sweep_refuses_2_pow_22_pairs(cuda):
+    tris = torch.from_numpy(scenes.cornellbox()).to(cuda)
+    packed = raster.pack_raster(lbvh.build_single_pass(tris), tris, leaf_size=16)
+    tr, cam = scenes.preset("cornellbox", cuda)
+    args, _, _ = raster_gpu.prepare_sweep(packed, camera.generate_rays(cam, 64, 64), tr, 64, 64,
+                                          64, 512, 4)
+    P = raster_gpu.MAX_P
+    pad = lambda x, v: torch.cat([x, torch.full((P - x.shape[0],), v, dtype=x.dtype, device=cuda)])
+    big = (*args[:2], pad(args[2], -1), pad(args[3], raster_gpu.BIG), pad(args[4], 0), *args[5:])
+    before = raster_gpu.launches
+    with pytest.raises(ValueError, match="2\\^22"):
+        raster_gpu.raster_sweep(*big)
+    assert raster_gpu.launches == before
+
+
 def _soup(scene):
     if scene == "sponza_like":
         return scenes.sponza_like(16_384)
@@ -398,13 +464,20 @@ def test_ploc_rounds_reuse_their_scratch(cuda):
         shift = min(shift + ploc.HPLOC_SHIFT_STEP, 32)
 
 
-@pytest.mark.parametrize("width,shift,step", [(2, 32, 6), (3, 9, 6), (1000, 9, 6), (4096, 9, 3),
-                                              ("max", 32, 6), ("max", 9, 6)])
+ONE_CTA = ploc_round.FIN_ONE_CTA
+CTAS = ploc_round.FIN_CTAS
+
+
+@pytest.mark.parametrize("width,shift,step", [
+    (2, 32, 6), (3, 9, 6), (32, 9, 6), (33, 9, 3), (1000, 9, 6), (ONE_CTA, 9, 6),
+    (ONE_CTA + 1, 9, 3), (CTAS * 256 + 1, 32, 6), (4096, 9, 3), (16_384, 9, 6),
+    ("max", 32, 6), ("max", 9, 6)])
 def test_ploc_finish_kernel_matches_plain(cuda, width, shift, step):
-    """B7 down to one cluster, up to its shared-memory width limit
-    MAX_FIN_WIDTH (above the 48 KB a block gets without opting in)."""
+    """B7 down to one cluster, at widths around its regime thresholds (one
+    warp at 32, one CTA at FIN_ONE_CTA) and slice borders, up to its
+    shared-memory width limit MAX_FIN_WIDTH."""
     w = ploc_round.MAX_FIN_WIDTH if width == "max" else width
-    mat = _ploc_state(cuda)[:, :w].contiguous()
+    mat = _ploc_state(cuda, max(w, 16_384) + 64)[:, :w].contiguous()
     before = ploc_round.finish_launches
     got = ploc_round.ploc_finish(mat, _junk((8, w), cuda), w, shift, 0, R, step)
     torch.cuda.synchronize()
@@ -416,19 +489,37 @@ def test_ploc_finish_kernel_matches_plain(cuda, width, shift, step):
 
 def test_ploc_finish_refuses_past_its_width(cuda):
     w = ploc_round.MAX_FIN_WIDTH + 1
-    mat = _ploc_state(cuda)[:, :w].contiguous()
+    mat = _ploc_state(cuda, w + 64)[:, :w].contiguous()
     before = ploc_round.finish_launches
     with pytest.raises(ValueError, match="MAX_FIN_WIDTH"):
         ploc_round.ploc_finish(mat, _junk((8, w), cuda), w, 32, 0, R, 6)
     assert ploc_round.finish_launches == before
 
 
-@pytest.mark.parametrize("name,fin", [("ploc", None), ("hploc", None), ("hploc", 256),
-                                      ("two_pass", None)])
+def test_ploc_finish_runs_every_regime(cuda):
+    """One cluster launch of B7 from the HPLOC hand-over width down: its
+    counters show rounds in the cluster, in CTA 0 and in one warp, with
+    cycles in every phase, and rounds that add up to the plain loop's."""
+    w = 16_384
+    mat = _ploc_state(cuda, w + 64)[:, :w].contiguous()
+    got = ploc_round.ploc_finish(mat, _junk((8, w), cuda), w, 9, 0, R, 6)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ploc_round.ploc_finish_reference(mat, _junk((8, w), cuda), w, 9, 0,
+                                                             R, 6))
+    stats = ploc_round.last_finish_stats.cpu()
+    assert stats.shape == ploc_round.FIN_STATS
+    assert bool((stats[:, 0] > 0).all()) and bool((stats[:, 1:6] > 0).all())
+    assert bool((stats[:, 1] >= stats[:, 2:].sum(dim=1)).all())
+
+
+@pytest.mark.parametrize("name,fin", [("ploc", None), ("hploc", None), ("ploc", 4096),
+                                      ("hploc", 4096), ("hploc", 256), ("two_pass", None)])
 def test_builds_match_cpu(cuda, monkeypatch, name, fin):
-    """The GPU builds equal the port's CPU builds in every Bvh2 field; with
-    the finisher width cut to 256 the GPU's hand-over moves and the tree
-    does not."""
+    """The GPU builds equal the port's CPU builds in every Bvh2 field: at
+    the default hand-over width (the whole soup goes to the finisher, no
+    round runs) and with the width cut to 4096 or 256, where the GPU's
+    round loop runs rounds before the finisher, the hand-over moves and
+    the tree does not."""
     build = {"ploc": ploc.build_ploc, "hploc": ploc.build_hploc,
              "two_pass": lbvh.build_two_pass}[name]
     tris = torch.from_numpy(scenes.sponza_like(16_384))
@@ -443,7 +534,11 @@ def test_builds_match_cpu(cuda, monkeypatch, name, fin):
     assert validate.check_bvh2_correctness(got, tris.shape[0])
     if name != "two_pass":
         rounds = ploc_ops.last_build["rounds"]
-        assert rounds > 0 and ploc_round.rounds == before[0] + rounds
+        if fin is None:  # the whole soup goes to the finisher
+            assert tris.shape[0] <= ploc_round.FIN_WIDTH and rounds == 0
+        else:
+            assert rounds > 0
+        assert ploc_round.rounds == before[0] + rounds
         assert ploc_round.finish_launches == before[1] + 1
 
 

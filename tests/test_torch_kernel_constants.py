@@ -1,0 +1,33 @@
+"""The wrappers size their scratch and refuse inputs from Python mirrors of
+constants fixed at compile time in `tpu_bvh_torch/csrc/`; each mirror must
+equal its source's `constexpr`."""
+import os
+import re
+
+import pytest
+
+from tpu_bvh_torch.ops import ploc_round, raster_gpu, ray_sweep
+from tpu_bvh_torch.utils import kernels
+
+
+def _constexpr(source: str, name: str) -> int:
+    with open(os.path.join(kernels.CSRC, source)) as f:
+        found = re.findall(rf"constexpr int {name} = (\d+);", f.read())
+    assert len(found) == 1, f"{source}: {name}"
+    return int(found[0])
+
+
+@pytest.mark.parametrize("source,name,mirror", [
+    ("ploc_finish.cu", "kCtas", lambda: ploc_round.FIN_CTAS),
+    ("ploc_finish.cu", "kOneCtaAt", lambda: ploc_round.FIN_ONE_CTA),
+    ("ploc_finish.cu", "kMaxCap", lambda: ploc_round.FIN_CAP),
+    ("raster.cu", "kChunk", lambda: raster_gpu.CHUNK),
+    ("ray_sweep.cu", "kChunk", lambda: ray_sweep.CHUNK),
+])
+def test_python_mirror_equals_source(source, name, mirror):
+    assert mirror() == _constexpr(source, name)
+
+
+def test_finisher_width_is_its_slices():
+    assert ploc_round.MAX_FIN_WIDTH == ploc_round.FIN_CTAS * ploc_round.FIN_CAP
+    assert ploc_round.FIN_ONE_CTA <= ploc_round.FIN_CAP

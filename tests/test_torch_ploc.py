@@ -55,17 +55,34 @@ def test_builder_bit_identical(name, scene):
 
 
 @pytest.mark.parametrize("name", list(BUILDERS))
-def test_sponza_like_bit_identical(name):
-    """sponza_like(8192): more than the finisher width, so the round loop runs
-    rounds before it hands over. JAX runs op by op here: inside a jitted
-    loop XLA:CPU contracts the area's multiply-adds into FMAs, which
-    rounds some areas differently from the written order that the TPU
-    kernel and the port follow, and on this scene's many near-equal areas
-    that picks other neighbours from the second round on."""
+def test_sponza_like_bit_identical(name, monkeypatch):
+    """sponza_like(8192) with the finisher width at 4096: more than that, so
+    the round loop runs rounds before it hands over. JAX runs op by op
+    here: inside a jitted loop XLA:CPU contracts the area's multiply-adds
+    into FMAs, which rounds some areas differently from the written order
+    that the TPU kernel and the port follow, and on this scene's many
+    near-equal areas that picks other neighbours from the second round on."""
+    monkeypatch.setattr(ploc_round, "FIN_WIDTH", 4096)
     tris = jscenes.sponza_like(8192)
     port, jax_build = BUILDERS[name]
     got = port(torch.from_numpy(tris))
     assert ploc_ops.last_build["rounds"] > 0 and ploc_ops.last_build["finish"] == 1
+    with jax.disable_jit():
+        want = jax_build(jnp.asarray(tris))
+    assert_same_bvh(got, want)
+    check_valid(got, tris.shape[0])
+
+
+@pytest.mark.parametrize("name", list(BUILDERS))
+def test_hand_over_takes_the_whole_soup(name, monkeypatch):
+    """FIN_WIDTH >= n, as on the TPU for scenes of at most 16,384 tris (the
+    JAX driver hands over at min(16384, n)): no round runs before the
+    finisher, and the tree is JAX's (op by op, as above)."""
+    tris = jscenes.sponza_like(2048)
+    monkeypatch.setattr(ploc_round, "FIN_WIDTH", max(ploc_round.FIN_WIDTH, tris.shape[0]))
+    port, jax_build = BUILDERS[name]
+    got = port(torch.from_numpy(tris))
+    assert ploc_ops.last_build["rounds"] == 0 and ploc_ops.last_build["finish"] == 1
     with jax.disable_jit():
         want = jax_build(jnp.asarray(tris))
     assert_same_bvh(got, want)

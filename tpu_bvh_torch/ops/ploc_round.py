@@ -1,5 +1,5 @@
 """PLOC merge rounds: emission and survivor compaction, one whole round,
-and the single-block finisher.
+and the finisher.
 
 The contracts of `tpu_bvh.ops.pallas.ploc_round`. State `mat` i32[8, S]
 in the layout of `ploc_nn` (rows 0-5 box bits, 6 Morton code, 7 node id),
@@ -20,9 +20,12 @@ cluster order (the round loop flips them to root-at-0 once at the end).
   swaps the two) and reuses the caller's scratch (`RoundWork`), so a
   round allocates nothing and its work is sized to the live count.
 * `ploc_finish` (B7): every remaining round of at most MAX_FIN_WIDTH
-  clusters in one launch. The HPLOC segment shift grows by `shift_step`
-  per round, as in the plain round loop; the TPU kernel hard-codes 3
-  (tpu_bvh/ops/pallas/ploc_round.py:574).
+  clusters in one launch of a thread-block cluster of FIN_CTAS CTAs,
+  which leaves the cluster for CTA 0 at FIN_ONE_CTA live clusters and for
+  one warp at 32 (`csrc/ploc_finish.cu`; its device counters per regime
+  land in `last_finish_stats`). The HPLOC segment shift grows by
+  `shift_step` per round, as in the plain round loop; the TPU kernel
+  hard-codes 3 (tpu_bvh/ops/pallas/ploc_round.py:574).
 
 A CUDA tensor launches `csrc/ploc_round.cu` (B9), `csrc/ploc_round_fused.cu`
 (B6/B8) and `csrc/ploc_finish.cu` (B7); a CPU tensor takes the `*_reference`
@@ -31,6 +34,7 @@ return it.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -40,16 +44,29 @@ from ..utils.platform import on_cuda
 from . import ploc_nn
 
 I32 = torch.int32
-FIN_WIDTH = 4096  # the round loop hands the last FIN_WIDTH clusters to the finisher
-# finisher state: 32 B of rows and 1 B of best_rel per cluster in dynamic
-# shared memory, within the 232,448 B a block may opt in to on the H100,
-# less the kernel's 128 B of static shared memory
-MAX_FIN_WIDTH = (232_448 - 128) // 33
+# the round loop hands the last FIN_WIDTH clusters to the finisher (the
+# TPU kernel's width; the fastest of 4096, 8192 and 16384 in chip_smoke.py)
+FIN_WIDTH = 16384
+# the finisher's constants, mirrors of csrc/ploc_finish.cu: the CTAs of its
+# thread-block cluster (kCtas), the live count at which CTA 0 goes on alone
+# (kOneCtaAt), and the lanes of one CTA's slice (kMaxCap: 98 B a lane and
+# 2,848 B of halos in dynamic shared memory, within the 232,448 B a block may
+# opt in to on the H100 less 512 B for the static shared memory, a multiple of 4)
+FIN_CTAS = 8
+FIN_ONE_CTA = 1024
+FIN_CAP = (232_448 - 512 - 2_848) // 98 // 4 * 4
+MAX_FIN_WIDTH = FIN_CTAS * FIN_CAP
+# B7's device counters, per regime (cluster, one CTA, one warp): rounds, then
+# clock64 cycles of the round, NN stage, flags and scans, emission,
+# compaction and barrier waits
+FIN_STATS = (3, 7)
 _EMIT_BLOCK = 256  # lanes per block of csrc/ploc_round.cu and csrc/ploc_round_fused.cu
 rounds = 0  # B6/B8 rounds on the card (one launch each) since the last reset
 fused_rounds = 0  # of those, B8 rounds (`ploc_round_fused`)
 emit_launches = 0  # B9 launches (`ploc_emit_compact`)
 finish_launches = 0  # B7 launches
+last_finish_stats = None  # the last B7 launch's counters, i64[FIN_STATS]
+_cluster_checked = False  # whether the card can schedule the finisher's cluster (checked once)
 _epoch = 0  # rounds launched in this process: tags the look-back status words
 
 
@@ -212,7 +229,8 @@ def ploc_finish(mat, nodes, n_clusters: int, shift_bits: int, base: int, radius:
                 shift_step: int = 3):
     """Every remaining round of the nc live clusters of `mat` (nc <=
     MAX_FIN_WIDTH on the card): writes node columns [base, base + nc - 1).
-    Returns nodes; dispatch by device."""
+    Returns nodes; dispatch by device. A cluster launch the card refuses
+    raises."""
     nc = int(n_clusters)
     if nc <= 1:
         return nodes
@@ -242,7 +260,7 @@ def ploc_finish_reference(mat, nodes, n_clusters: int, shift_bits: int, base: in
 
 
 def _finish_cuda(mat, nodes, nc: int, shift_bits: int, base: int, radius: int, step: int):
-    global finish_launches
+    global finish_launches, last_finish_stats, _cluster_checked
     ploc_nn._check(radius)
     _require_states("ploc_finish", mat=mat, nodes=nodes)
     if not nc <= min(MAX_FIN_WIDTH, mat.shape[1]):
@@ -251,13 +269,29 @@ def _finish_cuda(mat, nodes, nc: int, shift_bits: int, base: int, radius: int, s
     if base < 0 or base + nc - 1 > nodes.shape[1]:
         raise ValueError(f"ploc_finish: ids [{base}, {base + nc - 1}) exceed the "
                          f"{nodes.shape[1]} node columns")
+    lib = kernels.lib()
+    if not _cluster_checked:  # at the largest slice
+        out = ctypes.c_int(0)
+        kernels.check("tbvh_ploc_finish_clusters",
+                      lib.tbvh_ploc_finish_clusters(ctypes.byref(out)))
+        if out.value == 0:
+            raise RuntimeError(f"ploc_finish: the card cannot hold a cluster of {FIN_CTAS} CTAs "
+                               f"with {FIN_CAP} lanes of shared memory each")
+        _cluster_checked = True
+    # a slice holds ceil(nc / FIN_CTAS) lanes in the cluster, CTA 0 up to
+    # FIN_ONE_CTA once the cluster is done
+    cap = max(-(-nc // FIN_CTAS), min(nc, FIN_ONE_CTA))
+    cap = -(-cap // 4) * 4
     err = torch.zeros((1,), dtype=I32, device=mat.device)
-    code = kernels.lib().tbvh_ploc_finish(
+    stats = torch.zeros(FIN_STATS, dtype=torch.int64, device=mat.device)
+    code = lib.tbvh_ploc_finish(
         mat.data_ptr(), mat.shape[1], nc, shift_bits, step, base, radius,
-        nodes.data_ptr(), nodes.shape[1], err.data_ptr(), kernels.stream_of(mat),
+        nodes.data_ptr(), nodes.shape[1], err.data_ptr(), stats.data_ptr(), cap,
+        kernels.stream_of(mat),
     )
     kernels.check("tbvh_ploc_finish", code)
     finish_launches += 1
+    last_finish_stats = stats
     if int(err) != 0:  # one host sync
         raise RuntimeError(f"ploc_finish: clusters left after {nc + 16} rounds "
                            "(non-finite boxes?)")

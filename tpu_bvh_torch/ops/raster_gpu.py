@@ -12,7 +12,10 @@ sweep in `csrc/raster.cu` (the port of `tpu_bvh.ops.raster_tpu`).
 * Fine culling: the per-(pair, 16x16 subtile) cone test gives one
   bitmask per pair (`p_bits`).
 * Sweep: `raster_sweep`, which launches the kernel on CUDA tensors and runs
-  `raster_sweep_reference` on CPU tensors.
+  `raster_sweep_reference` on CPU tensors. The plain version walks each
+  subtile's pairs in order; the kernel splits them into chunks over the
+  SMs and finds the same stop pair and winners (the argument is in its
+  source note).
 """
 from __future__ import annotations
 
@@ -33,7 +36,16 @@ RPT = SUB * SUB  # rays per subtile
 RPC = RPT * CGRID * CGRID  # rays per coarse tile (4096)
 NSUB = CGRID * CGRID  # 16
 PRIM_WORDS = 16  # floats per prim in a slab
-launches = 0  # kernel launches by `raster_sweep` since the last reset
+# the largest leaf size: two slabs of L * 64 B in shared memory (an opt-in
+# above 48 KB); the hit key holds the row in 10 bits
+MAX_L = 768
+MAX_P = 1 << 22  # pair indices fill 22 bits of the kernel's 64-bit hit key
+CHUNK = 2  # pair slots per work item of the split sweep (kChunk in the .cu)
+STATS = 4 + 1024  # the kernel's counters (kStats + kSmSlots in the .cu)
+launches = 0  # calls of `raster_sweep` on the card since the last reset (3 launches each)
+# the last call's device counters, i64[STATS]: ray-prim tests run, pair
+# sweeps, subtiles re-swept serially, 0, then pair sweeps per SM id
+last_stats = None
 
 
 def _to_coarse_layout(arr_wh, W: int, H: int):
@@ -209,7 +221,9 @@ def raster_sweep_reference(dirs_ct, slabs, p_tid, p_tlb, p_bits, t_start, t_end)
 
 
 def _raster_sweep_cuda(dirs_ct, slabs, p_tid, p_tlb, p_bits, t_start, t_end):
-    global launches
+    """The split sweep of `csrc/raster.cu`. Needs p_tlb non-decreasing
+    within each tile's [t_start, t_end), as `prepare_sweep` makes it."""
+    global launches, last_stats
     n_ct = dirs_ct.shape[0]
     nt, L = slabs.shape[0], slabs.shape[1]
     P = p_tid.shape[0]
@@ -220,23 +234,29 @@ def _raster_sweep_cuda(dirs_ct, slabs, p_tid, p_tlb, p_bits, t_start, t_end):
     kernels.require(p_bits, "p_bits", I32, (P,))
     kernels.require(t_start, "t_start", I32, (n_ct,))
     kernels.require(t_end, "t_end", I32, (n_ct,))
-    if n_ct == 0 or not 1 <= L <= 768:  # the slab must fit 48 KB of shared memory
-        raise ValueError(f"raster_sweep needs n_ct >= 1 and 1 <= L <= 768, got {n_ct}, {L}")
+    if n_ct == 0 or not 1 <= L <= MAX_L:
+        raise ValueError(f"raster_sweep needs n_ct >= 1 and 1 <= L <= {MAX_L}, got {n_ct}, {L}")
+    if P >= MAX_P:
+        raise ValueError(f"raster_sweep needs P < 2^22 = {MAX_P} pairs (the hit key), got {P}")
     dev = dirs_ct.device
-    out_t = torch.empty((n_ct, RPC), dtype=F32, device=dev)
-    out_p = torch.empty((n_ct, RPC), dtype=I32, device=dev)
-    out_u = torch.empty((n_ct, RPC), dtype=F32, device=dev)
-    out_v = torch.empty((n_ct, RPC), dtype=F32, device=dev)
-    out_c = torch.empty((n_ct, RPC), dtype=I32, device=dev)
+    out = [torch.empty((n_ct, RPC), dtype=dt, device=dev) for dt in (F32, I32, F32, F32, I32)]
+    # scratch: a 64-bit hit key and an event index per ray, a stop bound and
+    # a state per subtile, the first event, chunk count and order per tile,
+    # the ticket, and per chunk level its item offset and two tile counts
+    keys = torch.empty((n_ct * RPC,), dtype=torch.int64, device=dev)
+    ints = torch.empty((n_ct * (RPC + 2 * NSUB + 3) + 4 + 3 * (P // CHUNK + 2),), dtype=I32,
+                       device=dev)
+    stats = torch.empty((STATS,), dtype=torch.int64, device=dev)
     err = kernels.lib().tbvh_raster_sweep(
         dirs_ct.data_ptr(), slabs.data_ptr(), p_tid.data_ptr(), p_tlb.data_ptr(),
-        p_bits.data_ptr(), t_start.data_ptr(), t_end.data_ptr(), n_ct, L,
-        out_t.data_ptr(), out_p.data_ptr(), out_u.data_ptr(), out_v.data_ptr(),
-        out_c.data_ptr(), kernels.stream_of(dirs_ct),
+        p_bits.data_ptr(), t_start.data_ptr(), t_end.data_ptr(), n_ct, P, L,
+        *(o.data_ptr() for o in out), keys.data_ptr(), ints.data_ptr(), stats.data_ptr(),
+        kernels.stream_of(dirs_ct),
     )
     kernels.check("tbvh_raster_sweep", err)
     launches += 1
-    return out_t, out_p, out_u, out_v, out_c
+    last_stats = stats
+    return tuple(out)
 
 
 def prepare_sweep(scene: R.RasterScene, rays: Rays, tr, width: int, height: int,

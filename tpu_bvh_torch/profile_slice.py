@@ -14,10 +14,11 @@ CUDA-event times in chip_smoke.py are set by the host's launch path, each
 alone at the main path's shapes: one PLOC round (B6 `ploc_round_pp` and B8
 `ploc_round_fused` on PLOC's first-round state, B10 `ploc_nn_round_raw`
 and B9 `ploc_emit_compact` on it), B12 `psv_nsv_packed` and B14
-`psv_nsv_payload_auto` on sponza's deltas, and B5 `ray_sweep_kernel` on
-the shadow rays (occlusion): first the median host-clock
-ms to a synchronize without the profiler, then `--reps` calls each under
-torch.profiler (CPU + CUDA).
+`psv_nsv_payload_auto` on sponza's deltas, B5 `ray_sweep_kernel` on
+the shadow rays (occlusion), B4 `raster_sweep` at both render sizes and
+B7 `ploc_finish` on the HPLOC hand-over states at FIN_WIDTH and at 4096:
+first the median host-clock ms to a synchronize without the profiler,
+then `--reps` calls each under torch.profiler (CPU + CUDA).
 From each Chrome trace it reads:
 
 * device busy: the union of the GPU's kernel, memcpy and memset intervals,
@@ -26,7 +27,7 @@ From each Chrome trace it reads:
   (the profiler slows the host, so this share is an upper bound);
 * kernels per call, and the kernels with the most device time.
 
-Usage: python3 -m tpu_bvh_torch.profile_slice [--reps 10] [--out DIR]
+Usage: python3 -m tpu_bvh_torch.profile_slice [--reps 10] [--out DIR] [--calls NAME ...]
 The traces are written to DIR (default: a temporary directory); the last
 line of the output is a JSON summary.
 """
@@ -117,6 +118,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None, help="directory for the Chrome traces")
+    ap.add_argument("--calls", nargs="*", default=None,
+                    help="profile only these calls (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice: needs a CUDA device")
@@ -180,6 +183,23 @@ def main():
     sweep = ray_sweep.prepare_trace(packed, ray_sweep.shadow_rays(points, live, light, eps), tr,
                                     *SHADOW_CAPS)[0]
     calls["ray_sweep"] = lambda: ray_sweep.ray_sweep_kernel(*sweep, True)
+    for (w, h), caps in RENDERS.items():
+        rr, wp, hp = raster_gpu.pad_rays(camera.generate_rays(cam, w, h), w, h)
+        r_args = raster_gpu.prepare_sweep(packed, rr, tr, wp, hp, *caps)[0]
+        calls[f"raster_sweep_{w}x{h}"] = lambda r_args=r_args: raster_gpu.raster_sweep(*r_args)
+    # B7 on the HPLOC states where the round loop hands over at FIN_WIDTH
+    # and at 4096 (its width before the cluster design)
+    mat, nc, shift = mat0, n, ploc.HPLOC_SHIFT0
+    for width in sorted({ploc_round.FIN_WIDTH, 4096}, reverse=True):
+        while nc > width:
+            mat, _, nm = ploc_round.ploc_round_reference(mat, nodes, nc, shift, n - nc,
+                                                         PLOC_RADIUS)
+            nc -= int(nm)
+            shift = min(shift + ploc.HPLOC_SHIFT_STEP, 32)
+        calls[f"ploc_finish_{width}"] = lambda st=(mat, nc, shift): ploc_round.ploc_finish(
+            st[0], nodes, st[1], st[2], n - st[1], PLOC_RADIUS, ploc.HPLOC_SHIFT_STEP)
+    if args.calls:
+        calls = {k: v for k, v in calls.items() if k in args.calls}
     print(f"card: {smi} | torch {torch.__version__} | cuda {torch.version.cuda}", flush=True)
     rows = []
     for name, fn in calls.items():

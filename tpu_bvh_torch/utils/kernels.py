@@ -34,15 +34,16 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "tbvh_scan32": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "tbvh_refit_dense": [_P, _I, _I, _I, _P, _P, _P, _P],
-    "tbvh_raster_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                          _P, _P, _P, _P, _P, _P],
+    "tbvh_raster_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "tbvh_collapse_block": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "tbvh_ray_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "tbvh_ploc_round": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P],
     "tbvh_ploc_nn": [_P, _I, _I, _I, _I, _I, _P, _I, _P],
     "tbvh_ploc_emit_compact": [_P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P],
-    "tbvh_ploc_finish": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P],
+    "tbvh_ploc_finish": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P],
+    "tbvh_ploc_finish_clusters": [_P],
     "tbvh_scan32_fwd": [_P, _I, _P, _P, _P, _P, _P],
     "tbvh_scan32_rev": [_P, _I, _P, _P, _P, _P, _P],
     "tbvh_psv_nsv": [_P, _I, _P, _P, _P, _P],
