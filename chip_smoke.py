@@ -13,12 +13,13 @@ rays), the PLOC++ and HPLOC builds, and the gather-free topologies
 2. builds the CUDA kernels from `tpu_bvh_torch/csrc/` (one nvcc per
    source, all started together) and times it;
 3. holds each kernel against its plain PyTorch version on the card, bit
-   for bit in every output: the topology scan, the dense refit and the
-   collapse kernel on sponza and on a soup of duplicated triangles
-   (tie-heavy Morton codes); the raster sweep at 512^2 and at 1920x1080
-   with the renders' caps, printing its split's device counters (tests
-   run against counted, pair sweeps on the busiest SM, re-swept
-   subtiles); the ray sweep in occlusion mode on every live
+   for bit in every output (floats compared as their i32 bits): the
+   topology scan, the dense refit (both entries) and the collapse kernel
+   on sponza, on a soup of duplicated triangles (tie-heavy Morton codes)
+   and on a soup whose coordinates hold both +0.0 and -0.0; the raster
+   sweep at 512^2 and at 1920x1080 with the renders' caps, printing its
+   split's device counters (tests run against counted, pair sweeps on the
+   busiest SM, re-swept subtiles); the ray sweep in occlusion mode on every live
    shadow ray (caps 4096/32768/32) and in closest-hit mode on the 64K
    slice (caps 4096/24576/32) and on the 1080p primary rays (caps that
    cannot overflow), where most rays hit, printing for each the ray-prim
@@ -52,9 +53,10 @@ rays), the PLOC++ and HPLOC builds, and the gather-free topologies
    collapse is a valid Bvh4; the collapse's isomorphism to the sequential
    oracle `collapse_cpu` on sponza_like(16384); a caterpillar scene takes
    the collapse's overflow branch on the card and still equals the CPU
-   collapse; no raster or shadow overflow; the reversed occlusion mask
-   equals the forward trace's capped answer outside the boundary strips;
-   the 512^2 image is written as a PNG;
+   collapse; on the +-0 soup the four GPU Bvh2s and the Bvh4 equal the
+   CPU ones bit for bit; no raster or shadow overflow; the reversed
+   occlusion mask equals the forward trace's capped answer outside the
+   boundary strips; the 512^2 image is written as a PNG;
 5. times the builds, the fast topologies, the collapse, the renders,
    `shadow_occlusion` and `trace_rays` (medians after warm-up, on CUDA events and on the host
    clock; PLOC and HPLOC in 10 alternating pairs, with the gap per
@@ -62,7 +64,9 @@ rays), the PLOC++ and HPLOC builds, and the gather-free topologies
    PLOC build's rounds, finisher launches and host syncs, and times each
    kernel beside its plain version and computes its bound from this run's
    inputs (B11 also beside `torch.cummin`), and B4 at both sizes with its
-   split's counters.
+   split's counters;
+6. checks, from one torch.profiler trace each, that the dense refit (both
+   entries) and the collapse kernel launch one kernel a call.
 
 Any failure raises. The last three lines are the kernels JSON line, the
 nvidia-smi line and {"ok": true, "device": {...}}. Needs one CUDA device
@@ -86,6 +90,7 @@ SAH_PIN = 333.01  # BVH2 SAH of the sponza_like single-pass tree (a tree propert
 SAH4_PIN = 159.13  # its BVH4 SAH after the collapse (a tree property)
 PLOC_SAH_PINS = {"ploc": 280.94, "hploc": 281.14}  # the sponza_like trees (bench.py:91-92)
 LEAF = 64
+SIGNED_ZERO_TRIS = 512  # the +-0 soup
 HAND_OVERS = (4096, 16384)  # B7's hand-over widths to check: before this design, the TPU's
 RENDERS = {  # (width, height): (cand_cap, pair_cap, group), as the JAX bench uses them
     (512, 512): (1024, 4096, 32),
@@ -273,6 +278,33 @@ def ploc_bounds(nn, nc, radius, shift):
             "ploc_round_fused": (bound(4 * (round_reads + 8 * nc + 8 * nm), flops), info)}
 
 
+def signed_zero_soup(np, n=SIGNED_ZERO_TRIS, seed=0):
+    """n triangles with coordinates drawn from {-0.0, +0.0, 1.0}, half of
+    them replaced by uniform draws (`np.where` keeps the -0.0)."""
+    rng = np.random.default_rng(seed)
+    pick = rng.integers(0, 3, (n, 3, 3))
+    f32 = np.float32
+    coords = np.where(pick == 0, f32(-0.0), np.where(pick == 1, f32(0.0), f32(1.0)))
+    draws = rng.random((n, 3, 3), dtype=f32)
+    return np.where(rng.random((n, 3, 3)) < 0.5, coords, draws).astype(f32)
+
+
+def kernels_per_call(torch, fn):
+    """CUDA kernels in one torch.profiler trace of one call of `fn` (after
+    a warm-up call): the kernel events of its Chrome trace."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return [e["name"] for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+
 def main():
     args = parse_args()
     t_start = time.perf_counter()
@@ -340,9 +372,13 @@ def main():
     topo_inputs = {}  # scene: (sorted codes, leaf_packed_t)
     pay_rng = np.random.default_rng(1)
 
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
     def same_outputs(got, want, name, what):
         for k, (g, w) in enumerate(zip(got, want)):
-            require(torch.equal(g, w), f"{name} kernel output {k} == plain, bit-exact, {what}")
+            require(g.dtype == w.dtype and torch.equal(bits(g), bits(w)),
+                    f"{name} kernel output {k} == plain, bit for bit, {what}")
         errs[name] = max(errs[name], max_err(got, want))
 
     def check_threshold(dlt, what):
@@ -364,7 +400,8 @@ def main():
             same_outputs(got, want, name, what)
         return pay
 
-    for name, soup in (("sponza", sponza), ("dup", dup)):
+    sz = signed_zero_soup(np)
+    for name, soup in (("sponza", sponza), ("dup", dup), ("+-0 soup", sz)):
         tris = torch.from_numpy(soup).to(dev)
         codes, leaf_packed_t, _ = lbvh._sorted_leaves_from_tris(tris, True)
         dlt_raw = radix_tree.adjacent_deltas(codes)
@@ -388,13 +425,14 @@ def main():
         topo_inputs[name] = (codes, leaf_packed_t)
         first, last = b1[0] + 1, b1[3]
         n = m + 1
-        edge = torch.full((1,), n - 1, dtype=torch.int32, device=dev)
-        mat = torch.cat([leaf_packed_t.contiguous().view(torch.int32),
-                         torch.cat([first, edge])[None], torch.cat([last, edge])[None]])
-        got = refit_dense.refit_dense(mat, n, refit.RADIUS)
+        mat = refit_dense.cols_mat(leaf_packed_t, first, last)
         want = refit_dense.refit_dense_reference(mat, n, refit.RADIUS)
+        got = refit_dense.refit_dense(mat, n, refit.RADIUS)
         torch.cuda.synchronize()
-        same_outputs(got, want, "refit_dense", f"{name} n={n}")
+        same_outputs(got, want, "refit_dense", f"{name} n={n}, the mat entry")
+        got = refit_dense.refit_dense_cols(leaf_packed_t, first, last, n, refit.RADIUS)
+        torch.cuda.synchronize()
+        same_outputs(got, want, "refit_dense", f"{name} n={n}, the column entry")
         aux = lbvh.build_single_pass_aux(tris)
         rows = collapse_fast.kernel_inputs(*aux)
         got_m, got_a = collapse_block.collapse_block(*rows, aux[0].n_internal)
@@ -421,7 +459,7 @@ def main():
                                  f"{'min' if is_min else 'max'}, "
                                  f"{'reverse' if reverse else 'forward'}")
             inputs["planes"] = planes
-            inputs["refit"] = (mat, n)
+            inputs["refit"] = (mat, n, leaf_packed_t, first, last)
             inputs["collapse"] = (rows, aux[0].n_internal, [got_m, *got_a])
 
     draws = torch.from_numpy(rng.integers(0, 53, 262_144).astype(np.int32)).to(dev)
@@ -625,7 +663,7 @@ def main():
     # the build
     cpu = lbvh.build_single_pass_aux(tris.cpu())
     gpu = (bvh, parent, first, last)
-    same = all(torch.equal(g.cpu(), c) and g.dtype == c.dtype
+    same = all(torch.equal(bits(g.cpu()), bits(c)) and g.dtype == c.dtype
                for g, c in zip(list(gpu[0]) + list(gpu[1:]), list(cpu[0]) + list(cpu[1:])))
     require(same, "GPU Bvh2 (packed_t, left, right, root, parent, first, last) == CPU build")
     require(validate.check_root_aabb(bvh), "check_root_aabb")
@@ -633,9 +671,6 @@ def main():
     require(validate.check_parent_child_consistency(bvh), "check_parent_child_consistency")
     sah = float(sah_cost_bvh2(bvh))
     require(abs(sah - SAH_PIN) <= 0.01 * SAH_PIN, f"BVH2 SAH {sah:.4f} within 1% of {SAH_PIN}")
-
-    def bits(x):
-        return x.view(torch.int32) if x.dtype == torch.float32 else x
 
     def same_bvh(got, want):
         return all(g.dtype == w.dtype and torch.equal(bits(g.cpu()), bits(w.cpu()))
@@ -681,8 +716,9 @@ def main():
 
     # the collapse
     wide_cpu = collapse_fast.collapse_lbvh_to_bvh4(*cpu)
-    require(all(torch.equal(getattr(wide, f).cpu(), getattr(wide_cpu, f)) for f in Bvh4._fields),
-            "GPU Bvh4 (every field) == the port's CPU collapse")
+    require(same_bvh([getattr(wide, f) for f in Bvh4._fields],
+                     [getattr(wide_cpu, f) for f in Bvh4._fields]),
+            "GPU Bvh4 (every field) == the port's CPU collapse, bit for bit")
     require(validate.check_bvh4_correctness(wide, tris.shape[0]), "check_bvh4_correctness")
     sah4 = float(sah_cost_bvh4(wide, *triangle_aabbs(tris)))
     require(abs(sah4 - SAH4_PIN) <= 0.01 * SAH4_PIN,
@@ -702,6 +738,20 @@ def main():
     require(all(torch.equal(getattr(cgot, f).cpu(), getattr(cwant, f)) for f in Bvh4._fields)
             and validate.check_bvh4_correctness(cgot, cat.shape[0]),
             "caterpillar: GPU Bvh4 == CPU collapse, check_bvh4_correctness")
+
+    # the +-0 soup: each GPU Bvh2 and the Bvh4 == the port's CPU one, bit for bit
+    sz_gpu = torch.from_numpy(sz).to(dev)
+    zeros = sz_gpu[sz_gpu == 0]
+    require(bool(torch.signbit(zeros).any()) and bool((~torch.signbit(zeros)).any()),
+            f"the {SIGNED_ZERO_TRIS}-triangle +-0 soup holds +0.0 and -0.0")
+    for name, build in (("single-pass", lbvh.build_single_pass), ("two-pass", lbvh.build_two_pass),
+                        ("PLOC", ploc.build_ploc), ("HPLOC", ploc.build_hploc)):
+        require(same_bvh(build(sz_gpu), build(sz_gpu.cpu())),
+                f"+-0 soup: GPU {name} Bvh2 (packed_t, left, right, root) == CPU build, bit for bit")
+    sz_wide = [collapse_fast.collapse_lbvh_to_bvh4(*lbvh.build_single_pass_aux(x)) for x in
+               (sz_gpu, sz_gpu.cpu())]
+    require(same_bvh(*([getattr(w, f) for f in Bvh4._fields] for w in sz_wide)),
+            "+-0 soup: GPU Bvh4 == CPU collapse, bit for bit")
 
     # the renders
     for (rw, rh), (rr, (hit, counts, ovf)) in renders.items():
@@ -819,7 +869,7 @@ def main():
     print(f"  trace_rays ({vsel.numel()} rays): {ev!r} / {wall!r} ms = "
           f"{vsel.numel() / wall / 1e3!r} Mrays/s (host clock)", flush=True)
 
-    mat, n = inputs["refit"]
+    mat, n, r_pt, r_first, r_last = inputs["refit"]
     rows, m_c, c_out = inputs["collapse"]
     r_args, r_out = inputs["raster"]
     so_args, so_out = inputs["ray_sweep_occl"]
@@ -909,7 +959,8 @@ def main():
     # one PyTorch call that computes the same function, timed as a yardstick
     library = {"plane_scan": lambda: torch.cummin(plane, dim=0)}
     notes = {  # what a row's launches count, where it is not kernel launches
-        "collapse_block": "calls of collapse_block (3 CUDA launches each)",
+        "refit_dense": "launches of refit_dense or refit_dense_cols (one CUDA launch each)",
+        "collapse_block": "calls of collapse_block (one CUDA launch each)",
         "raster_sweep": "calls of raster_sweep (3 CUDA launches each: init, sweep, finish)",
         "ploc_finish": f"cluster launches of ploc_finish ({ploc_round.FIN_CTAS} CTAs each)",
         "ray_sweep": "calls of ray_sweep_kernel (3 CUDA launches each: init, sweep, finish)",
@@ -941,6 +992,9 @@ def main():
         if name in notes:
             row["launches_are"] = notes[name]
         rows_json.append(row)
+    k_ms, _ = time_ms(torch, lambda: refit_dense.refit_dense_cols(r_pt, r_first, r_last, n,
+                                                                  refit.RADIUS), 20)
+    print(f"  refit_dense_cols (the main path's entry, same kernel): kernel {k_ms!r} ms", flush=True)
     for is_min in (True, False):  # B11's other modes, on the plane of its own op
         for reverse in (False, True):
             x = inputs["planes"][is_min]
@@ -980,6 +1034,16 @@ def main():
         print(f"  ploc_finish on the HPLOC hand-over state at {width} (nc={nc}): kernel "
               f"{k_ms!r} ms; last timed call: "
               f"{finish_info(ploc_round.last_finish_stats, sm_mhz)}", flush=True)
+
+    # one kernel a call: B2 and B3 from a profiler trace each (after the
+    # timings: a profiler session can slow the host's later launches)
+    for name, fn in (
+            ("refit_dense (column entry)",
+             lambda: refit_dense.refit_dense_cols(r_pt, r_first, r_last, n, refit.RADIUS)),
+            ("refit_dense (mat entry)", lambda: refit_dense.refit_dense(mat, n, refit.RADIUS)),
+            ("collapse_block", lambda: collapse_block.collapse_block(*rows, m_c))):
+        names = kernels_per_call(torch, fn)
+        require(len(names) == 1, f"{name}: one kernel a call in a torch.profiler trace {names}")
 
     print(f"  done at {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows_json}), flush=True)

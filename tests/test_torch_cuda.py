@@ -53,24 +53,55 @@ def test_scan_kernel_matches_plain(cuda, kind, n):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("radius", [16, 24])
-@pytest.mark.parametrize("n", [64, 100_003])
-def test_refit_kernel_matches_plain(cuda, radius, n):
-    rng = np.random.default_rng(n + radius)
+def _refit_mat(n, radius, seed, signed_zeros=False):
+    """Packed columns (optionally with +0.0/-0.0 in a min and a -max row)
+    and mixed ranges first <= i < last, as the `mat` of refit_dense."""
+    rng = np.random.default_rng(seed)
     packed_t = rng.random((6, n), dtype=np.float32)
+    if signed_zeros:
+        zeros = np.where(rng.random(n) < 0.5, np.float32(0.0), np.float32(-0.0))
+        packed_t[0] = np.where(rng.random(n) < 0.5, zeros, packed_t[0])
+        packed_t[4] = np.where(rng.random(n) < 0.5, zeros[::-1], -packed_t[4])
     i = np.arange(n - 1)
     first = np.maximum(i - rng.integers(0, 3 * radius, n - 1), 0)
     last = np.minimum(i + 1 + rng.integers(0, 3 * radius, n - 1), n - 1)
     edge = [n - 1]
-    mat = np.concatenate([packed_t.view(np.int32), np.concatenate([first, edge])[None],
-                          np.concatenate([last, edge])[None]]).astype(np.int32)
-    mat = torch.from_numpy(mat).to(cuda)
+    return np.concatenate([packed_t.view(np.int32), np.concatenate([first, edge])[None],
+                           np.concatenate([last, edge])[None]]).astype(np.int32)
+
+
+def _same_bits(got, want):
+    return all(g.dtype == w.dtype and torch.equal(_bits(g), _bits(w)) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("radius", [16, 24])
+@pytest.mark.parametrize("n", [64, 100_003])
+def test_refit_kernel_matches_plain(cuda, radius, n):
+    mat = torch.from_numpy(_refit_mat(n, radius, n + radius)).to(cuda)
     before = refit_dense.launches
     got = refit_dense.refit_dense(mat, n, radius)
     torch.cuda.synchronize()
     assert refit_dense.launches == before + 1
-    for g, w in zip(got, refit_dense.refit_dense_reference(mat, n, radius)):
-        assert torch.equal(g, w)
+    assert _same_bits(got, refit_dense.refit_dense_reference(mat, n, radius))
+
+
+T = refit_dense.TILE
+
+
+@pytest.mark.parametrize("radius", [15, 24, 128])
+@pytest.mark.parametrize("n", [T - 1, T, T + 1, 3 * T + 5])
+def test_refit_tiles_match_plain_with_signed_zeros(cuda, radius, n):
+    """B2 at tile borders and its halo's full radius, on +0.0/-0.0 columns:
+    both entries, bit for bit, one launch each."""
+    mat = torch.from_numpy(_refit_mat(n, radius, n * radius, signed_zeros=True)).to(cuda)
+    want = refit_dense.refit_dense_reference(mat, n, radius)
+    before = refit_dense.launches
+    got = refit_dense.refit_dense(mat, n, radius)
+    packed_t, first, last = mat[0:6].view(torch.float32), mat[6, :n - 1], mat[7, :n - 1]
+    got_cols = refit_dense.refit_dense_cols(packed_t, first, last, n, radius)
+    torch.cuda.synchronize()
+    assert refit_dense.launches == before + 2
+    assert _same_bits(got, want) and _same_bits(got_cols, want)
 
 
 def test_build_matches_cpu(cuda):
@@ -78,7 +109,7 @@ def test_build_matches_cpu(cuda):
     want = lbvh.build_single_pass_aux(tris)
     got = lbvh.build_single_pass_aux(tris.to(cuda))
     for g, w in zip(list(got[0]) + list(got[1:]), list(want[0]) + list(want[1:])):
-        assert torch.equal(g.cpu(), w)
+        assert g.dtype == w.dtype and torch.equal(_bits(g.cpu()), _bits(w))
     assert validate.check_bvh2_correctness(got[0], tris.shape[0])
 
 
@@ -197,8 +228,26 @@ def test_collapse_kernel_matches_plain(cuda, scene):
     got = collapse_fast.collapse_lbvh_to_bvh4(*aux)
     want = collapse_fast.collapse_lbvh_to_bvh4(*lbvh.build_single_pass_aux(tris))
     for f in Bvh4._fields:
-        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+        assert torch.equal(_bits(getattr(got, f).cpu()), _bits(getattr(want, f))), f
     assert validate.check_bvh4_correctness(got, tris.shape[0])
+
+
+CT = collapse_block.TILE
+
+
+@pytest.mark.parametrize("w", [CT - 1, CT, CT + 1, 3 * CT + 5])
+def test_collapse_tiles_match_plain(cuda, w):
+    """B3 where W (the leaf count) falls at and across tile borders."""
+    rng = np.random.default_rng(w)
+    base = rng.uniform(-10.0, 10.0, (w, 1, 3))
+    tris = torch.from_numpy((base + rng.normal(0.0, 0.5, (w, 3, 3))).astype(np.float32))
+    aux = lbvh.build_single_pass_aux(tris.to(cuda))
+    rows = collapse_fast.kernel_inputs(*aux)
+    assert rows[0].shape[1] == w
+    got_m, got_a = collapse_block.collapse_block(*rows, aux[0].n_internal)
+    want_m, want_a = collapse_block.collapse_block_reference(*rows, aux[0].n_internal)
+    torch.cuda.synchronize()
+    assert torch.equal(got_m, want_m) and all(torch.equal(g, x) for g, x in zip(got_a, want_a))
 
 
 @pytest.mark.parametrize("occlusion", [False, True])

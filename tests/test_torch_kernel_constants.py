@@ -6,7 +6,7 @@ import re
 
 import pytest
 
-from tpu_bvh_torch.ops import ploc_round, raster_gpu, ray_sweep
+from tpu_bvh_torch.ops import collapse_block, ploc_round, raster_gpu, ray_sweep, refit_dense
 from tpu_bvh_torch.utils import kernels
 
 
@@ -23,6 +23,13 @@ def _constexpr(source: str, name: str) -> int:
     ("ploc_finish.cu", "kMaxCap", lambda: ploc_round.FIN_CAP),
     ("raster.cu", "kChunk", lambda: raster_gpu.CHUNK),
     ("ray_sweep.cu", "kChunk", lambda: ray_sweep.CHUNK),
+    ("refit_dense.cu", "kTile", lambda: refit_dense.TILE),
+    ("refit_dense.cu", "kMaxHalo", lambda: refit_dense.MAX_RADIUS),
+    ("collapse_block.cu", "kTile", lambda: collapse_block.TILE),
+    ("collapse_block.cu", "kHalo", lambda: collapse_block.HALO),
+    ("collapse_block.cu", "kSLen", lambda: collapse_block.S_LEN),
+    ("collapse_block.cu", "kErrChain", lambda: collapse_block.ERR_CHAIN),
+    ("collapse_block.cu", "kErrWindow", lambda: collapse_block.ERR_WINDOW),
 ])
 def test_python_mirror_equals_source(source, name, mirror):
     assert mirror() == _constexpr(source, name)

@@ -8,223 +8,320 @@
 // claims and the slot AABBs, and passes the coarse rows through.
 //
 // Why the TPU kernel looks the way it does: a random gather there costs
-// about 1.9 ms per full-array access, so it turns every pointer chase
-// into strip-folded shift sweeps over VMEM blocks with a 256-lane halo,
-// and resolves states by 6 trips of pointer doubling. On the H100 a load
-// at a bounded offset is served from L1/L2, so the natural form is one
-// thread per lane with direct loads:
-//   phase A (collapse_expand): expansion tables, slot ids, counts, e1/e2;
-//   phase B (collapse_state): each lane walks its parent chain to the
-//     seeded terminal (a coarse node or a child of one, meta row 4, or
-//     the root), composing the 3-state transition tables on the way. A
-//     short node's chain has at most S_LEN + 2 hops, so the serial walk
-//     gives the doubling's composed function; a longer walk is a bug and
-//     sets the error flag (the wrapper raises) instead of truncating.
-//     It also writes the packed (claim | tag) row phase C walks;
-//   phase C (collapse_emit): the claims (first WIDE or terminal among
-//     parent, grandparent, great-grandparent), the slot AABBs loaded at
-//     the slot ids, the coarse pass-through, and all outputs.
-// B reads other lanes' A results and C other lanes' B results, so they
-// are three launches on one stream. Everything is integer work (areas are
-// compared as i32 bits, the first max wins, area > 0 strictly), so the
-// result equals the plain PyTorch version bit for bit.
+// about 1.9 ms per full-array access, so it turns every pointer chase into
+// strip-folded shift sweeps over VMEM blocks with a 256-lane halo. All of
+// that reach is local: a short node's children, its short ancestors and
+// the claims' chain hops lie within S_LEN + 2 lanes of it.
+//
+// Design: one launch. A block owns kTile lanes [t0, t0 + kTile) and stages
+// the 8 meta rows of lanes [t0 - kHalo, t0 + kTile + kHalo) into shared
+// memory with cp.async. Then, with a block barrier between phases:
+//   A: for every staged lane, the expansion simulation (first max wins,
+//      area > 0 strictly, areas compared as i32 bits); its e1, e2 and
+//      e2_full (e2 at short lanes, the coarse e2 of meta row 4 elsewhere)
+//      stay in shared memory;
+//   B: for every staged internal lane, its step (its 3-state transition
+//      table, from its parent's e1, e2 and its grandparent's e2_full, or
+//      its terminal state where it is seeded); then, after a barrier, a
+//      walk up its parent chain to the seeded terminal (a coarse node or a
+//      child of one, or the root), composing the steps, one shared load a
+//      hop; its state and packed claim row (claim | tag) stay in shared
+//      memory. A short node's chain has at most S_LEN + 2 hops; a longer
+//      one sets kErrChain;
+//   C, D: for the block's own lanes, the claims (the first WIDE or seed
+//      terminal among parent, grandparent, great-grandparent, walked only
+//      as far as that first hit, so no read goes past a terminal), the
+//      expansion's slot ids again, the slot AABBs loaded from node8 or
+//      leaf8 at the slot ids, the coarse pass-through, and the outputs,
+//      stored coalesced.
+// Reads outside the staged window: the inputs (meta, node8, leaf8, carr)
+// are read from global memory where a lane is not staged, which is always
+// right; a computed row at a seeded or coarse lane depends only on that
+// lane's meta and is computed in place. Any other read that leaves the
+// window (a short lane's phase-A row, an unseeded lane's state) marks the
+// walk that needed it unresolved; an output that depends on an unresolved
+// value sets kErrWindow, and the wrapper raises. The kernel never
+// truncates and never reads an unwritten shared slot.
+// Everything is integer work, so the result equals the plain PyTorch
+// version bit for bit.
 //
 // Bound on the card: bytes. What the function needs per lane: the 8 meta
 // words, carr row 5 and 40 output words; carr's other 29 used rows only
 // at the coarse wide lanes (a few percent), and 6 AABB words of node8 or
 // leaf8 per slot of a short wide lane (their rows 6-7 are zero padding,
-// copied through as the TPU kernel does). The chain walks add a few
-// dependent loads per lane, served from L1/L2.
+// copied through as the TPU kernel does). The halos add 2 kHalo lanes of
+// meta a tile (25% at kTile 1024).
 
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace {
 
 constexpr int kSLen = 33;
 constexpr int kWide = 0, kE1 = 1, kE2 = 2, kUnk = 3;
 constexpr int kIdentity = 0 | (1 << 2) | (2 << 4);  // the table (0, 1, 2)
-constexpr int kThreads = 256;
-
-// scratch rows (each W long)
-constexpr int kSid = 0, kCount = 4, kE1o = 5, kE2o = 6, kE2f = 7, kState = 8, kPk = 9;
-
-__device__ __forceinline__ int pull(const int* row, int t, int m) {
-  return (t >= 0 && t < m) ? row[t] : -1;
-}
+constexpr int kTile = 1024;   // lanes a block owns: collapse_block.TILE
+constexpr int kHalo = 128;    // staged lanes on either side: collapse_block.HALO
+constexpr int kThreads = 512;
+constexpr int kSpan = kTile + 2 * kHalo;
+// shared rows (each kSpan long): 0-7 meta, then phase A's and B's rows
+constexpr int kRowE1 = 8, kRowE2 = 9, kRowE2f = 10, kRowStep = 11, kRowState = 12, kRowPk = 13;
+constexpr int kRows = 14;
+constexpr size_t kSmem = (size_t)kRows * kSpan * sizeof(int);
+// states that phase B could not resolve: a read left the window, or the
+// chain is longer than a short node's (the error flag is set for it)
+constexpr int kOutside = -2, kBadChain = -3;
+// error flag bits (collapse_block.ERR_CHAIN, ERR_WINDOW)
+constexpr int kErrChain = 1;
+constexpr int kErrWindow = 2;
 
 __device__ __forceinline__ int apply_tbl(int tbl, int s) { return (tbl >> (2 * s)) & 3; }
 
-__global__ void collapse_expand(const int* __restrict__ meta, int W, int m,
-                                int* __restrict__ scr) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= W) return;
-  const int* area = meta;
-  const int* lrow = meta + W;
-  const int* rrow = meta + 2 * W;
-  const int left = lrow[i], right = rrow[i];
-  const bool shortv = meta[5 * W + i] == 1 && i < m;
-  auto acode = [m](int t, int a) { return (t >= 0 && t < m) ? a : -1; };
-
-  int sid[4] = {left, right, -1, -1};
-  int ac[4] = {acode(left, pull(area, left, m)), acode(right, pull(area, right, m)), -1, -1};
-  int lc[4] = {pull(lrow, left, m), pull(lrow, right, m), -1, -1};
-  int rc[4] = {pull(rrow, left, m), pull(rrow, right, m), -1, -1};
-
-  // step 1: the first max wins ties, area > 0 strictly
-  const int best1 = max(ac[0], ac[1]);
-  const int pos1 = ac[1] > ac[0] ? 1 : 0;
-  const bool do1 = best1 > 0 && shortv;
-  const int e1 = sid[pos1];
-  if (do1) {
-    const int c1l = lc[pos1], c1r = rc[pos1];
-    sid[pos1] = c1l;
-    ac[pos1] = acode(c1l, pull(area, c1l, m));
-    lc[pos1] = pull(lrow, c1l, m);
-    rc[pos1] = pull(rrow, c1l, m);
-    sid[2] = c1r;
-    ac[2] = acode(c1r, pull(area, c1r, m));
-    lc[2] = pull(lrow, c1r, m);
-    rc[2] = pull(rrow, c1r, m);
-  }
-  const int count1 = 2 + (do1 ? 1 : 0);
-
-  // step 2 over slots 0..2 in slot order
-  const int best2 = max(max(ac[0], ac[1]), ac[2]);
-  const int pos2 = ac[0] == best2 ? 0 : (ac[1] == best2 ? 1 : 2);
-  const bool do2 = best2 > 0 && shortv;
-  const int e2 = sid[pos2];
-  if (do2) {
-    const int c2l = lc[pos2], c2r = rc[pos2];
-    sid[pos2] = c2l;
-    sid[count1] = c2r;
-  }
-  for (int k = 0; k < 4; ++k) scr[(kSid + k) * W + i] = sid[k];
-  scr[kCount * W + i] = count1 + (do2 ? 1 : 0);
-  const int e2_out = do2 ? e2 : -1;
-  scr[kE1o * W + i] = do1 ? e1 : -1;
-  scr[kE2o * W + i] = e2_out;
-  const int e2in = (meta[4 * W + i] & ((1 << 23) - 1)) - 1;
-  scr[kE2f * W + i] = shortv ? e2_out : e2in;
-}
-
-__global__ void collapse_state(const int* __restrict__ meta, int W, int m,
-                               int* __restrict__ scr, int* __restrict__ err) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= W) return;
-  if (i >= m) {
-    scr[kState * W + i] = kUnk;
-    scr[kPk * W + i] = -1;
-    return;
-  }
-  const int* prow = meta + 3 * W;
-  const int* seedrow = meta + 4 * W;
-  const int* e1o = scr + kE1o * W;
-  const int* e2o = scr + kE2o * W;
-  const int* e2f = scr + kE2f * W;
-  // walk up, composing tbl = f_i o f_parent o ...; state = tbl(terminal seed)
-  int tbl = kIdentity, x = i, state = kUnk;
-  for (int hops = 0;; ++hops) {
-    const int seed = seedrow[x] >> 23, par = prow[x];
-    if (seed <= 2 || par < 0) {
-      state = apply_tbl(tbl, seed <= 2 ? seed : kWide);
-      break;
-    }
-    if (hops == kSLen + 2 || par >= m) {
-      *err = 1;
-      break;
-    }
-    const int e1p = e1o[par], e2p = e2o[par];
-    const int e2g = pull(e2f, prow[par], m);
-    const int t_wide = x == e1p ? kE1 : (x == e2p ? kE2 : kWide);
-    const int t_e1 = x == e2g ? kE2 : kWide;
-    const int f = t_wide | (t_e1 << 2);  // f(E2) = WIDE
-    tbl = apply_tbl(tbl, apply_tbl(f, 0)) | (apply_tbl(tbl, apply_tbl(f, 1)) << 2) |
-          (apply_tbl(tbl, apply_tbl(f, 2)) << 4);
-    x = par;
-  }
-  scr[kState * W + i] = state;
-  const int ownp1 = meta[6 * W + i];
-  const int claim = state == kWide ? i : ownp1 - 1;
-  scr[kPk * W + i] = ownp1 > 0 ? (claim + 1) * 4 + 3
-                               : (prow[i] + 1) * 4 + min(state, 2);
-}
-
 __device__ __forceinline__ int dec(int pk) { return pk >= 0 ? (pk >> 2) - 1 : -1; }
 
-// the first WIDE (its id) or seed terminal (its claim) in chain order
-__device__ __forceinline__ int first_wide(int t0, int pk0, int t1, int pk1, int t2, int pk2) {
-  const int ts[3] = {t0, t1, t2}, pks[3] = {pk0, pk1, pk2};
-  int c = -1;
-  for (int j = 2; j >= 0; --j) {
-    const int pk = pks[j];
-    if (pk >= 0 && (pk & 3) == kWide) c = ts[j];
-    else if (pk >= 0 && (pk & 3) == 3) c = (pk >> 2) - 1;
+struct Block {
+  const int* __restrict__ meta;
+  int W, m, w0, lo, hi;  // staged lanes [lo, hi) = [w0, w0 + kSpan) within [0, W)
+  int* sm;
+
+  __device__ bool staged(int t) const { return t >= lo && t < hi; }
+  __device__ int& at(int r, int t) const { return sm[r * kSpan + (t - w0)]; }
+  // input row r at lane t in [0, W): shared memory if staged, else global
+  __device__ int in(int r, int t) const { return staged(t) ? at(r, t) : meta[(size_t)r * W + t]; }
+  __device__ int pull(int r, int t) const { return (t >= 0 && t < m) ? in(r, t) : -1; }
+  __device__ bool is_short(int z) const { return z < m && in(5, z) == 1; }
+  __device__ int e2in(int z) const { return (in(4, z) & ((1 << 23) - 1)) - 1; }
+  __device__ bool seeded(int t) const { return (in(4, t) >> 23) <= 2 || in(3, t) < 0; }
+};
+
+struct Expansion {
+  int s0, s1, s2, s3, count, e1, e2;  // the four slot ids, their count, e1, e2
+
+  __device__ int sid(int k) const { return k == 0 ? s0 : (k == 1 ? s1 : (k == 2 ? s2 : s3)); }
+};
+
+// the two largest-area-child expansions of lane z (only short lanes
+// expand), written with selects so that nothing leaves the registers
+__device__ Expansion expand(const Block& b, int z) {
+  Expansion x = {b.in(1, z), b.in(2, z), -1, -1, 2, -1, -1};
+  if (!b.is_short(z)) return x;
+  const int m = b.m;
+  auto acode = [&](int t) { return (t >= 0 && t < m) ? b.in(0, t) : -1; };
+  int a0 = acode(x.s0), a1 = acode(x.s1), a2 = -1;
+  int l0 = b.pull(1, x.s0), l1 = b.pull(1, x.s1), l2 = -1;
+  int r0 = b.pull(2, x.s0), r1 = b.pull(2, x.s1), r2 = -1;
+  // step 1: the first max wins ties, area > 0 strictly
+  const bool pos1 = a1 > a0;
+  const bool do1 = max(a0, a1) > 0;
+  if (do1) {
+    x.e1 = pos1 ? x.s1 : x.s0;
+    const int c1l = pos1 ? l1 : l0, c1r = pos1 ? r1 : r0;
+    const int na = acode(c1l), nl = b.pull(1, c1l), nr = b.pull(2, c1l);
+    if (pos1) {
+      x.s1 = c1l, a1 = na, l1 = nl, r1 = nr;
+    } else {
+      x.s0 = c1l, a0 = na, l0 = nl, r0 = nr;
+    }
+    x.s2 = c1r, a2 = acode(c1r), l2 = b.pull(1, c1r), r2 = b.pull(2, c1r);
   }
-  return c;
+  // step 2 over slots 0..2 in slot order
+  const int best2 = max(max(a0, a1), a2);
+  if (best2 > 0) {
+    const int pos2 = a0 == best2 ? 0 : (a1 == best2 ? 1 : 2);
+    x.e2 = pos2 == 0 ? x.s0 : (pos2 == 1 ? x.s1 : x.s2);
+    const int c2l = pos2 == 0 ? l0 : (pos2 == 1 ? l1 : l2);
+    const int c2r = pos2 == 0 ? r0 : (pos2 == 1 ? r1 : r2);
+    if (pos2 == 0) x.s0 = c2l;
+    if (pos2 == 1) x.s1 = c2l;
+    if (pos2 == 2) x.s2 = c2l;
+    if (do1) x.s3 = c2r;  // the slot after the last: 2 + do1
+    else x.s2 = c2r;
+  }
+  x.count = 2 + (do1 ? 1 : 0) + (best2 > 0 ? 1 : 0);
+  return x;
 }
 
-__global__ void collapse_emit(const int* __restrict__ meta, const int* __restrict__ node8,
-                              const int* __restrict__ leaf8, const int* __restrict__ carr,
-                              int W, int m, const int* __restrict__ scr,
-                              int* __restrict__ outm, int* __restrict__ outa) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= W) return;
-  const int* pk = scr + kPk * W;
-  const int state = scr[kState * W + i];
-  const bool is_int = i < m;
-  const bool is_wide = state == kWide && meta[5 * W + i] == 1 && is_int;
-  const int parent = meta[3 * W + i];
-  const int ownp1 = meta[6 * W + i];
-  const int leafp = meta[7 * W + i];
+// phase A's (e1, e2, e2_full) at internal lane z; false where z is short
+// and not staged (a coarse lane's come from its own meta)
+__device__ bool rows_a(const Block& b, int z, int& e1, int& e2, int& e2f) {
+  if (!b.is_short(z)) {
+    e1 = e2 = -1;
+    e2f = b.e2in(z);
+    return true;
+  }
+  if (!b.staged(z)) return false;
+  e1 = b.at(kRowE1, z);
+  e2 = b.at(kRowE2, z);
+  e2f = b.at(kRowE2f, z);
+  return true;
+}
 
-  // ---- claims ----
-  const int pk_q = leafp == i ? pk[i] : (leafp == i - 1 ? (i >= 1 ? pk[i - 1] : -1) : -1);
-  const int pq = dec(pk_q);
-  const int pk_p = pull(pk, parent, m), pk_pq = pull(pk, pq, m);
-  const int gp = dec(pk_p), gpq = dec(pk_pq);
-  const int pk_gp = pull(pk, gp, m), pk_gpq = pull(pk, gpq, m);
-  const int ggp = dec(pk_gp);
-  const int pk_ggp = pull(pk, ggp, m);
-  int claim_int = -1;
-  if (is_wide && parent >= 0)
-    claim_int = ownp1 > 0 ? ownp1 - 1 : first_wide(parent, pk_p, gp, pk_gp, ggp, pk_ggp);
-  const int claim_leaf = (i < m + 1 && leafp >= 0)
-                             ? first_wide(leafp, pk_q, pq, pk_pq, gpq, pk_gpq) : -1;
+// the packed claim row of internal lane t whose state is `state`
+__device__ int claim_row(const Block& b, int t, int state) {
+  const int ownp1 = b.in(6, t);
+  const int claim = state == kWide ? t : ownp1 - 1;
+  return ownp1 > 0 ? (claim + 1) * 4 + 3 : (b.in(3, t) + 1) * 4 + min(state, 2);
+}
 
-  // ---- outputs, with the coarse pass-through ----
-  const bool cw = carr[5 * W + i] == 1;
-  for (int k = 0; k < 4; ++k)
-    outm[k * W + i] = cw ? carr[k * W + i] : (is_wide ? scr[(kSid + k) * W + i] : -1);
-  outm[4 * W + i] = cw ? carr[4 * W + i] : (is_wide ? scr[kCount * W + i] : 0);
-  outm[5 * W + i] = is_int ? state : kUnk;
-  outm[6 * W + i] = cw ? ownp1 - 1 : claim_int;
-  outm[7 * W + i] = claim_leaf;
-  for (int k = 0; k < 4; ++k) {
-    int* oa = outa + (size_t)k * 8 * W;
-    const int sid = scr[(kSid + k) * W + i];
-    const int* src = (sid >= 0 && sid < m) ? node8 + sid : (sid >= m ? leaf8 + (sid - m) : nullptr);
-    for (int r = 0; r < 8; ++r) {
-      int v;
-      if (cw) v = r < 6 ? carr[(6 + 6 * k + r) * W + i] : 0;
-      else v = (is_wide && src) ? src[(size_t)r * W] : 0;
-      oa[(size_t)r * W + i] = v;
+// lane x's step of a chain walk: the seed terminal's state (kTerm set),
+// kBadStep where the parent is no internal node, kOutStep where phase A's
+// row at the parent or grandparent is not staged, else x's transition
+// table given its parent's (e1, e2) and its grandparent's e2_full
+constexpr int kTerm = 1 << 8, kBadStep = 1 << 9, kOutStep = 1 << 10;
+
+__device__ int chain_step(const Block& b, int x) {
+  const int m = b.m;
+  const int seed = b.in(4, x) >> 23, par = b.in(3, x);
+  if (seed <= 2 || par < 0) return kTerm | (seed <= 2 ? seed : kWide);
+  if (par >= m) return kBadStep;
+  int e1p, e2p, e2fp, e2g = -1, u1, u2;
+  if (!rows_a(b, par, e1p, e2p, e2fp)) return kOutStep;
+  const int gp = b.in(3, par);
+  if (gp >= 0 && gp < m && !rows_a(b, gp, u1, u2, e2g)) return kOutStep;
+  const int t_wide = x == e1p ? kE1 : (x == e2p ? kE2 : kWide);
+  const int t_e1 = x == e2g ? kE2 : kWide;
+  return t_wide | (t_e1 << 2);  // f(E2) = WIDE
+}
+
+// phase B at internal lane y: the composed tables along the parent chain,
+// one staged step a hop (a lane outside the window takes its step in place)
+__device__ int walk_state(const Block& b, int y, int* err) {
+  int tbl = kIdentity, x = y;
+  for (int hops = 0;; ++hops) {
+    const int f = b.staged(x) ? b.at(kRowStep, x) : chain_step(b, x);
+    if (f & kTerm) return apply_tbl(tbl, f & 3);
+    if ((f & kBadStep) || hops == kSLen + 2) {
+      atomicOr(err, kErrChain);
+      return kBadChain;
     }
+    if (f & kOutStep) return kOutside;
+    tbl = apply_tbl(tbl, apply_tbl(f, 0)) | (apply_tbl(tbl, apply_tbl(f, 1)) << 2) |
+          (apply_tbl(tbl, apply_tbl(f, 2)) << 4);
+    x = b.in(3, x);
+  }
+}
+
+// the packed claim row at lane t, as the plain version's pull (-1 off the
+// internal lanes); a seeded lane's is computed in place
+__device__ int pk_at(const Block& b, int t, int* err) {
+  if (t < 0 || t >= b.m) return -1;
+  if (b.seeded(t)) {
+    const int seed = b.in(4, t) >> 23;
+    return claim_row(b, t, seed <= 2 ? seed : kWide);
+  }
+  const int v = b.staged(t) ? b.at(kRowPk, t) : kOutside;
+  if (v == kOutside) atomicOr(err, kErrWindow);
+  return v >= 0 ? v : -1;
+}
+
+// the first WIDE (its id) or seed terminal (its claim) along the chain
+// t0, dec(pk0), ...: three candidates, walked only up to the first hit
+__device__ int first_wide(const Block& b, int t, int pk, int* err) {
+  for (int k = 0;; ++k) {
+    if (pk >= 0 && (pk & 3) == kWide) return t;
+    if (pk >= 0 && (pk & 3) == 3) return (pk >> 2) - 1;
+    if (k == 2) return -1;
+    t = dec(pk);
+    pk = pk_at(b, t, err);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    collapse_block_kernel(const int* __restrict__ meta, const int* __restrict__ node8,
+                          const int* __restrict__ leaf8, const int* __restrict__ carr, int W,
+                          int m, int* __restrict__ err, int* __restrict__ outm,
+                          int* __restrict__ outa) {
+  extern __shared__ int sm[];
+  const int t0 = blockIdx.x * kTile;
+  Block b{meta, W, m, t0 - kHalo, max(t0 - kHalo, 0), min(t0 + kTile + kHalo, W), sm};
+  for (int k = threadIdx.x; k < kSpan; k += kThreads) {
+    const int z = b.w0 + k;
+    if (!b.staged(z)) continue;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) tbvh::cp_async4(&b.at(r, z), meta + (size_t)r * W + z);
+  }
+  tbvh::cp_async_wait_all();
+  __syncthreads();
+
+  // phase A: every staged lane
+  for (int z = b.lo + threadIdx.x; z < b.hi; z += kThreads) {
+    const Expansion x = expand(b, z);
+    b.at(kRowE1, z) = x.e1;
+    b.at(kRowE2, z) = x.e2;
+    b.at(kRowE2f, z) = b.is_short(z) ? x.e2 : b.e2in(z);
+  }
+  __syncthreads();
+  for (int x = b.lo + threadIdx.x; x < min(b.hi, m); x += kThreads) b.at(kRowStep, x) = chain_step(b, x);
+  __syncthreads();
+
+  // phase B: every staged internal lane
+  for (int y = b.lo + threadIdx.x; y < b.hi; y += kThreads) {
+    const int state = y < m ? walk_state(b, y, err) : kUnk;
+    b.at(kRowState, y) = state;
+    b.at(kRowPk, y) = y >= m ? -1 : (state >= 0 ? claim_row(b, y, state) : kOutside);
+  }
+  __syncthreads();
+
+  // phases C and D: the block's own lanes
+  const int t_end = min(t0 + kTile, W);
+  for (int i = t0 + threadIdx.x; i < t_end; i += kThreads) {
+    const bool is_int = i < m;
+    int state = b.at(kRowState, i);
+    if (state == kOutside) atomicOr(err, kErrWindow);
+    const bool is_wide = is_int && state == kWide && b.is_short(i);
+    const int parent = b.at(3, i), ownp1 = b.at(6, i), leafp = b.at(7, i);
+
+    int claim_int = -1;
+    if (is_wide && parent >= 0)
+      claim_int = ownp1 > 0 ? ownp1 - 1 : first_wide(b, parent, pk_at(b, parent, err), err);
+    int claim_leaf = -1;
+    if (i < m + 1 && leafp >= 0) {
+      // leaf lane i's parent is boundary i or i - 1 (any other: no row)
+      const int pk_q = leafp == i ? pk_at(b, i, err) : (leafp == i - 1 ? pk_at(b, i - 1, err) : -1);
+      claim_leaf = first_wide(b, leafp, pk_q, err);
+    }
+
+    const Expansion x = expand(b, i);
+    const bool cw = carr[5 * (size_t)W + i] == 1;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      outm[(size_t)k * W + i] = cw ? carr[(size_t)k * W + i] : (is_wide ? x.sid(k) : -1);
+    outm[4 * (size_t)W + i] = cw ? carr[4 * (size_t)W + i] : (is_wide ? x.count : 0);
+    outm[5 * (size_t)W + i] = is_int ? state : kUnk;
+    outm[6 * (size_t)W + i] = cw ? ownp1 - 1 : claim_int;
+    outm[7 * (size_t)W + i] = claim_leaf;
+    // the slot AABBs: all 32 loads first, then the 32 stores, so the
+    // loads are in flight together
+    int v[4][8];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int sid = x.sid(k);
+      const int* src = (sid >= 0 && sid < m) ? node8 + sid : (sid >= m ? leaf8 + (sid - m) : nullptr);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (cw)
+          v[k][r] = r < 6 ? carr[(size_t)(6 + 6 * k + r) * W + i] : 0;
+        else
+          v[k][r] = (is_wide && src) ? src[(size_t)r * W] : 0;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) outa[((size_t)k * 8 + r) * W + i] = v[k][r];
   }
 }
 
 }  // namespace
 
 extern "C" int tbvh_collapse_block(const int* meta, const int* node8, const int* leaf8,
-                                   const int* carr, int W, int m, int* scratch, int* err,
-                                   int* outm, int* outa, cudaStream_t stream) {
-  const int blocks = (W + kThreads - 1) / kThreads;
-  collapse_expand<<<blocks, kThreads, 0, stream>>>(meta, W, m, scratch);
-  int e = (int)cudaGetLastError();
-  if (e) return e;
-  collapse_state<<<blocks, kThreads, 0, stream>>>(meta, W, m, scratch, err);
-  e = (int)cudaGetLastError();
-  if (e) return e;
-  collapse_emit<<<blocks, kThreads, 0, stream>>>(meta, node8, leaf8, carr, W, m, scratch, outm,
-                                                 outa);
+                                   const int* carr, int W, int m, int* err, int* outm,
+                                   int* outa, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(collapse_block_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (e != cudaSuccess) return (int)e;
+  collapse_block_kernel<<<(W + kTile - 1) / kTile, kThreads, kSmem, stream>>>(
+      meta, node8, leaf8, carr, W, m, err, outm, outa);
   return (int)cudaGetLastError();
 }

@@ -11,20 +11,14 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace ploc {
 
 constexpr float kBig = 3.0e38f;  // "no candidate" area
 constexpr int kMaxR = 8;         // largest search radius: PLOC_RADIUS (types.py)
 
-// min as jnp.minimum computes it: NaN propagates (a's first) and -0.0 <
-// +0.0 (equal values give the or of their bits), so the result does not
-// depend on the order of finite arguments; written with selects only
-__device__ __forceinline__ float jmin(float a, float b) {
-  float r = a < b ? a : b;
-  r = a == b ? __int_as_float(__float_as_int(a) | __float_as_int(b)) : r;
-  r = b != b ? b : r;
-  return a != a ? a : r;
-}
+using tbvh::jmin;  // jnp.minimum's rule (common.cuh)
 
 // surface area of the union of two packed boxes, in the order of
 // tpu_bvh/ops/ploc.py:_area6: ex = -u3 - u0, ..., 2 * ((ex*ey + ex*ez) + ey*ez)

@@ -23,16 +23,16 @@ def prim_refs_from_triangles(tris) -> PrimRefs:
                     prim_idx=torch.arange(n, dtype=I32, device=tris.device))
 
 
-def _sorted_leaves_cols(mnx, mny, mnz, mxx, mxy, mxz, prim_idx, use_extended):
-    """Returns (sorted_codes int64 [n] of u32 values, leaf_packed_t f32[6, n]
-    with rows (min xyz, -max xyz) in sorted order, leaf_prim i32[n])."""
-    scene_min = torch.stack([mnx.amin(), mny.amin(), mnz.amin()])
-    scene_max = torch.stack([mxx.amax(), mxy.amax(), mxz.amax()])
+def _sorted_leaves_cols(packed, prim_idx, use_extended):
+    """packed: the leaf boxes as rows f32[6, n] (min xyz, -max xyz).
+    Returns (sorted_codes int64 [n] of u32 values, leaf_packed_t f32[6, n],
+    the packed rows in sorted order, leaf_prim i32[n])."""
+    mn, mx = packed[0:3], -packed[3:6]
+    scene_min = mn.amin(dim=1)
+    scene_max = mx.amax(dim=1)
     ext = scene_max - scene_min
     safe = torch.where(ext > 0, ext, 1.0)
-    nx = ((mnx + mxx) * 0.5 - scene_min[0]) / safe[0]
-    ny = ((mny + mxy) * 0.5 - scene_min[1]) / safe[1]
-    nz = ((mnz + mxz) * 0.5 - scene_min[2]) / safe[2]
+    nx, ny, nz = ((mn + mx) * 0.5 - scene_min[:, None]) / safe[:, None]
     if use_extended:
         codes = morton.extended_morton30_cols(nx, ny, nz, ext)
     else:
@@ -43,32 +43,22 @@ def _sorted_leaves_cols(mnx, mny, mnz, mxx, mxy, mxz, prim_idx, use_extended):
     key = (codes - (1 << 31)) * (1 << 32) + prim_idx.to(torch.int64)
     skey, pos = torch.sort(key)
     sorted_codes = (skey >> 32) + (1 << 31)
-    rows = torch.stack([mnx, mny, mnz, -mxx, -mxy, -mxz])
-    leaf_packed_t = rows[:, pos]
-    leaf_prim = prim_idx[pos]
-    return sorted_codes, leaf_packed_t, leaf_prim
+    return sorted_codes, packed[:, pos], prim_idx[pos]
 
 
 def _sorted_leaves_packed(refs: PrimRefs, use_extended: bool):
     """The contract of `_sorted_leaves_cols`, from PrimRefs."""
-    mn, mx = refs.aabb_min.T, refs.aabb_max.T  # [3, n]
-    return _sorted_leaves_cols(mn[0], mn[1], mn[2], mx[0], mx[1], mx[2], refs.prim_idx,
-                               use_extended)
+    packed = torch.cat([refs.aabb_min.T, -refs.aabb_max.T])
+    return _sorted_leaves_cols(packed, refs.prim_idx, use_extended)
 
 
 def _sorted_leaves_from_tris(tris, use_extended: bool):
     """Triangle-soup front end in column form; the contract of
     `_sorted_leaves_cols`."""
     n = tris.shape[0]
-    t9 = tris.reshape(n, 9).T  # [9, n]: v0x v0y v0z v1x ... v2z
-    mnx = torch.minimum(torch.minimum(t9[0], t9[3]), t9[6])
-    mny = torch.minimum(torch.minimum(t9[1], t9[4]), t9[7])
-    mnz = torch.minimum(torch.minimum(t9[2], t9[5]), t9[8])
-    mxx = torch.maximum(torch.maximum(t9[0], t9[3]), t9[6])
-    mxy = torch.maximum(torch.maximum(t9[1], t9[4]), t9[7])
-    mxz = torch.maximum(torch.maximum(t9[2], t9[5]), t9[8])
+    packed = aabb.packed_bounds(tris.permute(1, 2, 0), 0, 1)  # [6, n]: min xyz, -max xyz
     idx = torch.arange(n, dtype=I32, device=tris.device)
-    return _sorted_leaves_cols(mnx, mny, mnz, mxx, mxy, mxz, idx, use_extended)
+    return _sorted_leaves_cols(packed, idx, use_extended)
 
 
 def _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root):

@@ -1,7 +1,57 @@
-"""Vectorized AABB, triangle and quaternion math on `[..., 3]` tensors."""
+"""Vectorized AABB, triangle and quaternion math on `[..., 3]` tensors.
+
+`fmin` / `fmax` compute what `jnp.minimum` / `jnp.maximum` compute,
+signed zeros included; every min and max of a box the build path stores
+goes through them or through `min_key`, their integer form.
+"""
 from __future__ import annotations
 
 import torch
+
+I32 = torch.int32
+F32 = torch.float32
+
+
+def fmin(a, b):
+    """Elementwise min as `jnp.minimum` computes it: -0.0 < +0.0, so equal
+    values give the OR of their bits and the result does not depend on the
+    order of the arguments (`torch.minimum` keeps its first argument on
+    equal zeros); NaN propagates, a's first, with its own bits, as `jmin`
+    does in `csrc/common.cuh` (`torch.minimum`'s vectorized CPU loop gives
+    all-ones NaN bits instead)."""
+    r = torch.where((a < b) | (a != a), a, b)
+    return torch.where(a == b, (a.view(I32) | b.view(I32)).view(F32), r)
+
+
+def fmax(a, b):
+    """Elementwise max as `jnp.maximum` computes it: +0.0 > -0.0 (equal
+    values give the AND of their bits); NaN propagates, a's first."""
+    r = torch.where((a > b) | (a != a), a, b)
+    return torch.where(a == b, (a.view(I32) & b.view(I32)).view(F32), r)
+
+
+def min_key(x):
+    """An i32 key of each f32 whose integer order is `fmin`'s: the total
+    order of the floats (-0.0 < +0.0) with every NaN below all, so the
+    min of keys (`torch.minimum`, `amin`: one exact op, in any order) is
+    the key of the `fmin` of the floats (`from_min_key`)."""
+    b = x.view(I32)
+    key = b ^ ((b >> 31) & 0x7FFFFFFF)
+    return torch.where(x != x, torch.iinfo(torch.int32).min, key)
+
+
+def from_min_key(key):
+    """The f32 of a `min_key` (a NaN comes back with all bits set)."""
+    return (key ^ ((key >> 31) & 0x7FFFFFFF)).view(F32)
+
+
+def packed_bounds(v, vertex_dim: int, coord_dim: int):
+    """The box of the vertices `v`, packed (min xyz, -max xyz) along
+    `coord_dim`: the `fmin` over `vertex_dim` of the coordinates and of
+    their negations (fmax(a, b) == -fmin(-a, -b) bit for bit), taken as
+    one exact `amin` of `min_key`s."""
+    keys = min_key(torch.cat([v, -v], dim=coord_dim))
+    return from_min_key(keys.amin(dim=vertex_dim))
 
 
 def _cross(a, b):
@@ -13,7 +63,8 @@ def _cross(a, b):
 
 def triangle_aabbs(tris):
     """Per-triangle AABB. tris: f32[N, 3, 3] (vertex-major)."""
-    return tris.amin(dim=-2), tris.amax(dim=-2)
+    packed = packed_bounds(tris, -2, -1)
+    return packed[..., :3], -packed[..., 3:]
 
 
 def center(amin, amax):

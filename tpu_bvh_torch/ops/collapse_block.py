@@ -29,10 +29,14 @@ parent chain to a seeded terminal; (C) the ownership claims: the first
 WIDE or terminal among parent, grandparent and great-grandparent; (D) the
 slot AABBs at the final slot ids. All of it is integer work, so the CUDA
 kernel (`csrc/collapse_block.cu`) equals `collapse_block_reference` bit
-for bit. A CUDA tensor launches the kernel; a CPU tensor takes the plain
-version. The output does not depend on any block size.
+for bit. A CUDA tensor launches the kernel (one launch over tiles of TILE
+lanes that stage HALO lanes on either side); a CPU tensor takes the plain
+version. The output does not depend on the tile size; where it would
+depend on a lane beyond the halo, the kernel raises.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -45,7 +49,9 @@ _WIDE, _E1, _E2, _UNK = 0, 1, 2, 3
 _CONST_TBL = 0b010101  # state s -> the constant table (s, s, s)
 # doubling trips: 2^6 hops cover the longest short chain (<= S_LEN + 2)
 N_TRIPS = max(3, (S_LEN + 2).bit_length())
-launches = 0  # `collapse_block` calls that launched the kernels since the last reset
+TILE = 1024  # lanes one block owns (kTile in csrc/collapse_block.cu)
+HALO = 128  # lanes staged on either side of a tile (kHalo)
+launches = 0  # `collapse_block` calls that launched the kernel since the last reset
 
 
 def collapse_block(meta, node8, leaf8, carr, m: int):
@@ -212,6 +218,13 @@ def collapse_block_reference(meta, node8, leaf8, carr, m: int):
     return outm, outa
 
 
+ERR_CHAIN, ERR_WINDOW = 1, 2  # the kernel's error flag bits (kErrChain, kErrWindow)
+# the kernel's error words, zero between calls: one for each thread and, in
+# it, each (device, stream), so that calls in flight on other streams or
+# from other threads never set, read or clear each other's word
+_err = threading.local()
+
+
 def _collapse_block_cuda(meta, node8, leaf8, carr, m: int):
     global launches
     W = meta.shape[1]
@@ -223,17 +236,23 @@ def _collapse_block_cuda(meta, node8, leaf8, carr, m: int):
     dev = meta.device
     outm = torch.empty((8, W), dtype=I32, device=dev)
     outa = torch.empty((4, 8, W), dtype=I32, device=dev)
-    # rows: 4 slot ids, count, e1, e2, e2_full, state, packed claim row
-    scratch = torch.empty((10, W), dtype=I32, device=dev)
-    err = torch.zeros((1,), dtype=I32, device=dev)
+    stream = kernels.stream_of(meta)
+    words = vars(_err).setdefault("words", {})
+    err = words.get((dev, stream))
+    if err is None:
+        err = words[(dev, stream)] = torch.zeros((1,), dtype=I32, device=dev)
     code = kernels.lib().tbvh_collapse_block(
         meta.data_ptr(), node8.data_ptr(), leaf8.data_ptr(), carr.data_ptr(), W, m,
-        scratch.data_ptr(), err.data_ptr(), outm.data_ptr(), outa.data_ptr(),
-        kernels.stream_of(meta),
+        err.data_ptr(), outm.data_ptr(), outa.data_ptr(), stream,
     )
     kernels.check("tbvh_collapse_block", code)
     launches += 1
-    if int(err) != 0:  # one host sync
-        raise RuntimeError("collapse_block: a short node's parent chain exceeds "
-                           f"S_LEN + 2 = {S_LEN + 2} hops (the input is not a short-node tree)")
+    flag = int(err)  # one host sync
+    if flag:
+        err.zero_()
+        if flag & ERR_CHAIN:
+            raise RuntimeError("collapse_block: a short node's parent chain exceeds "
+                               f"S_LEN + 2 = {S_LEN + 2} hops (the input is not a short-node tree)")
+        raise RuntimeError(f"collapse_block: an output depends on a lane more than HALO = {HALO} "
+                           "lanes outside its block's tile")
     return outm, list(outa.unbind(0))

@@ -17,7 +17,7 @@ i < nc are live. For every lane i < S:
   0 where there is none), as the TPU kernel leaves them.
 
 The union area is `2 * ((ex*ey + ex*ez) + ey*ez)` with `ex = -u3 - u0`
-etc., and the union takes the min of `jnp.minimum` (`fmin` below), so the
+etc., and the union takes the min of `jnp.minimum` (`aabb.fmin`), so the
 CUDA kernel (`csrc/ploc_nn.cu`) equals `ploc_nn_round_raw_reference` bit
 for bit. A CUDA tensor launches the kernel; a CPU tensor takes the plain
 version.
@@ -29,18 +29,12 @@ import torch
 from ..types import PLOC_RADIUS
 from ..utils import kernels
 from ..utils.platform import on_cuda
+from .aabb import fmin
 
 I32 = torch.int32
 BIG = 3.0e38  # "no candidate" area
 MAX_RADIUS = PLOC_RADIUS  # the kernel's halo is 2 * MAX_RADIUS lanes (kMaxR in the .cuh)
 launches = 0  # kernel launches of the NN stage since the last reset
-
-
-def fmin(a, b):
-    """Elementwise min as `jnp.minimum` computes it: NaN propagates and
-    -0.0 < +0.0 (torch.minimum keeps its first argument on equal zeros)."""
-    both = (a.view(I32) | b.view(I32)).view(torch.float32)
-    return torch.where(a == b, both, torch.minimum(a, b))
 
 
 def area6(c):

@@ -5,8 +5,9 @@ Every node covers a contiguous range of Morton-sorted leaves, so its AABB
 is a range min over the packed leaf columns (min xyz, -max xyz). Short
 ranges (within +-radius of their own boundary) come from the dense
 stencil (`refit_dense`, a CUDA kernel on CUDA tensors); the few long
-ranges from a two-level min table. Every path is exact, so the result is
-the same at any radius.
+ranges from a two-level min table, built over `aabb.min_key`s (i32 keys
+whose order is `fmin`'s, so each level is one integer min). Every path
+is exact, so the result is the same at any radius.
 """
 from __future__ import annotations
 
@@ -14,10 +15,12 @@ import math
 
 import torch
 
-from .refit_dense import BIG, refit_dense
+from .aabb import from_min_key, min_key
+from .refit_dense import BIG, refit_dense_cols
 
 I32 = torch.int32
 RADIUS = 24
+BIG_KEY = int(min_key(torch.tensor([BIG], dtype=torch.float32)))
 
 
 def _floor_log2(x):
@@ -26,7 +29,8 @@ def _floor_log2(x):
 
 
 def _shift_min(cur, s):
-    """min(cur[:, i], cur[:, min(i + s, n - 1)]) — one clamped-window level."""
+    """min(cur[:, i], cur[:, min(i + s, n - 1)]) of i32 keys — one
+    clamped-window level."""
     n = cur.shape[1]
     if s >= n:
         return cur
@@ -60,13 +64,8 @@ def _refit_anchored_fast(packed_t, first, last, radius: int):
     n = packed_t.shape[1]
     m = first.shape[0]
     dev = packed_t.device
-    edge = torch.full((1,), n - 1, dtype=I32, device=dev)
-    mat = torch.cat([
-        packed_t.contiguous().view(I32),
-        torch.cat([first, edge])[None],
-        torch.cat([last, edge])[None],
-    ])  # i32[8, n]
-    acc, short, t4 = refit_dense(mat, n, radius)
+    acc, short, t4 = refit_dense_cols(packed_t.contiguous(), first.contiguous(),
+                                      last.contiguous(), n, radius)
 
     # long nodes: a fine level-4 row (T4[i] = min over [i, i + 16)) covers
     # both range ends, a lifting table over block-16 mins the middle
@@ -75,9 +74,9 @@ def _refit_anchored_fast(packed_t, first, last, radius: int):
     ptp = packed_t if padn == n else torch.cat(
         [packed_t, torch.full((6, padn - n), BIG, dtype=torch.float32, device=dev)], dim=1
     )
-    c0 = ptp.reshape(6, nb, 16).amin(dim=2)
+    c0 = min_key(ptp).reshape(6, nb, 16).amin(dim=2)
     levels_c = max(1, math.ceil(math.log2(max(nb, 2))))
-    ctabs = [t4, c0]
+    ctabs = [min_key(t4), c0]
     ccur = c0
     for k in range(1, levels_c + 1):
         ccur = _shift_min(ccur, 1 << (k - 1))
@@ -100,7 +99,7 @@ def _refit_anchored_fast(packed_t, first, last, radius: int):
         kc = _floor_log2(cnt)
         b2 = torch.clamp(bl - (1 << kc) + 1, min=0)
         uc = torch.minimum(table_t[:, n + kc * nb + bfs], table_t[:, n + kc * nb + b2])
-        out[:, long_idx] = torch.minimum(u, torch.where(has_mid[None], uc, BIG))
+        out[:, long_idx] = from_min_key(torch.minimum(u, torch.where(has_mid[None], uc, BIG_KEY)))
     return out
 
 
@@ -109,12 +108,12 @@ def _refit_full_table(packed_t, first, last):
     overflows the budget (caterpillar Morton runs)."""
     n = packed_t.shape[1]
     levels = max(1, math.ceil(math.log2(max(n, 2))))
-    tabs = [packed_t]
-    cur = packed_t
+    cur = min_key(packed_t)
+    tabs = [cur]
     for k in range(1, levels + 1):
         cur = _shift_min(cur, 1 << (k - 1))
         tabs.append(cur)
     table_t = torch.cat(tabs, dim=1)  # [6, (levels + 1) * n]
     k = _floor_log2(last - first + 1)
     b = torch.clamp(last - (1 << k) + 1, min=0)
-    return torch.minimum(table_t[:, k * n + first], table_t[:, k * n + b])
+    return from_min_key(torch.minimum(table_t[:, k * n + first], table_t[:, k * n + b]))

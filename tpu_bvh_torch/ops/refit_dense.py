@@ -6,13 +6,20 @@ Input `mat` i32[8, s] holds rows 0-5 = packed leaf columns (min xyz,
 For each column i:
 
 * acc[:, i] = min of leaf columns j in [first, last] with
-  i - R < j <= i + R (j = i counted when first <= i);
+  i - R < j <= i + R (j = i counted when first <= i), columns j >= n
+  read as +3e38 on the forward side (j > i);
 * short[i] = (i - first < R) & (last - i <= R);
 * t4[:, i] = min over leaves [i, i + 16), columns >= n taken as +3e38.
 
-Only min operations are involved, so every path is bit-exact. A CUDA
-tensor launches `csrc/refit_dense.cu`; a CPU tensor takes
-`refit_dense_reference`.
+`refit_dense_cols(packed_t, first, last, n, radius)` is the same function
+on the refit's own arrays (f32[6, n], i32[n - 1] twice; the edge column
+n - 1 takes first = last = n - 1), so the refit builds no `mat`.
+
+Every min is `aabb.fmin` (`jnp.minimum`'s rule: -0.0 < +0.0, NaN
+propagates), under which a min does not depend on the order of its
+arguments, so every path is bit-exact. A CUDA tensor launches
+`csrc/refit_dense.cu` (one launch; both entries, counted by `launches`);
+a CPU tensor takes the plain version.
 """
 from __future__ import annotations
 
@@ -20,19 +27,51 @@ import torch
 
 from ..utils import kernels
 from ..utils.platform import on_cuda
+from .aabb import fmin
 
 BIG = 3.0e38
-_HALO = 128  # largest radius the contract allows
-launches = 0  # kernel launches by `refit_dense` since the last reset
+MAX_RADIUS = 128  # the contract's largest radius: the kernel's halo (kMaxHalo)
+MIN_RADIUS = 15  # the t4 window needs 15 forward columns
+TILE = 1024  # columns one block owns (kTile in csrc/refit_dense.cu)
+launches = 0  # kernel launches by `refit_dense` and `refit_dense_cols` since the last reset
+
+
+def _check_radius(radius: int) -> None:
+    if not MIN_RADIUS <= radius <= MAX_RADIUS:
+        raise ValueError(f"radius {radius} outside [{MIN_RADIUS}, {MAX_RADIUS}]")
 
 
 def refit_dense(mat, n: int, radius: int):
     """Returns (acc f32[6, s], short bool[s], t4 f32[6, s]); dispatch by device."""
-    if not 15 <= radius <= _HALO:
-        raise ValueError(f"radius {radius} outside [15, {_HALO}]")
+    _check_radius(radius)
     if on_cuda(mat):
-        return _refit_dense_cuda(mat, n, radius)
+        s = mat.shape[1]
+        kernels.require(mat, "mat", torch.int32, (8, s))
+        return _launch(mat, mat[6], mat[7], s, n, radius)
     return refit_dense_reference(mat, n, radius)
+
+
+def refit_dense_cols(packed_t, first, last, n: int, radius: int):
+    """`refit_dense` on packed_t f32[6, n] and first/last i32[n - 1]."""
+    _check_radius(radius)
+    if on_cuda(packed_t):
+        kernels.require(packed_t, "packed_t", torch.float32, (6, n))
+        kernels.require(first, "first", torch.int32, (n - 1,))
+        kernels.require(last, "last", torch.int32, (n - 1,))
+        return _launch(packed_t, first, last, n - 1, n, radius)
+    return refit_dense_cols_reference(packed_t, first, last, n, radius)
+
+
+def cols_mat(packed_t, first, last):
+    """The `mat` of `refit_dense` for `refit_dense_cols`'s arguments."""
+    edge = torch.full((1,), packed_t.shape[1] - 1, dtype=torch.int32, device=packed_t.device)
+    return torch.cat([packed_t.contiguous().view(torch.int32), torch.cat([first, edge])[None],
+                      torch.cat([last, edge])[None]])
+
+
+def refit_dense_cols_reference(packed_t, first, last, n: int, radius: int):
+    """Plain PyTorch version of `refit_dense_cols` (any device)."""
+    return refit_dense_reference(cols_mat(packed_t, first, last), n, radius)
 
 
 def refit_dense_reference(mat, n: int, radius: int):
@@ -56,28 +95,29 @@ def refit_dense_reference(mat, n: int, radius: int):
     for d in range(1, R + 1):  # R >= 15 covers the t4 window
         w = fwd[:, d:d + s]
         if d < 16:
-            t4 = torch.minimum(t4, w)
-        acc = torch.where(d <= la, torch.minimum(acc, w), acc)
+            t4 = fmin(t4, w)
+        acc = torch.where(d <= la, fmin(acc, w), acc)
     for d in range(0, R):
         w = bwd[:, R - d:R - d + s]
-        acc = torch.where(d <= ab, torch.minimum(acc, w), acc)
+        acc = torch.where(d <= ab, fmin(acc, w), acc)
     short = (ab < R) & (la <= R)
     return acc, short, t4
 
 
-def _refit_dense_cuda(mat, n: int, radius: int):
+def _launch(cols, first, last, m_fl: int, n: int, radius: int):
+    """One launch on column rows `cols` (6 rows of stride s) and the ranges
+    of the first `m_fl` columns (the rest take first = last = n - 1)."""
     global launches
-    s = mat.shape[1]
-    kernels.require(mat, "mat", torch.int32, (8, s))
+    s = cols.shape[1]
     if not 1 <= n <= s:
         raise ValueError(f"refit_dense needs 1 <= n <= {s}, got {n}")
-    dev = mat.device
+    dev = cols.device
     acc = torch.empty((6, s), dtype=torch.float32, device=dev)
     short = torch.empty((s,), dtype=torch.bool, device=dev)
     t4 = torch.empty((6, s), dtype=torch.float32, device=dev)
     err = kernels.lib().tbvh_refit_dense(
-        mat.data_ptr(), s, n, radius, acc.data_ptr(), short.data_ptr(),
-        t4.data_ptr(), kernels.stream_of(mat),
+        cols.data_ptr(), s, first.data_ptr(), last.data_ptr(), m_fl, n, radius,
+        acc.data_ptr(), short.data_ptr(), t4.data_ptr(), kernels.stream_of(cols),
     )
     kernels.check("tbvh_refit_dense", err)
     launches += 1

@@ -11,9 +11,11 @@ sorted codes, and the kernels off the main path on sponza's deltas
 (`plane_scan` min forward on the [m, 64] threshold plane,
 `child_positions_auto`, the two `scan32` halves), and the kernels whose
 CUDA-event times in chip_smoke.py are set by the host's launch path, each
-alone at the main path's shapes: one PLOC round (B6 `ploc_round_pp` and B8
-`ploc_round_fused` on PLOC's first-round state, B10 `ploc_nn_round_raw`
-and B9 `ploc_emit_compact` on it), B12 `psv_nsv_packed` and B14
+alone at the main path's shapes: B2 `refit_dense` on sponza's `mat`
+(radius 24), B3 `collapse_block` on sponza's rows, one PLOC round (B6
+`ploc_round_pp` and B8 `ploc_round_fused` on PLOC's first-round state,
+B10 `ploc_nn_round_raw` and B9 `ploc_emit_compact` on it), B12
+`psv_nsv_packed` and B14
 `psv_nsv_payload_auto` on sponza's deltas, B5 `ray_sweep_kernel` on
 the shadow rays (occlusion), B4 `raster_sweep` at both render sizes and
 B7 `ploc_finish` on the HPLOC hand-over states at FIN_WIDTH and at 4096:
@@ -45,8 +47,8 @@ import time
 import torch
 
 from .models import lbvh, ploc
-from .ops import (collapse_fast, plane_scan, ploc_nn, ploc_round, radix_tree, raster, raster_gpu,
-                  ray_sweep, scan32, threshold_core)
+from .ops import (collapse_block, collapse_fast, plane_scan, ploc_nn, ploc_round, radix_tree,
+                  raster, raster_gpu, ray_sweep, refit, refit_dense, scan32, threshold_core)
 from .ops import ploc as ploc_ops
 from .types import PLOC_RADIUS
 from .utils import camera, scenes
@@ -154,6 +156,11 @@ def main():
     calls["apetrei_topology_fast"] = lambda: radix_tree.apetrei_topology_fast(codes)
     calls["karras_topology_fast"] = lambda: radix_tree.karras_topology_fast(codes)
     dlt_raw = radix_tree.adjacent_deltas(codes)
+    # B2 on sponza's `mat` (radius 24) and B3 on sponza's rows, alone
+    mat = refit_dense.cols_mat(lbvh._sorted_leaves_from_tris(tris, True)[1], aux[2], aux[3])
+    calls["refit_dense"] = lambda: refit_dense.refit_dense(mat, mat.shape[1], refit.RADIUS)
+    c_rows = collapse_fast.kernel_inputs(*aux)
+    calls["collapse_block"] = lambda: collapse_block.collapse_block(*c_rows, aux[0].n_internal)
     dlt = scan32.remap_deltas(dlt_raw)
     below = dlt[:, None] < torch.arange(threshold_core.V, device=dev)[None, :]
     packed_keys = torch.arange(dlt.shape[0], dtype=torch.int32, device=dev) * 64 + dlt

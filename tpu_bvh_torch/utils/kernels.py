@@ -33,10 +33,10 @@ _I = ctypes.c_int
 # C signatures: every pointer and the stream as c_void_p, sizes as c_int.
 _SIGNATURES = {
     "tbvh_scan32": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "tbvh_refit_dense": [_P, _I, _I, _I, _P, _P, _P, _P],
+    "tbvh_refit_dense": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "tbvh_raster_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "tbvh_collapse_block": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "tbvh_collapse_block": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "tbvh_ray_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "tbvh_ploc_round": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P],
