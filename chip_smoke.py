@@ -36,7 +36,10 @@ rays), the PLOC++ and HPLOC builds, and the gather-free topologies
    deltas and on 262,144 random deltas in [0, 53) (values repeat), the
    plane scan (B11) on sponza's [m, 64] threshold plane, min and max,
    forward and reverse, and the two V=32 scan halves (B16) on sponza's
-   and dup's deltas, forward and flipped, also against B1's outputs;
+   and dup's deltas, forward and flipped, also against B1's outputs; B1
+   on the deltas of 2^22 sorted random codes and B12/B13, B14 on 2^23
+   random deltas in [0, 63], where each block walks many tiles (printing
+   the grid the occupancy query gave);
 4. runs the main path path by path (build, topology, collapse, render,
    shadow, ploc), every launch counter set to 0 just before each and read
    just after, and checks: every kernel of each path launched (on the
@@ -66,7 +69,10 @@ rays), the PLOC++ and HPLOC builds, and the gather-free topologies
    inputs (B11 also beside `torch.cummin`), and B4 at both sizes with its
    split's counters;
 6. checks, from one torch.profiler trace each, that the dense refit (both
-   entries) and the collapse kernel launch one kernel a call.
+   entries), the collapse kernel, the topology scan (B1) and the psv/nsv
+   scans (B12/B13, B14) launch one kernel a call, the last three with no
+   memset, and prints the grid of B1's and B12's launch on sponza and
+   B12's SM cycles per phase (its clock64 stamps).
 
 Any failure raises. The last three lines are the kernels JSON line, the
 nvidia-smi line and {"ok": true, "device": {...}}. Needs one CUDA device
@@ -290,11 +296,13 @@ def signed_zero_soup(np, n=SIGNED_ZERO_TRIS, seed=0):
 
 
 def kernels_per_call(torch, fn):
-    """CUDA kernels in one torch.profiler trace of one call of `fn` (after
-    a warm-up call): the kernel events of its Chrome trace."""
+    """CUDA kernels and memsets in one torch.profiler trace of one call of
+    `fn` (after a warm-up call): the names of its Chrome trace's kernel
+    events, and the count of its memset events."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
@@ -302,7 +310,9 @@ def kernels_per_call(torch, fn):
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    return [e["name"] for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    events = [e for e in events if e.get("ph") == "X"]
+    return ([e["name"] for e in events if e.get("cat") == "kernel"],
+            sum(e.get("cat") == "gpu_memset" for e in events))
 
 
 def main():
@@ -464,6 +474,26 @@ def main():
 
     draws = torch.from_numpy(rng.integers(0, 53, 262_144).astype(np.int32)).to(dev)
     check_threshold(draws, "262,144 random deltas in [0, 53)")
+    # B1 and B12/B13, B14 where a block walks many tiles: B1 at its largest
+    # m (the deltas of 2^22 sorted random codes), the psv/nsv scans on 2^23
+    # random deltas in [0, 63]
+    big_raw = radix_tree.adjacent_deltas(
+        torch.from_numpy(np.sort(rng.integers(0, 1 << 30, 1 << 22))).to(dev))
+    big_d = torch.from_numpy(rng.integers(0, 64, 1 << 23).astype(np.int32)).to(dev)
+    big_pay = torch.from_numpy(rng.integers(0, 1 << 22, 1 << 23).astype(np.int32)).to(dev)
+    for name, x, topo_grid in (("scan32", big_raw, True), ("psv_nsv_packed", big_d, False)):
+        grid = threshold_core.launch_grid(x.shape[0], dev, topology=topo_grid)
+        print(f"  {name} at m={x.shape[0]}: grid {grid}", flush=True)
+        require(grid["tiles_a_block"] > 1, f"{name} at m={x.shape[0]}: a block walks many tiles")
+    same_outputs(scan32.scan_core(big_raw), scan32.scan_core_reference(big_raw), "scan32",
+                 f"the deltas of 2^22 sorted random codes, m={big_raw.shape[0]}")
+    for name, kfn, pfn, a in (
+            ("psv_nsv_packed", threshold_core.psv_nsv_packed,
+             threshold_core.psv_nsv_packed_reference, (big_d,)),
+            ("psv_nsv_payload", threshold_core.psv_nsv_payload_auto,
+             threshold_core.psv_nsv_payload_reference, (big_d, big_pay))):
+        same_outputs(kfn(*a), pfn(*a), name, "2^23 random deltas in [0, 63]")
+    del big_raw, big_d, big_pay
 
     tris = torch.from_numpy(sponza).to(dev)
     tr, cam = scenes.preset("sponza", dev)
@@ -1035,15 +1065,28 @@ def main():
               f"{k_ms!r} ms; last timed call: "
               f"{finish_info(ploc_round.last_finish_stats, sm_mhz)}", flush=True)
 
-    # one kernel a call: B2 and B3 from a profiler trace each (after the
-    # timings: a profiler session can slow the host's later launches)
-    for name, fn in (
+    # one kernel a call: B2, B3, B1, B12/B13 and B14 from a profiler trace
+    # each (after the timings: a profiler session can slow the host's later
+    # launches); B1, B12/B13 and B14 also with no memset
+    for name, fn, no_memset in (
             ("refit_dense (column entry)",
-             lambda: refit_dense.refit_dense_cols(r_pt, r_first, r_last, n, refit.RADIUS)),
-            ("refit_dense (mat entry)", lambda: refit_dense.refit_dense(mat, n, refit.RADIUS)),
-            ("collapse_block", lambda: collapse_block.collapse_block(*rows, m_c))):
-        names = kernels_per_call(torch, fn)
-        require(len(names) == 1, f"{name}: one kernel a call in a torch.profiler trace {names}")
+             lambda: refit_dense.refit_dense_cols(r_pt, r_first, r_last, n, refit.RADIUS), False),
+            ("refit_dense (mat entry)", lambda: refit_dense.refit_dense(mat, n, refit.RADIUS),
+             False),
+            ("collapse_block", lambda: collapse_block.collapse_block(*rows, m_c), False),
+            ("scan32", lambda: scan32.scan_core(inputs["scan"]), True),
+            ("psv_nsv_packed", lambda: threshold_core.psv_nsv_packed(t_dlt), True),
+            ("psv_nsv_payload", lambda: threshold_core.psv_nsv_payload_auto(t_dlt, t_pay), True)):
+        names, memsets = kernels_per_call(torch, fn)
+        require(len(names) == 1 and (memsets == 0 or not no_memset),
+                f"{name}: one kernel a call in a torch.profiler trace {names}"
+                + (f", no memset ({memsets})" if no_memset else ""))
+    for name, topo_grid in (("scan32", True), ("psv_nsv_packed", False)):
+        print(f"  {name} on sponza's deltas (m={m_t}): grid "
+              f"{threshold_core.launch_grid(m_t, dev, topology=topo_grid)}", flush=True)
+    cyc = [threshold_core.psv_nsv_phase_cycles(t_dlt) for _ in range(5)][-1]
+    print(f"  psv_nsv_packed phase clocks, 5th call (SM cycles, median and most over the "
+          f"blocks; at most {sm_mhz} MHz): {cyc}", flush=True)
 
     print(f"  done at {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows_json}), flush=True)

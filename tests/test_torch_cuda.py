@@ -6,6 +6,10 @@ are installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
+import json
+import os
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -49,6 +53,30 @@ def test_scan_kernel_matches_plain(cuda, kind, n):
     got = scan32.scan_core(dlt_raw)
     torch.cuda.synchronize()
     assert scan32.launches == before + 1
+    for g, w in zip(got, scan32.scan_core_reference(dlt_raw)):
+        assert torch.equal(g, w)
+
+
+TILE_EDGES = [1, 2, 31, 32, 33, 1023, 1024, 1025]  # rows around a warp and a tile
+
+
+@pytest.mark.parametrize("kind", ["random", "dups", "all_equal", "sorted_line"])
+@pytest.mark.parametrize("m", TILE_EDGES)
+def test_scan_kernel_matches_plain_at_tile_edges(cuda, kind, m):
+    """B1 (one launch of the psv/nsv scan with its child epilogue) at row
+    counts around a warp and a tile."""
+    dlt_raw = radix_tree.adjacent_deltas(_codes(kind, m + 1, seed=m).to(cuda))
+    got = scan32.scan_core(dlt_raw)
+    for g, w in zip(got, scan32.scan_core_reference(dlt_raw)):
+        assert torch.equal(g, w)
+
+
+def test_scan_kernel_past_one_resident_wave(cuda):
+    """B1 at its largest size, 2^22 - 1 boundaries: many tiles a block."""
+    m = (1 << 22) - 1
+    assert threshold_core.launch_grid(m, cuda, topology=True)["tiles_a_block"] > 1
+    dlt_raw = radix_tree.adjacent_deltas(_codes("random", m + 1, seed=3).to(cuda))
+    got = scan32.scan_core(dlt_raw)
     for g, w in zip(got, scan32.scan_core_reference(dlt_raw)):
         assert torch.equal(g, w)
 
@@ -623,6 +651,76 @@ def test_threshold_kernels_match_plain(cuda, kind, m):
     for gs, ws in zip(got, want):
         for g, w in zip(gs, ws):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kind", ["draws", "zeros", "random", "dups"])
+@pytest.mark.parametrize("m", TILE_EDGES)
+def test_psv_nsv_kernels_match_plain_at_tile_edges(cuda, kind, m):
+    """B12/B13 and B14 at row counts around a warp and a tile."""
+    dlt = _deltas(kind, m, cuda)
+    pay = torch.from_numpy(np.random.default_rng(m).integers(0, 2**22, m).astype(np.int32))
+    pay = pay.to(cuda)
+    for g, w in zip(threshold_core.psv_nsv_packed(dlt), threshold_core.psv_nsv_packed_reference(dlt)):
+        assert torch.equal(g, w)
+    got = threshold_core.psv_nsv_payload_auto(dlt, pay)
+    for g, w in zip(got, threshold_core.psv_nsv_payload_reference(dlt, pay)):
+        assert torch.equal(g, w)
+
+
+def test_psv_nsv_kernels_past_one_resident_wave(cuda):
+    """B12/B13 and B14 on 2^23 draws in [0, 63]: many tiles a block."""
+    m = 1 << 23
+    assert threshold_core.launch_grid(m, cuda)["tiles_a_block"] > 1
+    rng = np.random.default_rng(23)
+    dlt = torch.from_numpy(rng.integers(0, 64, m).astype(np.int32)).to(cuda)
+    pay = torch.from_numpy(rng.integers(0, 2**22, m).astype(np.int32)).to(cuda)
+    for g, w in zip(threshold_core.psv_nsv_packed(dlt), threshold_core.psv_nsv_packed_reference(dlt)):
+        assert torch.equal(g, w)
+    got = threshold_core.psv_nsv_payload_auto(dlt, pay)
+    for g, w in zip(got, threshold_core.psv_nsv_payload_reference(dlt, pay)):
+        assert torch.equal(g, w)
+
+
+def test_topology_and_psv_scans_are_one_launch_each(cuda):
+    """B1, B12/B13 and B14 are one CUDA kernel a call, with no memset: one
+    torch.profiler trace of one call each, a synchronize between them (one
+    trace for all three: a later trace in the same process can come back
+    empty)."""
+    dlt_raw = radix_tree.adjacent_deltas(_codes("random", 262_145).to(cuda))
+    dlt = scan32.remap_deltas(dlt_raw)
+    calls = (lambda: scan32.scan_core(dlt_raw), lambda: threshold_core.psv_nsv_packed(dlt),
+             lambda: threshold_core.psv_nsv_payload_auto(dlt, dlt))
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for fn in calls:
+            fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    names = [e["name"] for e in sorted(events, key=lambda e: e["ts"]) if e.get("cat") == "kernel"]
+    assert sum(e.get("cat") == "gpu_memset" for e in events) == 0
+    assert len(names) == 3, names
+    assert "Topology" in names[0] and all("PsvNsv" in nm for nm in names[1:]), names
+
+
+def test_psv_nsv_phase_clocks(cuda):
+    """The phase clocks of B12's launch: every phase of every block took
+    cycles, and the call with clocks gives the same answers."""
+    dlt = _deltas("random", 262_144, cuda)
+    cyc = threshold_core.psv_nsv_phase_cycles(dlt)
+    assert set(cyc) == {"phase1", "sync", "phase2", "phase3", "total"}
+    assert all(med > 0 and most >= med for med, most in (cyc[k] for k in cyc if k != "total"))
+    want = threshold_core.psv_nsv_packed_reference(dlt)
+    clk = torch.zeros((threshold_core.launch_grid(dlt.shape[0], cuda)["blocks"], 5),
+                      dtype=torch.int64, device=cuda)
+    for g, w in zip(threshold_core._threshold_cuda(dlt, None, clk), want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("which", ["psv_nsv", "payload", "child"])

@@ -6,7 +6,8 @@ import re
 
 import pytest
 
-from tpu_bvh_torch.ops import collapse_block, ploc_round, raster_gpu, ray_sweep, refit_dense
+from tpu_bvh_torch.ops import (collapse_block, ploc_round, raster_gpu, ray_sweep, refit_dense,
+                               threshold_core)
 from tpu_bvh_torch.utils import kernels
 
 
@@ -30,6 +31,8 @@ def _constexpr(source: str, name: str) -> int:
     ("collapse_block.cu", "kSLen", lambda: collapse_block.S_LEN),
     ("collapse_block.cu", "kErrChain", lambda: collapse_block.ERR_CHAIN),
     ("collapse_block.cu", "kErrWindow", lambda: collapse_block.ERR_WINDOW),
+    ("psv_scan.cuh", "kTile", lambda: threshold_core.TILE),
+    ("psv_scan.cuh", "kV", lambda: threshold_core.V),
 ])
 def test_python_mirror_equals_source(source, name, mirror):
     assert mirror() == _constexpr(source, name)

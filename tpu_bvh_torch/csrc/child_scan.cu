@@ -53,9 +53,9 @@ extern "C" int tbvh_child_positions(const int* dlt, int m, int* agg, int* scratc
   if (err != cudaSuccess) return (int)err;
   err = cudaMemsetAsync(right, 0xFF, (size_t)m * sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;
-  err = thr::run<false>(dlt, m, agg, nullptr, ns, nullptr, nullptr, nullptr, stream);
+  err = thr::run<false>(dlt, m, agg, nullptr, ns, stream);
   if (err != cudaSuccess) return (int)err;
-  err = thr::run<true>(dlt, m, agg, pl, nl, nullptr, nullptr, nullptr, stream);
+  err = thr::run<true>(dlt, m, agg, pl, nl, stream);
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;
   child_scatter<<<(m + threads - 1) / threads, threads, 0, stream>>>(ns, pl, nl, m, left, right);

@@ -1,5 +1,5 @@
-// The three-phase threshold scan shared by threshold_scan.cu (B12/B13,
-// B14) and child_scan.cu (B15).
+// The three-phase threshold scan of child_scan.cu (B15). B12-B14 and B1
+// run the one-launch strict scan of psv_scan.cuh instead.
 //
 // Input: deltas d i32[m] with values in [0, 63]. For every row i and the
 // query lane q = d[i] it finds
@@ -30,8 +30,6 @@
 #include <climits>
 #include <cuda_runtime.h>
 
-// Internal linkage: two sources include this header, and each needs its
-// own copy of the kernels (a __global__ has a host stub).
 namespace thr {
 namespace {
 
@@ -141,15 +139,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// psv may be null (not written). With a payload, psv_pay[i] = pay[psv >> 6]
-// and nsv_pay[i] = pay[nsv >> 6], -1 where there is no answer: one 4-byte
-// gather per row where the TPU rode the payload through its scan.
+// psv may be null (not written)
 template <bool kLe>
 __global__ void __launch_bounds__(kThreads)
     thr_apply(const int* __restrict__ d, int m, const int* __restrict__ carryP,
-              const int* __restrict__ carryN, int* __restrict__ psv, int* __restrict__ nsv,
-              const int* __restrict__ pay, int* __restrict__ psv_pay,
-              int* __restrict__ nsv_pay) {
+              const int* __restrict__ carryN, int* __restrict__ psv, int* __restrict__ nsv) {
   __shared__ int P[kWarps][kV], N[kWarps][kV];
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -190,16 +184,11 @@ __global__ void __launch_bounds__(kThreads)
   const int n = after ? 64 * (base + ja) + da : N[warp][q];
   if (psv) psv[i] = p;
   nsv[i] = n;
-  if (pay) {
-    psv_pay[i] = p >= 0 ? pay[p >> 6] : -1;
-    nsv_pay[i] = n != kBig ? pay[n >> 6] : -1;
-  }
 }
 
 // The three launches on `stream`; agg holds 2 * ceil(m / 1024) * 64 ints.
 template <bool kLe>
-inline cudaError_t run(const int* d, int m, int* agg, int* psv, int* nsv, const int* pay,
-                       int* psv_pay, int* nsv_pay, cudaStream_t stream) {
+inline cudaError_t run(const int* d, int m, int* agg, int* psv, int* nsv, cudaStream_t stream) {
   const int nb = (m + kThreads - 1) / kThreads;
   int* aggP = agg;
   int* aggN = agg + (size_t)nb * kV;
@@ -209,8 +198,7 @@ inline cudaError_t run(const int* d, int m, int* agg, int* psv, int* nsv, const 
   thr_carry<<<1, kThreads, 0, stream>>>(aggP, aggN, nb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  thr_apply<kLe><<<nb, kThreads, 0, stream>>>(d, m, aggP, aggN, psv, nsv, pay, psv_pay,
-                                              nsv_pay);
+  thr_apply<kLe><<<nb, kThreads, 0, stream>>>(d, m, aggP, aggN, psv, nsv);
   return cudaGetLastError();
 }
 

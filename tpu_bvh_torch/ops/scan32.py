@@ -7,15 +7,17 @@ return (psv_pos, psv_val, lc, nsv_pos, nsv_val, rc), each i32[m], values
 on the order-preserving [0, 52] scale, sentinels psv_pos -1, nsv_pos m,
 values -1, children -1 (= leaf).
 
-A CUDA tensor launches `csrc/scan32.cu` (a bottom-up Apetrei climb); a
-CPU tensor takes `scan_core_reference`, the vectorised threshold scans.
+A CUDA tensor launches `csrc/scan32.cu`: one launch of the strict psv/nsv
+scan of `csrc/psv_scan.cuh` whose epilogue splits the packed keys and
+scatters the children by the Apetrei climb's rule. A CPU tensor takes
+`scan_core_reference`, the vectorised threshold scans.
 
 `scan_fwd` and `scan_rev` are the two halves of the TPU's V=32 form
 (`scan32._run` with `_fwd_kernel` / `_rev_kernel`): from the V=32 deltas
 of sorted codes (distinct codes raw - 2, every tie on lane 30) the first
 three outputs, and from their flip the last three in flipped order. On the
 card each rebuilds the raw deltas (a tie at position j is the ruler value
-32 + clz(j ^ (j + 1))) and runs the same climb.
+32 + clz(j ^ (j + 1))) and runs a bottom-up Apetrei climb.
 """
 from __future__ import annotations
 
@@ -77,10 +79,10 @@ def _scan_core_cuda(dlt_raw):
     if not 1 <= m < (1 << 22):
         raise ValueError(f"scan_core needs 1 <= m < 2^22, got {m}")
     outs = [torch.empty(m, dtype=torch.int32, device=dlt_raw.device) for _ in range(6)]
-    other = torch.empty(m, dtype=torch.int32, device=dlt_raw.device)  # scratch
+    agg = threshold_core.scan_scratch(m, dlt_raw.device)
     psv_pos, psv_val, lc, nsv_pos, nsv_val, rc = outs
     err = kernels.lib().tbvh_scan32(
-        dlt_raw.data_ptr(), m, other.data_ptr(),
+        dlt_raw.data_ptr(), m, agg.data_ptr(),
         psv_pos.data_ptr(), psv_val.data_ptr(), lc.data_ptr(),
         nsv_pos.data_ptr(), nsv_val.data_ptr(), rc.data_ptr(),
         kernels.stream_of(dlt_raw),

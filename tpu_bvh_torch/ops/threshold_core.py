@@ -16,13 +16,16 @@ The contract of `tpu_bvh.ops.pallas.threshold_core`:
   since the last row with d_j <= v, exclusive of k (left), and its mirror
   (right); -1 where that window is empty.
 
-A CUDA tensor launches `csrc/threshold_scan.cu` (the first two) or
-`csrc/child_scan.cu`; a CPU tensor takes the `*_reference` forms, which
+A CUDA tensor launches `csrc/threshold_scan.cu` (the first two: one
+cooperative launch of `csrc/psv_scan.cuh`) or `csrc/child_scan.cu`; a CPU
+tensor takes the `*_reference` forms, which
 build the 64-lane threshold planes. `lax.associative_scan` has no PyTorch
 counterpart, so the plain child positions run the same segmented combine
 as a Hillis-Steele doubling loop, which is exact (min and or).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -34,6 +37,7 @@ BIG = 2**31 - 1
 _POSB = 22  # pos bits in the packed (dlt << 22 | pos) key; needs m < 2^22
 MAX_M = 1 << 25  # 64 * pos + dlt must fit an i32
 MAX_M_CHILD = 1 << _POSB
+TILE = 1024  # rows per tile of csrc/psv_scan.cuh (kTile)
 launches = 0  # psv/nsv kernel launches (B12/B13) since the last reset
 payload_launches = 0  # payload kernel launches (B14)
 child_launches = 0  # child-position kernel launches (B15)
@@ -103,20 +107,55 @@ def psv_nsv_payload_reference(dlt, pay):
     return psv, pp, nsv, np_
 
 
-def _threshold_cuda(dlt, pay):
+def scan_scratch(m: int, device):
+    """The tile totals, block totals and block masks of one
+    `csrc/psv_scan.cuh` launch over m rows (B1, B12/B13, B14); no value
+    needs clearing."""
+    nt = -(-m // TILE)
+    return torch.empty((4 * V + 32) * nt, dtype=torch.int32, device=device)
+
+
+def launch_grid(m: int, device, topology: bool = False) -> dict:
+    """The grid a `psv_scan.cuh` launch over m rows takes on `device`'s
+    card (psv/nsv, or B1's with `topology`): blocks, most tiles a block,
+    resident blocks an SM (the occupancy query) and SMs."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        fn = kernels.lib().tbvh_scan32_grid if topology else kernels.lib().tbvh_psv_nsv_grid
+        kernels.check("the grid query", fn(m, out))
+    return dict(zip(("blocks", "tiles_a_block", "blocks_an_sm", "sms"), out))
+
+
+def psv_nsv_phase_cycles(dlt) -> dict:
+    """One B12 launch on the CUDA tensor `dlt` with its phase clocks on:
+    per phase (phase 1, the grid sync, phase 2, phase 3; `csrc/psv_scan.cuh`)
+    the median and the largest of the blocks' SM clock cycles, and the
+    median of their totals."""
+    g = launch_grid(dlt.shape[0], dlt.device)
+    clk = torch.zeros((g["blocks"], 5), dtype=torch.int64, device=dlt.device)
+    _threshold_cuda(dlt, None, clk)
+    d = torch.diff(clk.cpu(), dim=1)
+    out = {}
+    for k, name in enumerate(("phase1", "sync", "phase2", "phase3")):
+        out[name] = (d[:, k].median().item(), d[:, k].max().item())
+    out["total"] = d.sum(1).median().item()
+    return out
+
+
+def _threshold_cuda(dlt, pay, clk=None):
     global launches, payload_launches
     m = dlt.shape[0]
     kernels.require(dlt, "dlt", torch.int32, (m,))
     if m < 1:
         raise ValueError("the threshold scan needs m >= 1")
     dev = dlt.device
-    nb = (m + 1023) // 1024  # rows per block of csrc/threshold_scan.cu
-    agg = torch.empty(2 * nb * V, dtype=torch.int32, device=dev)
+    agg = scan_scratch(m, dev)
     psv = torch.empty(m, dtype=torch.int32, device=dev)
     nsv = torch.empty(m, dtype=torch.int32, device=dev)
     if pay is None:
         err = kernels.lib().tbvh_psv_nsv(dlt.data_ptr(), m, agg.data_ptr(), psv.data_ptr(),
-                                         nsv.data_ptr(), kernels.stream_of(dlt))
+                                         nsv.data_ptr(), 0 if clk is None else clk.data_ptr(),
+                                         kernels.stream_of(dlt))
         kernels.check("tbvh_psv_nsv", err)
         launches += 1
         return psv, nsv

@@ -11,7 +11,8 @@ sorted codes, and the kernels off the main path on sponza's deltas
 (`plane_scan` min forward on the [m, 64] threshold plane,
 `child_positions_auto`, the two `scan32` halves), and the kernels whose
 CUDA-event times in chip_smoke.py are set by the host's launch path, each
-alone at the main path's shapes: B2 `refit_dense` on sponza's `mat`
+alone at the main path's shapes: B1 `scan32` (`scan_core`) on sponza's raw
+deltas, B2 `refit_dense` on sponza's `mat`
 (radius 24), B3 `collapse_block` on sponza's rows, one PLOC round (B6
 `ploc_round_pp` and B8 `ploc_round_fused` on PLOC's first-round state,
 B10 `ploc_nn_round_raw` and B9 `ploc_emit_compact` on it), B12
@@ -27,7 +28,7 @@ From each Chrome trace it reads:
   per call;
 * busy share: device busy over the wall time per call under the profiler
   (the profiler slows the host, so this share is an upper bound);
-* kernels per call, and the kernels with the most device time.
+* kernels and memsets per call, and the kernels with the most device time.
 
 Usage: python3 -m tpu_bvh_torch.profile_slice [--reps 10] [--out DIR] [--calls NAME ...]
 The traces are written to DIR (default: a temporary directory); the last
@@ -111,6 +112,7 @@ def profile(name, fn, reps, out_dir, top=8):
         "device_busy_ms": busy_ms,
         "busy_share_profiled": busy_ms / wall_ms,
         "kernels_per_call": sum(e["cat"] == "kernel" for e in events) / reps,
+        "memsets_per_call": sum(e["cat"] == "gpu_memset" for e in events) / reps,
         "top_kernels_us_per_call": [(k, us / reps) for k, us in by_name.most_common(top)],
         "trace": path,
     }
@@ -156,6 +158,7 @@ def main():
     calls["apetrei_topology_fast"] = lambda: radix_tree.apetrei_topology_fast(codes)
     calls["karras_topology_fast"] = lambda: radix_tree.karras_topology_fast(codes)
     dlt_raw = radix_tree.adjacent_deltas(codes)
+    calls["scan32"] = lambda: scan32.scan_core(dlt_raw)
     # B2 on sponza's `mat` (radius 24) and B3 on sponza's rows, alone
     mat = refit_dense.cols_mat(lbvh._sorted_leaves_from_tris(tris, True)[1], aux[2], aux[3])
     calls["refit_dense"] = lambda: refit_dense.refit_dense(mat, mat.shape[1], refit.RADIUS)
@@ -215,7 +218,7 @@ def main():
         print(f"{name}: host {row['host_ms']!r} ms | under profiler: wall "
               f"{row['wall_ms_profiled']!r} ms, device busy {row['device_busy_ms']!r} ms, "
               f"busy share {row['busy_share_profiled']!r}, kernels/call "
-              f"{row['kernels_per_call']!r}", flush=True)
+              f"{row['kernels_per_call']!r}, memsets/call {row['memsets_per_call']!r}", flush=True)
         for k, us in row["top_kernels_us_per_call"]:
             print(f"    {us:10.3f} us  {k}", flush=True)
     print(json.dumps({"card": smi, "calls": rows}), flush=True)

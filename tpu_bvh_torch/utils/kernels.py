@@ -46,8 +46,10 @@ _SIGNATURES = {
     "tbvh_ploc_finish_clusters": [_P],
     "tbvh_scan32_fwd": [_P, _I, _P, _P, _P, _P, _P],
     "tbvh_scan32_rev": [_P, _I, _P, _P, _P, _P, _P],
-    "tbvh_psv_nsv": [_P, _I, _P, _P, _P, _P],
+    "tbvh_psv_nsv": [_P, _I, _P, _P, _P, _P, _P],
     "tbvh_psv_nsv_payload": [_P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "tbvh_psv_nsv_grid": [_I, _P],
+    "tbvh_scan32_grid": [_I, _P],
     "tbvh_child_positions": [_P, _I, _P, _P, _P, _P, _P],
     "tbvh_plane_scan": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
 }
