@@ -7,7 +7,9 @@ single-pass and two-pass LBVH builds, the fast BVH2 -> BVH4 collapse,
 path (reversed point-light occlusion of the 1080p primary hits, and the
 general closest-hit trace on a 64K strided slice of the forward shadow
 rays), the PLOC++ and HPLOC builds, and the gather-free topologies
-(`apetrei_topology_fast`, `karras_topology_fast`). On the way it
+(`apetrei_topology_fast`, `karras_topology_fast`); and the batched builder
+on the reference's demo (`pad_meshes` and `build_batched` on 4096 copies of
+the cornellbox, one tree each). On the way it
 
 1. prints the card (name and power limit from nvidia-smi) and versions;
 2. builds the CUDA kernels from `tpu_bvh_torch/csrc/` (one nvcc per
@@ -39,9 +41,13 @@ rays), the PLOC++ and HPLOC builds, and the gather-free topologies
    and dup's deltas, forward and flipped, also against B1's outputs; B1
    on the deltas of 2^22 sorted random codes and B12/B13, B14 on 2^23
    random deltas in [0, 63], where each block walks many tiles (printing
-   the grid the occupancy query gave);
+   the grid the occupancy query gave); the batched build (one warp a mesh)
+   on the demo, on 65,536 random meshes of 2-32 prims at capacity 32, on
+   4096 of 2-64 at capacity 64 and on the +-0 soup in meshes of 32, with
+   every tree of each checked valid, and its refusal of capacity 65 before
+   a launch;
 4. runs the main path path by path (build, topology, collapse, render,
-   shadow, ploc), every launch counter set to 0 just before each and read
+   shadow, ploc, batched), every launch counter set to 0 just before each and read
    just after, and checks: every kernel of each path launched (on the
    ploc path one fused-round launch per round and none of B9's or B10's,
    host syncs = rounds + 1 per build); the fast
@@ -59,7 +65,8 @@ rays), the PLOC++ and HPLOC builds, and the gather-free topologies
    collapse; on the +-0 soup the four GPU Bvh2s and the Bvh4 equal the
    CPU ones bit for bit; no raster or shadow overflow; the reversed
    occlusion mask equals the forward trace's capped answer outside the
-   boundary strips; the 512^2 image is written as a PNG;
+   boundary strips; the 512^2 image is written as a PNG; the batched demo's
+   trees equal the port's CPU build, are all valid and all the same;
 5. times the builds, the fast topologies, the collapse, the renders,
    `shadow_occlusion` and `trace_rays` (medians after warm-up, on CUDA events and on the host
    clock; PLOC and HPLOC in 10 alternating pairs, with the gap per
@@ -67,14 +74,17 @@ rays), the PLOC++ and HPLOC builds, and the gather-free topologies
    PLOC build's rounds, finisher launches and host syncs, and times each
    kernel beside its plain version and computes its bound from this run's
    inputs (B11 also beside `torch.cummin`), and B4 at both sizes with its
-   split's counters;
+   split's counters; the batched kernel (events) and `build_batched` (host
+   clock, meshes/s) on its four inputs, each with its bound and the share
+   reached;
 6. checks, from one torch.profiler trace each, that the dense refit (both
-   entries), the collapse kernel, the topology scan (B1) and the psv/nsv
-   scans (B12/B13, B14) launch one kernel a call, the last three with no
-   memset, and prints the grid of B1's and B12's launch on sponza and
+   entries), the collapse kernel, the topology scan (B1), the psv/nsv
+   scans (B12/B13, B14) and `build_batched` launch one kernel a call, the
+   last four with no memset, and prints the grid of B1's and B12's launch on sponza and
    B12's SM cycles per phase (its clock64 stamps).
 
-Any failure raises. The last three lines are the kernels JSON line, the
+Any failure raises. The last three lines are the kernels JSON line (B1 to
+B16, then the batched build, which replaces no TPU kernel), the
 nvidia-smi line and {"ok": true, "device": {...}}. Needs one CUDA device
 and nvcc; it imports no JAX.
 
@@ -140,7 +150,12 @@ KERNELS = {  # name: (TPU kernel, source, the TPU kernel it replaces), B1 to B16
     "psv_nsv_payload": ("B14", THR_SOURCE, f"{THR_TPU}:482"),
     "child_positions": ("B15", "tpu_bvh_torch/csrc/child_scan.cu", f"{THR_TPU}:673"),
     "scan32_halves": ("B16", "tpu_bvh_torch/csrc/scan32.cu", "tpu_bvh/ops/pallas/scan32.py:260"),
+    # no TPU kernel: JAX's dense batched build is XLA ops, not a pl.pallas_call
+    "batched_build": (None, "tpu_bvh_torch/csrc/batched_build.cu", "tpu_bvh/models/batched.py:64"),
 }
+BATCHED_DEMO = 4096  # the reference's batched demo: copies of the cornellbox (main.cpp:39-47)
+BATCHED_RANDOM = 65_536  # random meshes of 2-32 prims at capacity 32
+BATCHED_WIDE = 4096  # random meshes of 2-64 prims at capacity 64
 
 
 def parse_args():
@@ -295,6 +310,42 @@ def signed_zero_soup(np, n=SIGNED_ZERO_TRIS, seed=0):
     return np.where(rng.random((n, 3, 3)) < 0.5, coords, draws).astype(f32)
 
 
+def batched_bytes(tris_b):
+    """What the batched build must move: 36 B a prim read; per mesh 32 B a
+    node (6 box rows, left, right) and 4 B of root written."""
+    B, M = tris_b.shape[:2]
+    return B * M * 36 + B * (32 * (2 * M - 1) + 4)
+
+
+def batched_valid(torch, trees, M):
+    """Every tree of a batch-stacked Bvh2 of M leaves, checked on the card:
+    its leaves hold a permutation of the prims; a walk from the root meets
+    every node once and ends (no cycle, nothing unreached); the root box
+    equals the min of the leaf boxes, bit for bit; every internal box equals
+    the min of its children's (values)."""
+    from tpu_bvh_torch.ops.aabb import from_min_key, min_key
+
+    B, W = trees.left.shape
+    m = M - 1
+    ar = torch.arange(M, device=trees.left.device)
+    perm = bool(torch.equal(trees.left[:, m:].sort(dim=1).values, ar.expand(B, M).to(torch.int32)))
+    visits = torch.zeros((B, W), dtype=torch.int32, device=trees.left.device)
+    front = torch.zeros_like(visits).scatter_(1, trees.root[:, None].long(), 1)
+    kids = torch.cat([trees.left[:, :m], trees.right[:, :m]], dim=1).long()
+    for _ in range(M):
+        visits += front
+        front = torch.zeros_like(visits).scatter_add_(1, kids, front[:, :m].repeat(1, 2))
+    walk = bool((visits == 1).all()) and not bool(front.any())
+    box = trees.packed_t
+    leaf_min = from_min_key(min_key(box[:, :, m:]).amin(dim=2))
+    root_box = box.gather(2, trees.root[:, None, None].long().expand(B, 6, 1))[:, :, 0]
+    root_ok = bool(torch.equal(leaf_min.view(torch.int32), root_box.view(torch.int32)))
+    kid_box = torch.minimum(box.gather(2, trees.left[:, None, :m].long().expand(B, 6, m)),
+                            box.gather(2, trees.right[:, None, :m].long().expand(B, 6, m)))
+    nest = bool(torch.equal(kid_box, box[:, :, :m]))
+    return perm and walk and root_ok and nest
+
+
 def kernels_per_call(torch, fn):
     """CUDA kernels and memsets in one torch.profiler trace of one call of
     `fn` (after a warm-up call): the names of its Chrome trace's kernel
@@ -324,13 +375,13 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from tpu_bvh_torch.models import lbvh, ploc
-    from tpu_bvh_torch.ops import (collapse, collapse_block, collapse_fast, plane_scan, ploc_nn,
-                                   ploc_round, radix_tree, raster, raster_gpu, ray_sweep, refit,
-                                   refit_dense, scan32, threshold_core)
+    from tpu_bvh_torch.models import batched, lbvh, ploc
+    from tpu_bvh_torch.ops import (batched_build, collapse, collapse_block, collapse_fast,
+                                   plane_scan, ploc_nn, ploc_round, radix_tree, raster, raster_gpu,
+                                   ray_sweep, refit, refit_dense, scan32, threshold_core)
     from tpu_bvh_torch.ops import ploc as ploc_ops
     from tpu_bvh_torch.ops.aabb import triangle_aabbs
-    from tpu_bvh_torch.types import PLOC_RADIUS, Bvh4, Rays
+    from tpu_bvh_torch.types import PLOC_RADIUS, Bvh2, Bvh4, Rays
     from tpu_bvh_torch.utils import camera, image, kernels, scenes, validate
     from tpu_bvh_torch.utils.cost import sah_cost_bvh2, sah_cost_bvh4
     from tpu_bvh_torch.utils.cpu_reference import collapse_cpu
@@ -355,6 +406,7 @@ def main():
         "psv_nsv_payload": (threshold_core, "payload_launches"),
         "child_positions": (threshold_core, "child_launches"),
         "scan32_halves": (scan32, "half_launches"),
+        "batched_build": (batched_build, "launches"),
     }
     # phase 1: the card
     print(f"[1] device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch "
@@ -627,10 +679,44 @@ def main():
     require(refused and ploc_round.finish_launches == before,
             f"ploc_finish refuses {W + 1} clusters before the launch")
 
+    # the batched build (one warp a mesh) on its four inputs: the demo (the
+    # cornellbox at its own size, as bench.py stacks it), random meshes at
+    # capacity 32 and 64, and the +-0 soup cut into meshes; every output bit
+    # for bit against the plain version on the card, every tree valid
+    cbox = scenes.cornellbox()
+    demo_what = f"the demo, {BATCHED_DEMO} cornellbox copies"
+    b_inputs = {
+        demo_what: batched.pad_meshes([cbox] * BATCHED_DEMO, cbox.shape[0], device=dev)[0],
+        f"{BATCHED_RANDOM} random meshes": batched.pad_meshes(
+            scenes.random_meshes(BATCHED_RANDOM, 32, 2), 32, device=dev)[0],
+        f"{BATCHED_WIDE} random meshes": batched.pad_meshes(
+            scenes.random_meshes(BATCHED_WIDE, 64, 3), 64, device=dev)[0],
+        "the +-0 soup in meshes of 32": torch.from_numpy(sz).to(dev).reshape(-1, 32, 3, 3),
+    }
+    for what, t in b_inputs.items():
+        B, M = t.shape[:2]
+        got = Bvh2(*batched_build.batched_build(t))
+        want = batched._build_batched_small(t)  # [B, 6, m, M] temporaries: 1.6 GB at most
+        torch.cuda.synchronize()
+        same_outputs(got, want, "batched_build", f"{what}, {B} meshes at capacity {M}")
+        ends = [Bvh2(*(f[b] for f in got)) for b in (0, B - 1)]
+        require(batched_valid(torch, got, M) and all(
+            validate.check_bvh2_correctness(one, M) and validate.check_root_aabb(one)
+            for one in ends), f"batched_build, {what}: all {B} trees valid")
+    before = batched_build.launches
+    try:
+        batched_build.batched_build(torch.zeros((1, batched_build.MAX_PRIMS + 1, 3, 3), device=dev))
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused and batched_build.launches == before,
+            f"batched_build refuses capacity {batched_build.MAX_PRIMS + 1} before the launch")
+
     # phase 4: the main path through the entry points a user calls, path by
     # path, each with every launch counter set to 0 just before it
     print(f"[4] main path on sponza_like({SPONZA_TRIS}): build -> topology -> collapse -> render "
-          f"-> shadow -> ploc (at {time.perf_counter() - t_start:.1f} s)", flush=True)
+          f"-> shadow -> ploc; then the batched demo (at {time.perf_counter() - t_start:.1f} s)",
+          flush=True)
     launches = {}
 
     def run_path(path, names, fn):
@@ -689,6 +775,10 @@ def main():
             f"no B10 (ploc_nn) or B9 (ploc_emit_compact) launch")
     require(all(i["host_syncs"] == i["rounds"] + i["finish"] for _, i in plocs.values()),
             "ploc path: host syncs per build = rounds + 1 (the finisher's flag)")
+    # the batched demo as a user runs it: pad the copies, build one tree each
+    demo, b_counts = run_path("batched", ["batched_build"], lambda: batched.build_batched(
+        batched.pad_meshes([cbox] * BATCHED_DEMO, cbox.shape[0], device=dev)[0]))
+    require(b_counts["batched_build"] == 1, "batched path: one batched_build launch")
 
     # the build
     cpu = lbvh.build_single_pass_aux(tris.cpu())
@@ -840,6 +930,16 @@ def main():
     require(validate.check_bvh4_correctness(wide_ploc, n_tris),
             "collapse_bvh2_to_bvh4 of the PLOC tree: check_bvh4_correctness")
 
+    # the batched demo: the port's CPU build, every tree valid, every copy's
+    # tree the same
+    t0 = time.perf_counter()
+    demo_cpu = batched.build_batched(b_inputs[demo_what].cpu())
+    require(same_bvh(demo, demo_cpu), f"batched demo: GPU trees (packed_t, left, right, root) == "
+                                      f"CPU build ({time.perf_counter() - t0:.2f} s on the CPU)")
+    require(batched_valid(torch, demo, cbox.shape[0])
+            and all(torch.equal(bits(f), bits(f[:1]).expand_as(f)) for f in demo),
+            f"batched demo: all {BATCHED_DEMO} trees valid, each copy's tree the same")
+
     # phase 5: timings (medians after warm-up; host clock end to end)
     print(f"[5] timings on {smi} (ms: CUDA events / host clock to synchronize; at "
           f"{time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -898,6 +998,14 @@ def main():
     ev, wall = time_ms(torch, lambda: ray_sweep.trace_rays(packed, srays, tr, *TRACE_CAPS), reps=10)
     print(f"  trace_rays ({vsel.numel()} rays): {ev!r} / {wall!r} ms = "
           f"{vsel.numel() / wall / 1e3!r} Mrays/s (host clock)", flush=True)
+    for what, t in b_inputs.items():
+        B, M = t.shape[:2]
+        k_ev = time_ms(torch, lambda: batched_build.batched_build(t), reps=20)[0]
+        host = time_ms(torch, lambda: batched.build_batched(t), reps=20)[1]
+        b_ms = bound(batched_bytes(t), 0)[0]
+        print(f"  batched_build, {what} ({B} x {M}), {smi}: kernel {k_ev!r} ms (events); "
+              f"build_batched {host!r} ms (host clock) = {B / host * 1e3!r} meshes/s; bound "
+              f"{b_ms!r} ms (bytes), {b_ms / k_ev!r} of it reached", flush=True)
 
     mat, n, r_pt, r_first, r_last = inputs["refit"]
     rows, m_c, c_out = inputs["collapse"]
@@ -905,12 +1013,15 @@ def main():
     so_args, so_out = inputs["ray_sweep_occl"]
     scan_out = scan32.scan_core(inputs["scan"])
     refit_out = refit_dense.refit_dense(mat, n, refit.RADIUS)
+    demo_t = b_inputs[demo_what]
     bounds = {  # kernel: ((bound ms, what sets it), what the sweep did)
         "scan32": (bound(nbytes(inputs["scan"], *scan_out), 0), ""),
         "refit_dense": (bound(nbytes(mat, *refit_out), 0), ""),
         "collapse_block": collapse_bound(torch, rows[0], rows[3], c_out[0], c_out[1:], m_c),
         "raster_sweep": sweep_bound(torch, "raster_sweep", r_args, r_out),
         "ray_sweep": sweep_bound(torch, "ray_sweep", so_args, so_out),
+        "batched_build": (bound(batched_bytes(demo_t), 0),
+                          f"{demo_what}, {demo_t.shape[0]} x {demo_t.shape[1]}"),
     }
     # PLOC's first round (all clusters, shift 32) for B10, B9 and the round;
     # the HPLOC hand-over state for B7, whose work is the clusters of each
@@ -984,8 +1095,10 @@ def main():
         "scan32_halves": (lambda: (scan32.scan_fwd(h32), scan32.scan_rev(h32f, h_m)),
                           lambda: (scan32.scan_fwd_reference(h32),
                                    scan32.scan_rev_reference(h32f, h_m)), 20, 3, 1),
+        "batched_build": (lambda: batched_build.batched_build(demo_t),
+                          lambda: batched._build_batched_small(demo_t), 20, 5, 1),
     }
-    timed = {nm: timed[nm] for nm in KERNELS}  # rows in the order B1 to B16
+    timed = {nm: timed[nm] for nm in KERNELS}  # rows in the order B1 to B16, then the rest
     # one PyTorch call that computes the same function, timed as a yardstick
     library = {"plane_scan": lambda: torch.cummin(plane, dim=0)}
     notes = {  # what a row's launches count, where it is not kernel launches
@@ -999,6 +1112,7 @@ def main():
         "psv_nsv_packed": "calls of the one psv/nsv kernel that B12 and B13 share",
         "psv_nsv_packed_lanes": "calls of the one psv/nsv kernel that B12 and B13 share",
         "scan32_halves": "launches of either half",
+        "batched_build": "calls of batched_build (one CUDA launch each)",
     }
     rows_json = []
     for name, (kfn, pfn, kreps, preps, pwarm) in timed.items():
@@ -1007,7 +1121,8 @@ def main():
         lib_ms = time_ms(torch, library[name], kreps)[0] if name in library else None
         (b_ms, b_by), info = bounds[name]
         tpu, source, replaces = KERNELS[name]
-        print(f"  {tpu} {name}: kernel {k_ms!r} / {k_wall!r} ms, plain {p_ms!r} / {p_wall!r} ms"
+        print(f"  {tpu or 'no TPU kernel:'} {name}: kernel {k_ms!r} / {k_wall!r} ms, plain "
+              f"{p_ms!r} / {p_wall!r} ms"
               + (f", library {lib_ms!r} ms" if lib_ms is not None else "")
               + f", bound {b_ms!r} ms ({b_by}), {launches[name]} "
               f"{notes.get(name, 'launches')} on the main path" + (f"; {info}" if info else ""),
@@ -1021,6 +1136,8 @@ def main():
                   f"{finish_info(ploc_round.last_finish_stats, sm_mhz)}", flush=True)
         if name in notes:
             row["launches_are"] = notes[name]
+        if tpu is None:
+            row["replaces_no_tpu_kernel"] = f"{replaces} is XLA ops, not a pl.pallas_call"
         rows_json.append(row)
     k_ms, _ = time_ms(torch, lambda: refit_dense.refit_dense_cols(r_pt, r_first, r_last, n,
                                                                   refit.RADIUS), 20)
@@ -1065,9 +1182,9 @@ def main():
               f"{k_ms!r} ms; last timed call: "
               f"{finish_info(ploc_round.last_finish_stats, sm_mhz)}", flush=True)
 
-    # one kernel a call: B2, B3, B1, B12/B13 and B14 from a profiler trace
-    # each (after the timings: a profiler session can slow the host's later
-    # launches); B1, B12/B13 and B14 also with no memset
+    # one kernel a call: B2, B3, B1, B12/B13, B14 and the batched build from a
+    # profiler trace each (after the timings: a profiler session can slow the
+    # host's later launches); all but B2 and B3 also with no memset
     for name, fn, no_memset in (
             ("refit_dense (column entry)",
              lambda: refit_dense.refit_dense_cols(r_pt, r_first, r_last, n, refit.RADIUS), False),
@@ -1076,7 +1193,8 @@ def main():
             ("collapse_block", lambda: collapse_block.collapse_block(*rows, m_c), False),
             ("scan32", lambda: scan32.scan_core(inputs["scan"]), True),
             ("psv_nsv_packed", lambda: threshold_core.psv_nsv_packed(t_dlt), True),
-            ("psv_nsv_payload", lambda: threshold_core.psv_nsv_payload_auto(t_dlt, t_pay), True)):
+            ("psv_nsv_payload", lambda: threshold_core.psv_nsv_payload_auto(t_dlt, t_pay), True),
+            ("batched_build (the demo)", lambda: batched.build_batched(demo_t), True)):
         names, memsets = kernels_per_call(torch, fn)
         require(len(names) == 1 and (memsets == 0 or not no_memset),
                 f"{name}: one kernel a call in a torch.profiler trace {names}"

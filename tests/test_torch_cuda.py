@@ -14,10 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_bvh_torch.models import lbvh, ploc
-from tpu_bvh_torch.ops import (collapse_block, collapse_fast, plane_scan, ploc_nn, ploc_round,
-                               radix_tree, raster, raster_gpu, ray_sweep, refit_dense, scan32,
-                               threshold_core)
+from tpu_bvh_torch.models import batched, lbvh, ploc
+from tpu_bvh_torch.ops import (batched_build, collapse_block, collapse_fast, plane_scan, ploc_nn,
+                               ploc_round, radix_tree, raster, raster_gpu, ray_sweep, refit_dense,
+                               scan32, threshold_core)
 from tpu_bvh_torch.ops import ploc as ploc_ops
 from tpu_bvh_torch.types import PLOC_RADIUS, Bvh4, Rays
 from tpu_bvh_torch.utils import camera, scenes, validate
@@ -798,3 +798,80 @@ def test_fast_topologies_match_b1_route(cuda, scene):
                       (kar, radix_tree.karras_topology_fast(codes.cpu()))):
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w.cpu())
+
+
+def _batched_meshes(kind, seed=0):
+    """Meshes and a capacity for the batched kernel: random soups at a
+    capacity (sizes 2 to it), the demo (the cornellbox at its own size),
+    every prim at one point, repeated triangles, a +-0 soup and coordinates
+    near FLT_MAX (where a node's box takes the 3e38 fill)."""
+    rng = np.random.default_rng(seed)
+
+    def soup(n):
+        return (rng.uniform(-10, 10, (n, 1, 3)) + rng.normal(0, 0.5, (n, 3, 3))).astype(np.float32)
+
+    if kind.startswith("random"):
+        cap = int(kind[len("random"):])
+        return scenes.random_meshes(1000, cap, seed), cap
+    if kind == "demo":
+        box = scenes.cornellbox()
+        return [box] * 4096, box.shape[0]
+    if kind == "one_point":
+        pts = rng.uniform(-5, 5, (300, 1, 1, 3)).astype(np.float32)
+        return [np.broadcast_to(p, (int(n), 3, 3)).copy()
+                for p, n in zip(pts, rng.integers(1, 65, 300))], 64
+    if kind == "duplicates":
+        return [np.tile(soup(k), (64 // k, 1, 1)) for k in rng.integers(1, 6, 300)], 64
+    if kind == "signed_zero":
+        pick = rng.integers(0, 3, (8192, 3, 3))
+        f32 = np.float32
+        coords = np.where(pick == 0, f32(-0.0), np.where(pick == 1, f32(0.0), f32(1.0)))
+        tris = np.where(rng.random((8192, 3, 3)) < 0.5, coords, rng.random((8192, 3, 3), f32))
+        return list(tris.astype(f32).reshape(-1, 32, 3, 3)), 32
+    assert kind == "huge"
+    return [rng.uniform(3.1e38, 3.35e38, (int(n), 3, 3)).astype(np.float32)
+            for n in rng.integers(2, 33, 300)], 32
+
+
+@pytest.mark.parametrize("kind", ["random2", "random3", "random31", "random32", "random33",
+                                  "random63", "random64", "demo", "one_point", "duplicates",
+                                  "signed_zero", "huge"])
+def test_batched_kernel_matches_plain(cuda, kind):
+    """The batched kernel (one launch a call) against its plain version on
+    the card and on the CPU, floats by their bits; every tree valid."""
+    meshes, cap = _batched_meshes(kind)
+    tris_b = batched.pad_meshes(meshes, cap, device=cuda)[0]
+    before = batched_build.launches
+    got = batched.build_batched(tris_b)
+    torch.cuda.synchronize()
+    assert batched_build.launches == before + 1
+    for want in (batched._build_batched_small(tris_b), batched._build_batched_small(tris_b.cpu())):
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(_bits(g).cpu(), _bits(w).cpu())
+    for b in range(0, tris_b.shape[0], max(1, tris_b.shape[0] // 64)):
+        one = type(got)(*(f[b] for f in got))
+        assert validate.check_bvh2_correctness(one, cap) and validate.check_root_aabb(one)
+
+
+def test_batched_kernel_refuses_past_its_capacity(cuda):
+    """A capacity past MAX_PRIMS is refused before any launch; build_batched
+    takes the per-mesh single-pass build there (B1 and B2 once a mesh),
+    equal to the CPU build."""
+    cap = batched_build.MAX_PRIMS + 1
+    meshes, _ = _batched_meshes("random64", seed=1)
+    tris_b = batched.pad_meshes(meshes[:3], cap, device=cuda)[0]
+    before = batched_build.launches
+    with pytest.raises(ValueError, match="2 <= M <= 64"):
+        batched_build.batched_build(tris_b)
+    scans, refits = scan32.launches, refit_dense.launches
+    got = batched.build_batched(tris_b)
+    torch.cuda.synchronize()
+    assert batched_build.launches == before
+    assert scan32.launches == scans + 3 and refit_dense.launches == refits + 3
+    for g, w in zip(got, batched.build_batched(tris_b.cpu())):
+        assert g.dtype == w.dtype and torch.equal(_bits(g).cpu(), _bits(w))
+
+
+def test_batched_kernel_on_an_empty_batch(cuda):
+    got = batched.build_batched(torch.zeros((0, 32, 3, 3), device=cuda))
+    assert [tuple(f.shape) for f in got] == [(0, 6, 63), (0, 63), (0, 63), (0,)]

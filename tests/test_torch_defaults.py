@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_bvh_torch.models import batched
 from tpu_bvh_torch.types import Rays
 from tpu_bvh_torch.utils import convert, scenes
 
@@ -21,7 +22,12 @@ def _to_torch(**kw):
     return list(convert.to_torch(Rays, state, **kw))
 
 
-@pytest.mark.parametrize("entry", [_preset, _to_torch], ids=["preset", "to_torch"])
+def _pad_meshes(**kw):
+    return list(batched.pad_meshes([np.zeros((2, 3, 3), np.float32)], **kw))
+
+
+@pytest.mark.parametrize("entry", [_preset, _to_torch, _pad_meshes],
+                         ids=["preset", "to_torch", "pad_meshes"])
 def test_entry_point_defaults_to_the_gpu(entry):
     if torch.cuda.is_available():
         assert all(t.device.type == "cuda" for t in entry())

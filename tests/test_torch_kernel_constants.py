@@ -6,8 +6,8 @@ import re
 
 import pytest
 
-from tpu_bvh_torch.ops import (collapse_block, ploc_round, raster_gpu, ray_sweep, refit_dense,
-                               threshold_core)
+from tpu_bvh_torch.ops import (batched_build, collapse_block, ploc_round, raster_gpu, ray_sweep,
+                               refit_dense, threshold_core)
 from tpu_bvh_torch.utils import kernels
 
 
@@ -33,6 +33,7 @@ def _constexpr(source: str, name: str) -> int:
     ("collapse_block.cu", "kErrWindow", lambda: collapse_block.ERR_WINDOW),
     ("psv_scan.cuh", "kTile", lambda: threshold_core.TILE),
     ("psv_scan.cuh", "kV", lambda: threshold_core.V),
+    ("batched_build.cu", "kMaxPrims", lambda: batched_build.MAX_PRIMS),
 ])
 def test_python_mirror_equals_source(source, name, mirror):
     assert mirror() == _constexpr(source, name)

@@ -1,5 +1,6 @@
-// Device helpers shared by the kernels: the AABB min of jnp.minimum and
-// the asynchronous 4-byte copy that stages a tile into shared memory.
+// Device helpers shared by the kernels: the AABB min and max of jnp.minimum
+// and jnp.maximum, and the asynchronous 4-byte copy that stages a tile into
+// shared memory.
 
 #pragma once
 
@@ -13,6 +14,15 @@ namespace tbvh {
 __device__ __forceinline__ float jmin(float a, float b) {
   float r = a < b ? a : b;
   r = a == b ? __int_as_float(__float_as_int(a) | __float_as_int(b)) : r;
+  r = b != b ? b : r;
+  return a != a ? a : r;
+}
+
+// max as jnp.maximum computes it: +0.0 > -0.0 (equal values give the and
+// of their bits), NaN propagates (a's first); aabb.fmax
+__device__ __forceinline__ float jmax(float a, float b) {
+  float r = a > b ? a : b;
+  r = a == b ? __int_as_float(__float_as_int(a) & __float_as_int(b)) : r;
   r = b != b ? b : r;
   return a != a ? a : r;
 }

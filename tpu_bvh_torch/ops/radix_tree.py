@@ -36,9 +36,10 @@ def _clz32(x):
 
 
 def adjacent_deltas(codes):
-    """delta(j, j+1) for j in [0, n-2]. codes: int64 [n] of sorted u32 values."""
-    n = codes.shape[0]
-    x = codes[:-1] ^ codes[1:]
+    """delta(j, j+1) for j in [0, n-2] along the last axis. codes: int64
+    [..., n] of sorted u32 values."""
+    n = codes.shape[-1]
+    x = codes[..., :-1] ^ codes[..., 1:]
     j = torch.arange(n - 1, dtype=torch.int64, device=codes.device)
     tie = 32 + _clz32(j ^ (j + 1))
     return torch.where(x == 0, tie, _clz32(x))

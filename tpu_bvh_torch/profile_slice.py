@@ -19,7 +19,10 @@ B10 `ploc_nn_round_raw` and B9 `ploc_emit_compact` on it), B12
 `psv_nsv_packed` and B14
 `psv_nsv_payload_auto` on sponza's deltas, B5 `ray_sweep_kernel` on
 the shadow rays (occlusion), B4 `raster_sweep` at both render sizes and
-B7 `ploc_finish` on the HPLOC hand-over states at FIN_WIDTH and at 4096:
+B7 `ploc_finish` on the HPLOC hand-over states at FIN_WIDTH and at 4096;
+and `batched.build_batched` (one kernel launch) on the reference's demo,
+4096 copies of the cornellbox at its own size, on 65,536 random meshes of
+2-32 prims at capacity 32 and on 4096 of 2-64 prims at capacity 64:
 first the median host-clock ms to a synchronize without the profiler,
 then `--reps` calls each under torch.profiler (CPU + CUDA).
 From each Chrome trace it reads:
@@ -47,7 +50,7 @@ import time
 
 import torch
 
-from .models import lbvh, ploc
+from .models import batched, lbvh, ploc
 from .ops import (collapse_block, collapse_fast, plane_scan, ploc_nn, ploc_round, radix_tree,
                   raster, raster_gpu, ray_sweep, refit, refit_dense, scan32, threshold_core)
 from .ops import ploc as ploc_ops
@@ -58,6 +61,9 @@ SPONZA_TRIS = 262_000
 LEAF = 64
 RENDERS = {(512, 512): (1024, 4096, 32), (1920, 1080): (1024, 8192, 32)}
 SHADOW_CAPS = (4096, 32768, 32)
+BATCHED_DEMO = 4096  # copies of the cornellbox
+BATCHED_RANDOM = 65_536  # random meshes of 2-32 prims at capacity 32
+BATCHED_WIDE = 4096  # random meshes of 2-64 prims at capacity 64
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -208,6 +214,13 @@ def main():
             shift = min(shift + ploc.HPLOC_SHIFT_STEP, 32)
         calls[f"ploc_finish_{width}"] = lambda st=(mat, nc, shift): ploc_round.ploc_finish(
             st[0], nodes, st[1], st[2], n - st[1], PLOC_RADIUS, ploc.HPLOC_SHIFT_STEP)
+    box = scenes.cornellbox()
+    demo = batched.pad_meshes([box] * BATCHED_DEMO, box.shape[0], device=dev)[0]
+    calls["batched_demo"] = lambda: batched.build_batched(demo)
+    many = batched.pad_meshes(scenes.random_meshes(BATCHED_RANDOM, 32, 2), 32, device=dev)[0]
+    calls[f"batched_{BATCHED_RANDOM}"] = lambda: batched.build_batched(many)
+    wide = batched.pad_meshes(scenes.random_meshes(BATCHED_WIDE, 64, 3), 64, device=dev)[0]
+    calls[f"batched_{BATCHED_WIDE}x64"] = lambda: batched.build_batched(wide)
     if args.calls:
         calls = {k: v for k, v in calls.items() if k in args.calls}
     print(f"card: {smi} | torch {torch.__version__} | cuda {torch.version.cuda}", flush=True)

@@ -12,6 +12,7 @@ import torch
 
 FLT_MAX = 3.402823466e38
 PLOC_RADIUS = 8  # PLOC nearest-neighbour search radius in Morton order
+MAX_BATCHED_PRIMS = 32  # default mesh capacity of the batched builder (the reference's block)
 
 
 class Bvh2(NamedTuple):

@@ -4,7 +4,9 @@
 (`Bvh2`, `Bvh4`, `RasterScene`, `Camera`, `Transformation`, `Rays`, ...)
 from a mapping or NamedTuple of array-likes: for a Bvh2, the field dict
 that `tpu_bvh.utils.serialize.save_bvh` writes (packed_t, left, right,
-root); for a Bvh4, the JAX `Bvh4` itself (slot_packed_t, child_t, parent,
+root) or the JAX `Bvh2` itself, batch-stacked ones included (the leading
+axis of `tpu_bvh.models.batched.build_batched`'s fields carries across);
+for a Bvh4, the JAX `Bvh4` itself (slot_packed_t, child_t, parent,
 child_count, n_nodes, leaf_prim, leaf_parent, root). The tensors land on
 the GPU unless `device` says otherwise. `to_numpy(obj)` goes back to a
 dict of numpy arrays. Integer fields that are not arrays

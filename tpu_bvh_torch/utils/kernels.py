@@ -52,6 +52,7 @@ _SIGNATURES = {
     "tbvh_scan32_grid": [_I, _P],
     "tbvh_child_positions": [_P, _I, _P, _P, _P, _P, _P],
     "tbvh_plane_scan": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "tbvh_batched_build": [_P, _I, _I, _P, _P, _P, _P, _P],
 }
 
 _lib = None

@@ -15,8 +15,9 @@ from .obj import load_obj
 
 
 def cornellbox() -> np.ndarray:
-    """The 32-triangle cornellbox: the OBJ named by `TPU_BVH_CORNELLBOX`
-    when that file exists, else a procedural box of the same layout."""
+    """The cornellbox: the OBJ named by `TPU_BVH_CORNELLBOX` when that file
+    exists (the reference's has 32 triangles), else a procedural box of the
+    same layout (36 triangles)."""
     path = os.environ.get("TPU_BVH_CORNELLBOX")
     if path and os.path.exists(path):
         return load_obj(path)
@@ -163,6 +164,16 @@ def caterpillar() -> np.ndarray:
         x = 2.0 ** (i - CATERPILLAR_CHAIN)
         tris.append([[x, 0, 0], [x + 1e-6, 1e-6, 0], [x, 0, 1e-6]])
     return np.asarray(tris, np.float32)
+
+
+def random_meshes(n: int, max_prims: int, seed: int = 0) -> list:
+    """n random soups of 2..max_prims triangles each, for batched builds:
+    a uniform base in [-10, 10]^3 and normal vertex offsets of 0.5, as the
+    JAX tests' `random_tris`."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(2, max_prims + 1, n)
+    tris = rng.uniform(-10, 10, (n, 1, 1, 3)) + rng.normal(0, 0.5, (n, max_prims, 3, 3))
+    return [t[:k] for t, k in zip(tris.astype(np.float32), sizes)]
 
 
 def shadow_workload(tris, rays, hit):
