@@ -7,9 +7,11 @@ single-pass and two-pass LBVH builds, the fast BVH2 -> BVH4 collapse,
 path (reversed point-light occlusion of the 1080p primary hits, and the
 general closest-hit trace on a 64K strided slice of the forward shadow
 rays), the PLOC++ and HPLOC builds, and the gather-free topologies
-(`apetrei_topology_fast`, `karras_topology_fast`); and the batched builder
+(`apetrei_topology_fast`, `karras_topology_fast`); the batched builder
 on the reference's demo (`pad_meshes` and `build_batched` on 4096 copies of
-the cornellbox, one tree each). On the way it
+the cornellbox, one tree each); and the wavefront traversal of the 512^2
+frame (`pack_bvh2`, `traverse_packed` and the four variants of
+`traverse_bvh2`: the JAX bench's wavefront row). On the way it
 
 1. prints the card (name and power limit from nvidia-smi) and versions;
 2. builds the CUDA kernels from `tpu_bvh_torch/csrc/` (one nvcc per
@@ -45,9 +47,13 @@ the cornellbox, one tree each). On the way it
    on the demo, on 65,536 random meshes of 2-32 prims at capacity 32, on
    4096 of 2-64 at capacity 64 and on the +-0 soup in meshes of 32, with
    every tree of each checked valid, and its refusal of capacity 65 before
-   a launch;
+   a launch; the traversal kernels (`traverse_packed` and the four
+   variants, one thread a ray) on sponza's 512^2 frame against their plain
+   versions on the whole frame, their device counters (node steps, leaf
+   steps, overflowed rays), and on the 64-deep chain built with
+   `Bvh2.from_rows`, whose stack overflows (prim 60 at t = 2, a miss);
 4. runs the main path path by path (build, topology, collapse, render,
-   shadow, ploc, batched), every launch counter set to 0 just before each and read
+   shadow, ploc, batched, wavefront), every launch counter set to 0 just before each and read
    just after, and checks: every kernel of each path launched (on the
    ploc path one fused-round launch per round and none of B9's or B10's,
    host syncs = rounds + 1 per build); the fast
@@ -66,7 +72,15 @@ the cornellbox, one tree each). On the way it
    CPU ones bit for bit; no raster or shadow overflow; the reversed
    occlusion mask equals the forward trace's capped answer outside the
    boundary strips; the 512^2 image is written as a PNG; the batched demo's
-   trees equal the port's CPU build, are all valid and all the same;
+   trees equal the port's CPU build, are all valid and all the same; the
+   four traversal variants find the same prims, the stack variants and
+   the packed engine the same hits and counts; bench.py's
+   raster_matches_wavefront (the 512^2 render against `traverse_packed`)
+   and shadow_matches_wavefront (`trace_rays` on the slice against
+   `traverse_packed` capped at tmax); `trace_rays`' closest hits against
+   `traverse_packed` on every ray of the slice, forward and reversed (from
+   the light), out past the scene's edge; the leaf-visit heat map is
+   written beside the image;
 5. times the builds, the fast topologies, the collapse, the renders,
    `shadow_occlusion` and `trace_rays` (medians after warm-up, on CUDA events and on the host
    clock; PLOC and HPLOC in 10 alternating pairs, with the gap per
@@ -76,7 +90,9 @@ the cornellbox, one tree each). On the way it
    inputs (B11 also beside `torch.cummin`), and B4 at both sizes with its
    split's counters; the batched kernel (events) and `build_batched` (host
    clock, meshes/s) on its four inputs, each with its bound and the share
-   reached;
+   reached; the traversal kernels at 512^2 (events and host clock,
+   Mrays/s), with bounds from the rows their steps stood on (counted by a
+   launch that marks them) and their step counters;
 6. checks, from one torch.profiler trace each, that the dense refit (both
    entries), the collapse kernel, the topology scan (B1), the psv/nsv
    scans (B12/B13, B14) and `build_batched` launch one kernel a call, the
@@ -84,7 +100,8 @@ the cornellbox, one tree each). On the way it
    B12's SM cycles per phase (its clock64 stamps).
 
 Any failure raises. The last three lines are the kernels JSON line (B1 to
-B16, then the batched build, which replaces no TPU kernel), the
+B16, then the batched build and the five traversal kernels, which replace
+no TPU kernel), the
 nvidia-smi line and {"ok": true, "device": {...}}. Needs one CUDA device
 and nvcc; it imports no JAX.
 
@@ -114,6 +131,7 @@ RENDERS = {  # (width, height): (cand_cap, pair_cap, group), as the JAX bench us
 }
 SHADOW_CAPS = (4096, 32768, 32)  # shadow_occlusion on every live ray
 TRACE_CAPS = (4096, 24576, 32)  # trace_rays on the 64K slice
+CLOSEST_CAPS = (4096, 1 << 21, 32)  # the slice's rays out to the scene's edge
 PRIMARY_CAPS = (4096, 1 << 21, 32)  # 1080p primary rays: 507 groups x 4096 pairs fit
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
@@ -126,6 +144,7 @@ FLOPS_PER_PAIR = 18
 ROUND_SOURCE = "tpu_bvh_torch/csrc/ploc_round_fused.cu"
 THR_SOURCE = "tpu_bvh_torch/csrc/threshold_scan.cu"
 THR_TPU = "tpu_bvh/ops/pallas/threshold_core.py"
+TRAVERSE_SOURCE = "tpu_bvh_torch/csrc/traverse.cu"
 KERNELS = {  # name: (TPU kernel, source, the TPU kernel it replaces), B1 to B16
     "scan32": ("B1", "tpu_bvh_torch/csrc/scan32.cu", "tpu_bvh/ops/pallas/scan32.py:280"),
     "refit_dense": ("B2", "tpu_bvh_torch/csrc/refit_dense.cu",
@@ -152,7 +171,28 @@ KERNELS = {  # name: (TPU kernel, source, the TPU kernel it replaces), B1 to B16
     "scan32_halves": ("B16", "tpu_bvh_torch/csrc/scan32.cu", "tpu_bvh/ops/pallas/scan32.py:260"),
     # no TPU kernel: JAX's dense batched build is XLA ops, not a pl.pallas_call
     "batched_build": (None, "tpu_bvh_torch/csrc/batched_build.cu", "tpu_bvh/models/batched.py:64"),
+    # no TPU kernel: JAX's wavefront traversal is XLA ops in lax.while_loop
+    "traverse_packed": (None, TRAVERSE_SOURCE, "tpu_bvh/ops/traverse.py:271"),
+    "traverse_if_if": (None, TRAVERSE_SOURCE, "tpu_bvh/ops/traverse.py:134"),
+    "traverse_while_while": (None, TRAVERSE_SOURCE, "tpu_bvh/ops/traverse.py:134"),
+    "traverse_speculative": (None, TRAVERSE_SOURCE, "tpu_bvh/ops/traverse.py:134"),
+    "traverse_restart_trail": (None, TRAVERSE_SOURCE, "tpu_bvh/ops/traverse.py:437"),
 }
+TRAVERSALS = ("packed", "if_if", "while_while", "speculative", "restart_trail")
+WAVEFRONT = (512, 512)  # the JAX bench's wavefront row: sponza 262K, 512^2 primary rays
+# bytes a row stood on must give once (internal, leaf), on either layout:
+# two child boxes, left and right; or the triangle and its prim. A ray
+# reads 24 B and writes 20 B
+TRAVERSE_ROW_BYTES = (56, 40)
+TRAVERSE_RAY_BYTES = 44
+# bytes each step loads (node step, leaf step), most of them from the
+# caches: four or three 16-byte words of a packed row; on the Bvh2 layout
+# left, right and two child boxes, or left and the triangle
+TRAVERSE_STEP_BYTES = {"packed": (64, 48), "bvh2": (56, 40)}
+# flops a node step (two slabs), a leaf step (three vertex transforms and the
+# triangle test) and a ray (two inverse transforms, three reciprocals)
+TRAVERSE_STEP_FLOPS = (48, 203)
+TRAVERSE_RAY_FLOPS = 81
 BATCHED_DEMO = 4096  # the reference's batched demo: copies of the cornellbox (main.cpp:39-47)
 BATCHED_RANDOM = 65_536  # random meshes of 2-32 prims at capacity 32
 BATCHED_WIDE = 4096  # random meshes of 2-64 prims at capacity 64
@@ -162,7 +202,8 @@ def parse_args():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--image", default=os.path.join(tempfile.gettempdir(),
                                                     "tpu_bvh_torch_sponza_512.png"),
-                    help="where to write the 512^2 render (PNG)")
+                    help="where to write the 512^2 render (PNG); its leaf-visit heat map "
+                         "goes beside it (_heatmap.png)")
     return ap.parse_args()
 
 
@@ -346,6 +387,25 @@ def batched_valid(torch, trees, M):
     return perm and walk and root_ok and nest
 
 
+def traverse_bound(stats, rows, name, n_rays):
+    """Bound of a traversal kernel: every row its steps stood on read once
+    (`rows`: internal, leaf; counted on the card) and the rays' bytes,
+    against the slab and triangle flops of its steps (`stats`, its device
+    counters: node steps, leaf steps, overflowed rays). The steps' own
+    loads, mostly served by the caches, are reported beside it."""
+    node_steps, leaf_steps = (int(x) for x in stats[:2])
+    n_int, n_leaf = (int(x) for x in rows)
+    n_bytes = (n_int * TRAVERSE_ROW_BYTES[0] + n_leaf * TRAVERSE_ROW_BYTES[1]
+               + n_rays * TRAVERSE_RAY_BYTES)
+    f_node, f_leaf = TRAVERSE_STEP_FLOPS
+    flops = node_steps * f_node + leaf_steps * f_leaf + n_rays * TRAVERSE_RAY_FLOPS
+    s_node, s_leaf = TRAVERSE_STEP_BYTES["packed" if name == "packed" else "bvh2"]
+    info = (f"{n_int} internal and {n_leaf} leaf rows stood on; {node_steps} node steps, "
+            f"{leaf_steps} leaf steps ({node_steps * s_node + leaf_steps * s_leaf} B loaded by "
+            f"the steps), {int(stats[2])} overflowed rays over {n_rays} rays")
+    return bound(n_bytes, flops), info
+
+
 def kernels_per_call(torch, fn):
     """CUDA kernels and memsets in one torch.profiler trace of one call of
     `fn` (after a warm-up call): the names of its Chrome trace's kernel
@@ -376,12 +436,13 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_bvh_torch.models import batched, lbvh, ploc
-    from tpu_bvh_torch.ops import (batched_build, collapse, collapse_block, collapse_fast,
+    from tpu_bvh_torch.ops import (aabb, batched_build, collapse, collapse_block, collapse_fast,
                                    plane_scan, ploc_nn, ploc_round, radix_tree, raster, raster_gpu,
-                                   ray_sweep, refit, refit_dense, scan32, threshold_core)
+                                   ray_sweep, refit, refit_dense, scan32, threshold_core,
+                                   traverse)
     from tpu_bvh_torch.ops import ploc as ploc_ops
     from tpu_bvh_torch.ops.aabb import triangle_aabbs
-    from tpu_bvh_torch.types import PLOC_RADIUS, Bvh2, Bvh4, Rays
+    from tpu_bvh_torch.types import PLOC_RADIUS, Bvh2, Bvh4, Rays, identity_transform
     from tpu_bvh_torch.utils import camera, image, kernels, scenes, validate
     from tpu_bvh_torch.utils.cost import sah_cost_bvh2, sah_cost_bvh4
     from tpu_bvh_torch.utils.cpu_reference import collapse_cpu
@@ -407,6 +468,8 @@ def main():
         "child_positions": (threshold_core, "child_launches"),
         "scan32_halves": (scan32, "half_launches"),
         "batched_build": (batched_build, "launches"),
+        # the traversal kernels count by kernel in one dict
+        **{f"traverse_{v}": (traverse, "launches", v) for v in TRAVERSALS},
     }
     # phase 1: the card
     print(f"[1] device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch "
@@ -712,19 +775,63 @@ def main():
     require(refused and batched_build.launches == before,
             f"batched_build refuses capacity {batched_build.MAX_PRIMS + 1} before the launch")
 
+    # the traversal kernels (one thread a ray) on sponza's 512^2 primary
+    # frame, each against its plain version on the card on the whole frame,
+    # floats by their bits
+    t_packed = traverse.pack_bvh2(bvh, tris)
+    t_rays = camera.generate_rays(cam, *WAVEFRONT)
+
+    def traversal(v, rays, plain=False):
+        return traverse.traverse_by_name(v, bvh, tris, rays, tr, t_packed, plain)
+
+    for v in TRAVERSALS:
+        hit, counts = traversal(v, t_rays)
+        stats = traverse.last_stats.cpu()
+        t0 = time.perf_counter()
+        want = traversal(v, t_rays, plain=True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        same_outputs([*hit, counts], [*want[0], want[1]], f"traverse_{v}",
+                     f"sponza {WAVEFRONT[0]}x{WAVEFRONT[1]}, the whole frame "
+                     f"({t_rays.origin.shape[0]} rays; the plain version {plain_s:.2f} s)")
+        require(int(stats[1]) == int(counts.sum()) and int(stats[2]) == 0,
+                f"traverse_{v}: device counters {stats.tolist()} (node steps, leaf steps, "
+                f"overflowed rays): the leaf steps are the counts' sum, no overflow")
+    # the deep chain: the stack overflows, the ray walks again stackless
+    chain = {k: torch.from_numpy(x).to(dev) for k, x in scenes.deep_chain().items()}
+    c_bvh = Bvh2.from_rows(chain["node_min"], chain["node_max"], chain["left"], chain["right"],
+                           torch.tensor(0, dtype=torch.int32, device=dev))
+    c_rays = Rays(chain["origin"], chain["direction"], torch.zeros(2, device=dev),
+                  torch.full((2,), 3.4e38, device=dev))
+    chain_args = (c_bvh, chain["tris"], c_rays, identity_transform(dev))
+    for v in TRAVERSALS:
+        hit, counts = traverse.traverse_by_name(v, *chain_args)
+        stats = traverse.last_stats.cpu()
+        want = traverse.traverse_by_name(v, *chain_args, plain=True)
+        torch.cuda.synchronize()
+        same_outputs([*hit, counts], [*want[0], want[1]], f"traverse_{v}", "the deep chain")
+        require(hit.prim_idx.tolist() == [60, -1] and abs(float(hit.t[0]) - 2.0) < 1e-5
+                and int(stats[2]) == (0 if v == "restart_trail" else 1),
+                f"traverse_{v}, the 64-deep chain: prim 60 at t = {float(hit.t[0])!r}, a miss, "
+                f"{int(stats[2])} overflowed ray(s)")
+
     # phase 4: the main path through the entry points a user calls, path by
     # path, each with every launch counter set to 0 just before it
     print(f"[4] main path on sponza_like({SPONZA_TRIS}): build -> topology -> collapse -> render "
-          f"-> shadow -> ploc; then the batched demo (at {time.perf_counter() - t_start:.1f} s)",
-          flush=True)
+          f"-> shadow -> ploc; then the batched demo and the wavefront traversal (at "
+          f"{time.perf_counter() - t_start:.1f} s)", flush=True)
     launches = {}
 
     def run_path(path, names, fn):
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        for mod, attr, *key in counters.values():
+            if key:
+                getattr(mod, attr)[key[0]] = 0
+            else:
+                setattr(mod, attr, 0)
         out = fn()
         torch.cuda.synchronize()
-        counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+        counts = {name: getattr(mod, attr)[key[0]] if key else getattr(mod, attr)
+                  for name, (mod, attr, *key) in counters.items()}
         print(f"  launches in the {path} path: {counts}", flush=True)
         require(all(counts[nm] > 0 for nm in names), f"every kernel of the {path} path launched")
         for nm, c in counts.items():  # over the whole main path
@@ -779,6 +886,22 @@ def main():
     demo, b_counts = run_path("batched", ["batched_build"], lambda: batched.build_batched(
         batched.pad_meshes([cbox] * BATCHED_DEMO, cbox.shape[0], device=dev)[0]))
     require(b_counts["batched_build"] == 1, "batched path: one batched_build launch")
+
+    # the wavefront traversal of the 512^2 frame as a user runs it: pack the
+    # tree, trace the packed layout and each variant of traverse_bvh2
+    def wavefront():
+        pk = traverse.pack_bvh2(bvh, tris)
+        rr = renders[WAVEFRONT][0]
+        out = {"packed": (traverse.traverse_packed(pk, bvh.n_internal, bvh.root, rr, tr),
+                          traverse.last_stats)}
+        for v in traverse.VARIANTS:
+            out[v] = (traverse.traverse_bvh2(bvh, tris, rr, tr, v), traverse.last_stats)
+        return pk, out
+
+    (w_packed, waves), w_counts = run_path(
+        "wavefront", [f"traverse_{v}" for v in TRAVERSALS], wavefront)
+    require(all(w_counts[f"traverse_{v}"] == 1 for v in TRAVERSALS),
+            "wavefront path: one launch of each traversal kernel")
 
     # the build
     cpu = lbvh.build_single_pass_aux(tris.cpu())
@@ -940,6 +1063,93 @@ def main():
             and all(torch.equal(bits(f), bits(f[:1]).expand_as(f)) for f in demo),
             f"batched demo: all {BATCHED_DEMO} trees valid, each copy's tree the same")
 
+    # the wavefront traversal: the four variants find the same prims, the
+    # stack variants and the packed engine the same hits and counts, bit for bit
+    (base_hit, base_counts), _ = waves["if_if"]
+    for v in TRAVERSALS:
+        (hit, counts), st = waves[v]
+        require(torch.equal(hit.prim_idx, base_hit.prim_idx),
+                f"traverse_{v}: the prim ids of traverse_bvh2(if_if)")
+        if v != "restart_trail":
+            require(all(torch.equal(bits(g), bits(w)) for g, w in zip(hit, base_hit))
+                    and torch.equal(counts, base_counts),
+                    f"traverse_{v}: the hits and counts of traverse_bvh2(if_if), bit for bit")
+        st = st.cpu().tolist()
+        print(f"  traverse_{v}: {int((hit.prim_idx >= 0).sum())} hits of {counts.numel()} rays, "
+              f"mean leaf visits {float(counts.double().mean())!r}, most {int(counts.max())}; "
+              f"device counters: {st[0]} node steps, {st[1]} leaf steps, {st[2]} overflowed rays",
+              flush=True)
+    heat_path = os.path.splitext(args.image)[0] + "_heatmap.png"
+    image.write_png(heat_path, image.heatmap(waves["packed"][0][1], *WAVEFRONT))
+    print(f"  heat map: {heat_path}", flush=True)
+    # bench.py's raster_matches_wavefront (683-695): the raster render of
+    # the 512^2 frame against traverse_packed
+    hit_o = waves["packed"][0][0]
+    pk_, po = hit512.prim_idx.cpu().numpy(), hit_o.prim_idx.cpu().numpy()
+    tk, to = hit512.t.cpu().numpy(), hit_o.t.cpu().numpy()
+    both = pk_ >= 0
+    diff = both & (pk_ != po)
+    require(np.array_equal(pk_ >= 0, po >= 0) and np.allclose(tk[both], to[both], rtol=1e-4)
+            and (np.allclose(tk[diff], to[diff], rtol=1e-3) if diff.any() else True),
+            f"raster_matches_wavefront: {int(both.sum())} hits, prim match "
+            f"{int((both & (pk_ == po)).sum())}/{int(both.sum())}")
+    # bench.py's shadow_matches_wavefront (850-878): trace_rays on the
+    # strided slice against traverse_packed capped at tmax
+    srays = Rays(*(x[vsel] for x in fwd))
+    hit_so, _ = traverse.traverse_packed(w_packed, bvh.n_internal, bvh.root, srays, tr)
+    ps, ts = hit_v.prim_idx.cpu().numpy(), hit_v.t.cpu().numpy()
+    po2, to2 = hit_so.prim_idx.cpu().numpy(), hit_so.t.cpu().numpy()
+    tmax_np = srays.tmax.cpu().numpy()
+    occ_w = (po2 >= 0) & (to2 < tmax_np)
+    to_safe = np.where(po2 >= 0, to2, np.inf)
+    boundary_w = (np.abs(to_safe - tmax_np) < 10 * eps) | (to_safe < 10 * eps)
+    both_s = (ps >= 0) & occ_w
+    dmask = both_s & (ps != po2)
+    require(not (((ps >= 0) != occ_w) & ~boundary_w).any()
+            and np.allclose(ts[both_s], to2[both_s], rtol=1e-3, atol=1e-3)
+            and (np.allclose(ts[dmask], to2[dmask], rtol=1e-3, atol=1e-3) if dmask.any() else True),
+            f"shadow_matches_wavefront: {int(both_s.sum())} occluded, prim match "
+            f"{int((both_s & (ps == po2)).sum())}/{int(both_s.sum())} "
+            f"({int(boundary_w.sum())} boundary rays of {ps.shape[0]}; "
+            f"{int((occ_w & ~boundary_w).sum())} wavefront occluders outside the strips)")
+    # B5's closest hits on every ray of the slice against traverse_packed,
+    # each ray's tmax past its exit from the scene's world box (beyond every
+    # triangle), the hit/miss sets equal on every ray: the forward rays,
+    # whose hits all lie within 10 eps of their origins, with bench.py's
+    # shadow tolerance (t and ties within 1e-3: a t of a few thousandths
+    # carries the coordinates' rounding); and the same segments reversed,
+    # from the light to each point (every ray hits), with its raster rule
+    # (t within rtol 1e-4, other prims only on t ties within rtol 1e-3)
+    wv = aabb.transform_point(tris.reshape(-1, 3), tr.scale, tr.quat, tr.translation)
+    w_lo, w_hi = wv.amin(dim=0), wv.amax(dim=0)
+
+    def to_the_edge(origin, direction):
+        inv = 1.0 / direction
+        exit_t = torch.fmax((w_lo - origin) * inv, (w_hi - origin) * inv).amin(dim=1)
+        return Rays(origin, direction, torch.zeros_like(exit_t), exit_t + 10 * eps)
+
+    n_s = srays.origin.shape[0]
+    for what, s_rays, rtol, atol in (
+            ("forward", to_the_edge(srays.origin, srays.direction), 1e-3, 1e-3),
+            ("reversed", to_the_edge(light.expand(n_s, 3).contiguous(), -srays.direction), 1e-4,
+             1e-8)):
+        hit_c, _, ovf_c = ray_sweep.trace_rays(packed, s_rays, tr, *CLOSEST_CAPS)
+        hit_w, _ = traverse.traverse_packed(w_packed, bvh.n_internal, bvh.root, s_rays, tr)
+        pc, tc = hit_c.prim_idx.cpu().numpy(), hit_c.t.cpu().numpy()
+        pw, tw = hit_w.prim_idx.cpu().numpy(), hit_w.t.cpu().numpy()
+        both_c = pc >= 0
+        diff_c = both_c & (pc != pw)
+        flips = int(((pc >= 0) != (pw >= 0)).sum())
+        worst = float(np.max(np.abs(tc[both_c] - tw[both_c]) / tw[both_c], initial=0.0))
+        require(not bool(ovf_c) and flips == 0
+                and np.allclose(tc[both_c], tw[both_c], rtol=rtol, atol=atol)
+                and (np.allclose(tc[diff_c], tw[diff_c], rtol=1e-3, atol=atol)
+                     if diff_c.any() else True),
+                f"trace_rays closest hits == traverse_packed on the slice's {what} rays: "
+                f"{int(both_c.sum())} hits of {n_s} rays, {flips} hit/miss flips, prim match "
+                f"{int((both_c & (pc == pw)).sum())}/{int(both_c.sum())}, largest relative t "
+                f"difference {worst!r}, overflow {bool(ovf_c)}")
+
     # phase 5: timings (medians after warm-up; host clock end to end)
     print(f"[5] timings on {smi} (ms: CUDA events / host clock to synchronize; at "
           f"{time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -1006,6 +1216,28 @@ def main():
         print(f"  batched_build, {what} ({B} x {M}), {smi}: kernel {k_ev!r} ms (events); "
               f"build_batched {host!r} ms (host clock) = {B / host * 1e3!r} meshes/s; bound "
               f"{b_ms!r} ms (bytes), {b_ms / k_ev!r} of it reached", flush=True)
+    n_wave = t_rays.origin.shape[0]
+    for v in TRAVERSALS:
+        ev, wall = time_ms(torch, lambda: traversal(v, t_rays), reps=20)
+        print(f"  traverse_{v}, sponza {WAVEFRONT[0]}x{WAVEFRONT[1]} ({n_wave} rays), {smi}: "
+              f"{ev!r} / {wall!r} ms = {n_wave / ev / 1e3!r} Mrays/s (events), "
+              f"{n_wave / wall / 1e3!r} Mrays/s (host clock)", flush=True)
+
+    # the rows each traversal kernel stands on in the wavefront frame: the
+    # same launch with the byte map set (after the main path's counts)
+    traverse.count_rows = True
+    t_rows = {}
+    for v in TRAVERSALS:
+        traversal(v, renders[WAVEFRONT][0])
+        t_rows[v] = traverse.last_rows.cpu().tolist()
+    traverse.count_rows = False
+    w_prims = waves["packed"][0][0].prim_idx
+    n_prims = int(torch.unique(w_prims[w_prims >= 0]).numel())
+    require(all(r[0] >= 1 and r[1] >= n_prims for r in t_rows.values())
+            and len({tuple(t_rows[v]) for v in TRAVERSALS[:4]}) == 1,
+            f"traversal rows stood on (internal, leaf) at {WAVEFRONT[0]}x{WAVEFRONT[1]}: {t_rows}; "
+            f"the stack kernels and the packed one the same, every kernel the leaves of the "
+            f"{n_prims} prims hit")
 
     mat, n, r_pt, r_first, r_last = inputs["refit"]
     rows, m_c, c_out = inputs["collapse"]
@@ -1022,6 +1254,10 @@ def main():
         "ray_sweep": sweep_bound(torch, "ray_sweep", so_args, so_out),
         "batched_build": (bound(batched_bytes(demo_t), 0),
                           f"{demo_what}, {demo_t.shape[0]} x {demo_t.shape[1]}"),
+        # the traversal kernels: the steps of the main path's run, the rows
+        # stood on counted by the same kernel on the same rays
+        **{f"traverse_{v}": traverse_bound(waves[v][1].cpu(), t_rows[v], v, n_wave)
+           for v in TRAVERSALS},
     }
     # PLOC's first round (all clusters, shift 32) for B10, B9 and the round;
     # the HPLOC hand-over state for B7, whose work is the clusters of each
@@ -1097,6 +1333,9 @@ def main():
                                    scan32.scan_rev_reference(h32f, h_m)), 20, 3, 1),
         "batched_build": (lambda: batched_build.batched_build(demo_t),
                           lambda: batched._build_batched_small(demo_t), 20, 5, 1),
+        **{f"traverse_{v}": (lambda v=v: traversal(v, t_rays),
+                             lambda v=v: traversal(v, t_rays, plain=True), 20, 1, 0)
+           for v in TRAVERSALS},
     }
     timed = {nm: timed[nm] for nm in KERNELS}  # rows in the order B1 to B16, then the rest
     # one PyTorch call that computes the same function, timed as a yardstick
@@ -1113,6 +1352,9 @@ def main():
         "psv_nsv_packed_lanes": "calls of the one psv/nsv kernel that B12 and B13 share",
         "scan32_halves": "launches of either half",
         "batched_build": "calls of batched_build (one CUDA launch each)",
+        "traverse_packed": "calls of traverse_packed (one CUDA launch each)",
+        **{f"traverse_{v}": f"calls of traverse_bvh2(variant={v!r}) (one CUDA launch each)"
+           for v in TRAVERSALS[1:]},
     }
     rows_json = []
     for name, (kfn, pfn, kreps, preps, pwarm) in timed.items():

@@ -143,6 +143,15 @@ def test_empty_batch_equals_jax():
                        jbatched.build_batched(jnp.asarray(tris_b)))
 
 
+def test_empty_batch_past_the_dense_capacity_equals_jax():
+    """B = 0 at M = 96 (the per-mesh path) has JAX's empty shapes: packed_t
+    f32[0, 6, 191], left and right i32[0, 191], root i32[0]."""
+    tris_b = np.zeros((0, 96, 3, 3), np.float32)
+    got = batched.build_batched(torch.from_numpy(tris_b))
+    assert got.packed_t.shape == (0, 6, 191) and got.root.shape == (0,)
+    _assert_same_bytes(got, jbatched.build_batched(jnp.asarray(tris_b)))
+
+
 def test_dense_build_refuses_a_capacity_past_its_limit():
     tris_b = torch.zeros((1, batched_build.MAX_PRIMS + 1, 3, 3))
     for fn in (batched_build.batched_build, batched_build.batched_build_reference):

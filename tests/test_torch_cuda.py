@@ -17,9 +17,9 @@ import torch
 from tpu_bvh_torch.models import batched, lbvh, ploc
 from tpu_bvh_torch.ops import (batched_build, collapse_block, collapse_fast, plane_scan, ploc_nn,
                                ploc_round, radix_tree, raster, raster_gpu, ray_sweep, refit_dense,
-                               scan32, threshold_core)
+                               scan32, threshold_core, traverse)
 from tpu_bvh_torch.ops import ploc as ploc_ops
-from tpu_bvh_torch.types import PLOC_RADIUS, Bvh4, Rays
+from tpu_bvh_torch.types import PLOC_RADIUS, Bvh2, Bvh4, Rays, Transformation, identity_transform
 from tpu_bvh_torch.utils import camera, scenes, validate
 
 pytestmark = pytest.mark.cuda
@@ -875,3 +875,145 @@ def test_batched_kernel_refuses_past_its_capacity(cuda):
 def test_batched_kernel_on_an_empty_batch(cuda):
     got = batched.build_batched(torch.zeros((0, 32, 3, 3), device=cuda))
     assert [tuple(f.shape) for f in got] == [(0, 6, 63), (0, 63), (0, 63), (0,)]
+
+
+def _traverse_case(kind, cuda):
+    """(Bvh2, tris, rays, transform) on the card: the cornellbox frame, a
+    random soup under a rotated, scaled and shifted transform with rays
+    from everywhere (some with zero direction components), and a
+    sponza_like frame."""
+    if kind in ("cornellbox", "sponza"):
+        tris = torch.from_numpy(scenes.cornellbox() if kind == "cornellbox"
+                                else scenes.sponza_like(16_384)).to(cuda)
+        tr, cam = scenes.preset(kind, cuda)
+        bvh = (lbvh.build_two_pass if kind == "cornellbox" else lbvh.build_single_pass)(tris)
+        return bvh, tris, camera.generate_rays(cam, 96, 64), tr
+    rng = np.random.default_rng(17)
+    soup = (rng.uniform(-5, 5, (2000, 1, 3)) + rng.normal(0, 1.0, (2000, 3, 3))).astype(np.float32)
+    tris = torch.from_numpy(soup).to(cuda)
+    n = 4096
+    origin = rng.uniform(-8, 8, (n, 3)).astype(np.float32)
+    direction = rng.normal(size=(n, 3)).astype(np.float32)
+    direction /= np.linalg.norm(direction, axis=1, keepdims=True)
+    direction[: n // 8, rng.integers(0, 3)] = 0.0
+    rays = Rays(*(torch.from_numpy(x).to(cuda) for x in (origin, direction)),
+                torch.zeros(n, device=cuda), torch.full((n,), 3.4e38, device=cuda))
+    axis = np.array([0.3, -0.8, 0.5]) / np.linalg.norm([0.3, -0.8, 0.5])
+    quat = np.array([*(axis * np.sin(0.35)), np.cos(0.35)], np.float32)
+    tr = Transformation(*(torch.tensor(x, dtype=torch.float32, device=cuda)
+                          for x in ([0.5, -1.25, 2.0], [1.5, 0.75, 2.0], quat)))
+    return lbvh.build_single_pass(tris), tris, rays, tr
+
+
+def _same_hits(got, want):
+    (gh, gc), (wh, wc) = got, want
+    for g, w in zip(gh, wh):
+        assert g.dtype == w.dtype and torch.equal(_bits(g).cpu(), _bits(w).cpu())
+    assert gc.dtype == torch.int32 and torch.equal(gc.cpu(), wc.cpu())
+
+
+@pytest.mark.parametrize("variant", list(traverse.VARIANTS) + ["packed"])
+@pytest.mark.parametrize("kind", ["cornellbox", "soup", "sponza"])
+def test_traverse_kernel_matches_plain(cuda, kind, variant):
+    """Each traversal kernel (one launch a call) against the plain engine on
+    the card and on the CPU, t, u and v by their bits, the counts exactly;
+    its device counters add up to the counts."""
+    bvh, tris, rays, tr = _traverse_case(kind, cuda)
+    before = dict(traverse.launches)
+    got = traverse.traverse_by_name(variant, bvh, tris, rays, tr)
+    torch.cuda.synchronize()
+    assert traverse.launches == {**before, variant: before[variant] + 1}
+    _same_hits(got, traverse.traverse_by_name(variant, bvh, tris, rays, tr, plain=True))
+    cpu = [type(x)(*(f.cpu() for f in x)) for x in (bvh, rays, tr)]
+    _same_hits(got, traverse.traverse_by_name(variant, cpu[0], tris.cpu(), cpu[1], cpu[2],
+                                              plain=True))
+    stats = traverse.last_stats.cpu().tolist()
+    assert stats[2] == 0 and stats[1] == int(got[1].sum())
+    assert stats[0] > 0 and bool((got[0].prim_idx >= 0).any())
+
+
+def test_traverse_kernels_agree(cuda):
+    """The three stack shapes and the packed kernel: the same hits and
+    counts; the restart trail: the same hits."""
+    bvh, tris, rays, tr = _traverse_case("sponza", cuda)
+    base = traverse.traverse_by_name("if_if", bvh, tris, rays, tr)
+    for variant in ("while_while", "speculative", "packed"):
+        _same_hits(traverse.traverse_by_name(variant, bvh, tris, rays, tr), base)
+    hit, _ = traverse.traverse_by_name("restart_trail", bvh, tris, rays, tr)
+    for g, w in zip(hit, base[0]):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+def test_traverse_kernel_counts_rows(cuda):
+    """With `count_rows` set each launch marks the rows its steps stand on:
+    the hits stay the same, the stack kernels and the packed one stand on
+    the same rows, every hit prim's leaf row is among them, and there are
+    no more of them than steps."""
+    bvh, tris, rays, tr = _traverse_case("sponza", cuda)
+    rows = {}
+    try:
+        traverse.count_rows = True
+        for variant in traverse.KERNELS:
+            got = traverse.traverse_by_name(variant, bvh, tris, rays, tr)
+            _same_hits(got, traverse.traverse_by_name(variant, bvh, tris, rays, tr, plain=True))
+            rows[variant] = traverse.last_rows.cpu().tolist()
+            stats = traverse.last_stats.cpu().tolist()
+            assert 1 <= rows[variant][0] <= stats[0] and rows[variant][1] <= stats[1]
+            prims = got[0].prim_idx
+            assert rows[variant][1] >= int(torch.unique(prims[prims >= 0]).numel()) > 0
+    finally:
+        traverse.count_rows = False
+    assert rows["while_while"] == rows["speculative"] == rows["packed"] == rows["if_if"]
+
+
+def _caterpillar(cuda):
+    """`scenes.deep_chain` on the card: only prim 60 crosses the first ray,
+    whose stack overflows."""
+    d = {k: torch.from_numpy(v).to(cuda) for k, v in scenes.deep_chain().items()}
+    bvh = Bvh2.from_rows(d["node_min"], d["node_max"], d["left"], d["right"],
+                         torch.tensor(0, dtype=torch.int32, device=cuda))
+    rays = Rays(d["origin"], d["direction"], torch.zeros(2, device=cuda),
+                torch.full((2,), 3.4e38, device=cuda))
+    return bvh, d["tris"], rays, identity_transform(cuda)
+
+
+@pytest.mark.parametrize("variant", list(traverse.VARIANTS) + ["packed"])
+def test_traverse_kernel_deep_tree_overflow(cuda, variant):
+    """The overflowed ray walks again through the restart trail in the same
+    thread: prim 60 at t = 2, a miss for the second ray, equal to the plain
+    engine; the stack kernels count one overflowed ray."""
+    bvh, tris, rays, tr = _caterpillar(cuda)
+    got = traverse.traverse_by_name(variant, bvh, tris, rays, tr)
+    torch.cuda.synchronize()
+    assert got[0].prim_idx.tolist() == [60, -1] and abs(float(got[0].t[0]) - 2.0) < 1e-5
+    assert int(traverse.last_stats[2]) == (0 if variant == "restart_trail" else 1)
+    _same_hits(got, traverse.traverse_by_name(variant, bvh, tris, rays, tr, plain=True))
+
+
+def test_traverse_kernel_takes_a_stride0_origin(cuda):
+    """A camera's origins are one row expanded (stride 0): the wrapper makes
+    them contiguous, and the hits equal those of materialized origins."""
+    bvh, tris, rays, tr = _traverse_case("cornellbox", cuda)
+    assert rays.origin.stride(0) == 0
+    got = traverse.traverse_packed(traverse.pack_bvh2(bvh, tris), bvh.n_internal, bvh.root, rays, tr)
+    dense = rays._replace(origin=rays.origin.contiguous())
+    _same_hits(got, traverse.traverse_packed(traverse.pack_bvh2(bvh, tris), bvh.n_internal,
+                                             bvh.root, dense, tr))
+    _same_hits(traverse.traverse_bvh2(bvh, tris, rays, tr, "speculative"),
+               traverse.traverse_bvh2_reference(bvh, tris, dense, tr, "speculative"))
+
+
+def test_traverse_kernel_launch_counter_and_no_rays(cuda):
+    """One launch a call on CUDA tensors, none for an empty ray set, none
+    on CPU tensors."""
+    bvh, tris, rays, tr = _traverse_case("cornellbox", cuda)
+    before = dict(traverse.launches)
+    after = {**before, "if_if": before["if_if"] + 1}
+    traverse.traverse_bvh2(bvh, tris, rays, tr, "if_if")
+    assert traverse.launches == after
+    empty = Rays(*(x[:0] for x in rays))
+    hit, counts = traverse.traverse_bvh2(bvh, tris, empty, tr, "if_if")
+    assert traverse.launches == after and hit.prim_idx.shape == (0,) and counts.shape == (0,)
+    cpu = [type(x)(*(f.cpu() for f in x)) for x in (bvh, rays, tr)]
+    traverse.traverse_bvh2(cpu[0], tris.cpu(), cpu[1], cpu[2], "if_if")
+    assert traverse.launches == after

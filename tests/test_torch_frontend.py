@@ -56,3 +56,19 @@ def test_presets_match(name):
     tt, tc = scenes.preset(name, device="cpu")
     for a, b in zip(list(jt) + list(jc), list(tt) + list(tc)):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_cornellbox_default_path_matches_jax(tmp_path, monkeypatch):
+    """Without TPU_BVH_CORNELLBOX both packages read the reference's OBJ at
+    their default path (here a small OBJ written for the test) and return
+    the same triangles, not the procedural box."""
+    obj = tmp_path / "cornellBox.obj"
+    obj.write_text("v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\nv 0 0 1\n"
+                   "f 1 2 3 4\nf 1 -1 2\n")
+    monkeypatch.delenv("TPU_BVH_CORNELLBOX", raising=False)
+    monkeypatch.setattr(jscenes, "_REFERENCE_CORNELLBOX", str(obj))
+    monkeypatch.setattr(scenes, "_REFERENCE_CORNELLBOX", str(obj))
+    want = jscenes.cornellbox()
+    got = scenes.cornellbox()
+    assert want.shape == (3, 3, 3)
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()

@@ -7,7 +7,7 @@ import re
 import pytest
 
 from tpu_bvh_torch.ops import (batched_build, collapse_block, ploc_round, raster_gpu, ray_sweep,
-                               refit_dense, threshold_core)
+                               refit_dense, threshold_core, traverse)
 from tpu_bvh_torch.utils import kernels
 
 
@@ -34,6 +34,7 @@ def _constexpr(source: str, name: str) -> int:
     ("psv_scan.cuh", "kTile", lambda: threshold_core.TILE),
     ("psv_scan.cuh", "kV", lambda: threshold_core.V),
     ("batched_build.cu", "kMaxPrims", lambda: batched_build.MAX_PRIMS),
+    ("traverse.cu", "kStackDepth", lambda: traverse.STACK_DEPTH),
 ])
 def test_python_mirror_equals_source(source, name, mirror):
     assert mirror() == _constexpr(source, name)

@@ -46,8 +46,15 @@ def build_batched(tris_b) -> Bvh2:
     use_extended=False)` and stacks the trees (on a CUDA tensor that
     launches B1 and B2 once a mesh). The larger meshes take that path by
     the size rule, not as a fallback; both give the same trees."""
-    if tris_b.shape[1] <= batched_build.MAX_PRIMS:
+    B, M = tris_b.shape[:2]
+    if M <= batched_build.MAX_PRIMS:
         return Bvh2(*batched_build.batched_build(tris_b))
+    if B == 0:  # no tree to stack: JAX's shapes and dtypes
+        dev = tris_b.device
+        return Bvh2(torch.empty((0, 6, 2 * M - 1), dtype=torch.float32, device=dev),
+                    torch.empty((0, 2 * M - 1), dtype=torch.int32, device=dev),
+                    torch.empty((0, 2 * M - 1), dtype=torch.int32, device=dev),
+                    torch.empty((0,), dtype=torch.int32, device=dev))
     trees = [lbvh.build_single_pass(t, use_extended=False) for t in tris_b]
     return Bvh2(*(torch.stack(f) for f in zip(*trees)))
 

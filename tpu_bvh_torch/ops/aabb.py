@@ -3,6 +3,13 @@
 `fmin` / `fmax` compute what `jnp.minimum` / `jnp.maximum` compute,
 signed zeros included; every min and max of a box the build path stores
 goes through them or through `min_key`, their integer form.
+
+The traversal's helpers (`slab_intersect`, `intersect_triangle`,
+`inv_transform_point`) keep the JAX package's order of operations: a
+3-term sum is `((0 + p0) + p1) + p2`, as XLA sums `jnp.sum(..., axis=-1)`
+on the CPU, and a quotient by `denom` is a product with `1 / denom`, so
+the results equal JAX's (under `jax.disable_jit()`) and the CUDA kernel's
+bit for bit.
 """
 from __future__ import annotations
 
@@ -61,6 +68,13 @@ def _cross(a, b):
     return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
 
 
+def _dot(a, b):
+    """`jnp.sum(a * b, axis=-1)` in XLA's order on the CPU: from +0.0, left
+    to right (so three products of -0.0 sum to +0.0)."""
+    p = a * b
+    return ((p[..., 0] + 0.0) + p[..., 1]) + p[..., 2]
+
+
 def triangle_aabbs(tris):
     """Per-triangle AABB. tris: f32[N, 3, 3] (vertex-major)."""
     packed = packed_bounds(tris, -2, -1)
@@ -88,3 +102,58 @@ def qt_rotate(q, p):
 def transform_point(p, scale, quat, translation):
     """Object to world: rotate(scale * p) + translation."""
     return qt_rotate(quat, scale * p) + translation
+
+
+def qt_invert(q):
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
+
+
+def qt_inv_rotate(q, p):
+    return qt_rotate(qt_invert(q), p)
+
+
+def inv_transform_point(p, scale, quat, translation):
+    """World to object: rotate back(p - translation) / scale."""
+    return qt_inv_rotate(quat, p - translation) / scale
+
+
+def _amin3(x):
+    """`jnp.min(x, axis=-1)` bit for bit: one exact min of `min_key`s."""
+    return from_min_key(min_key(x).amin(dim=-1))
+
+
+def _amax3(x):
+    return -from_min_key(min_key(-x).amin(dim=-1))
+
+
+def slab_intersect(amin, amax, origin, inv_dir, max_t):
+    """Slab test of [..., 3] boxes against rays: (t_near, t_far), a hit iff
+    t_near <= t_far. Every min and max is `jnp.minimum` / `jnp.maximum`'s:
+    NaN propagates (a coordinate on a box plane times an infinite inverse
+    direction), so a NaN t_far makes the box a miss."""
+    d_far = (amax - origin) * inv_dir
+    d_near = (amin - origin) * inv_dir
+    t_far = _amin3(fmax(d_far, d_near))
+    t_near = _amax3(fmin(d_far, d_near))
+    t_far = fmin(max_t, t_far)
+    t_near = fmax(torch.zeros_like(t_near), t_near)
+    return t_near, t_far
+
+
+def intersect_triangle(v0, v1, v2, ray_org, ray_dir):
+    """(u, v, w, t) of the rays against the triangles; a hit needs u, v, w
+    and t above 0 and t below the closest hit so far (the callers test)."""
+    pos0 = v0 - ray_org
+    pos1 = v1 - ray_org
+    pos2 = v2 - ray_org
+    edge0 = v2 - v0
+    edge1 = v0 - v1
+    edge2 = v1 - v2
+    normal = _cross(edge1, edge0)
+    u = _dot(_cross(pos0 + pos2, edge0), ray_dir)
+    v = _dot(_cross(pos1 + pos0, edge1), ray_dir)
+    w = _dot(_cross(pos2 + pos1, edge2), ray_dir)
+    t = _dot(pos0, normal) * 2.0
+    denom = _dot(normal, ray_dir) * 2.0
+    inv = 1.0 / denom
+    return u * inv, v * inv, w * inv, t * inv

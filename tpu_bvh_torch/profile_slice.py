@@ -22,7 +22,10 @@ the shadow rays (occlusion), B4 `raster_sweep` at both render sizes and
 B7 `ploc_finish` on the HPLOC hand-over states at FIN_WIDTH and at 4096;
 and `batched.build_batched` (one kernel launch) on the reference's demo,
 4096 copies of the cornellbox at its own size, on 65,536 random meshes of
-2-32 prims at capacity 32 and on 4096 of 2-64 prims at capacity 64:
+2-32 prims at capacity 32 and on 4096 of 2-64 prims at capacity 64; and
+the wavefront traversal of the 512^2 frame (`traverse.traverse_packed` as
+`traverse_packed_512`, `traverse.traverse_bvh2` with each variant as
+`traverse_<variant>_512`):
 first the median host-clock ms to a synchronize without the profiler,
 then `--reps` calls each under torch.profiler (CPU + CUDA).
 From each Chrome trace it reads:
@@ -52,7 +55,8 @@ import torch
 
 from .models import batched, lbvh, ploc
 from .ops import (collapse_block, collapse_fast, plane_scan, ploc_nn, ploc_round, radix_tree,
-                  raster, raster_gpu, ray_sweep, refit, refit_dense, scan32, threshold_core)
+                  raster, raster_gpu, ray_sweep, refit, refit_dense, scan32, threshold_core,
+                  traverse)
 from .ops import ploc as ploc_ops
 from .types import PLOC_RADIUS
 from .utils import camera, scenes
@@ -221,6 +225,13 @@ def main():
     calls[f"batched_{BATCHED_RANDOM}"] = lambda: batched.build_batched(many)
     wide = batched.pad_meshes(scenes.random_meshes(BATCHED_WIDE, 64, 3), 64, device=dev)[0]
     calls[f"batched_{BATCHED_WIDE}x64"] = lambda: batched.build_batched(wide)
+    # the wavefront traversal of the 512^2 frame (one kernel launch a call)
+    t_packed = traverse.pack_bvh2(aux[0], tris)
+    t_rays = camera.generate_rays(cam, 512, 512)
+    calls["traverse_packed_512"] = lambda: traverse.traverse_packed(
+        t_packed, aux[0].n_internal, aux[0].root, t_rays, tr)
+    for v in traverse.VARIANTS:
+        calls[f"traverse_{v}_512"] = lambda v=v: traverse.traverse_bvh2(aux[0], tris, t_rays, tr, v)
     if args.calls:
         calls = {k: v for k, v in calls.items() if k in args.calls}
     print(f"card: {smi} | torch {torch.__version__} | cuda {torch.version.cuda}", flush=True)

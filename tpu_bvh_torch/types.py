@@ -34,6 +34,13 @@ class Bvh2(NamedTuple):
     def node_max(self) -> torch.Tensor:
         return -self.packed_t[3:6].T
 
+    @classmethod
+    def from_rows(cls, node_min, node_max, left, right, root) -> "Bvh2":
+        """Build from row-major f32[M, 3] node boxes (a contiguous packed_t)."""
+        packed = torch.cat([node_min, -node_max], dim=-1)
+        return cls(packed_t=packed.transpose(-1, -2).contiguous(), left=left, right=right,
+                   root=root)
+
     @property
     def n_nodes(self) -> int:
         return self.left.shape[-1]
@@ -134,3 +141,12 @@ class HitInfo(NamedTuple):
     u: torch.Tensor  # f32[R]
     v: torch.Tensor  # f32[R]
 
+
+def identity_transform(device="cuda") -> Transformation:
+    """No scale, rotation or translation, on `device` (the GPU unless the
+    caller names another)."""
+    return Transformation(
+        translation=torch.zeros(3, dtype=torch.float32, device=device),
+        scale=torch.ones(3, dtype=torch.float32, device=device),
+        quat=torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float32, device=device),
+    )

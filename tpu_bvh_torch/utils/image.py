@@ -1,4 +1,5 @@
-"""PNG output and barycentric shading (dependency-free zlib PNG encoder)."""
+"""PNG output, barycentric shading and the leaf-visit heat map
+(dependency-free zlib PNG encoder)."""
 from __future__ import annotations
 
 import struct
@@ -44,4 +45,19 @@ def shade_barycentric(hit_prim, hit_u, hit_v, width: int, height: int) -> np.nda
     img[hit, 1] = np.clip(v[hit] * 255, 0, 255).astype(np.uint8)
     img[hit, 2] = np.clip(w[hit] * 255, 0, 255).astype(np.uint8)
     img[hit, 3] = 255
+    return img.reshape(width, height, 4)
+
+
+def heatmap(counts, width: int, height: int) -> np.ndarray:
+    """The reference's traversal heat map: each ray's leaf visits over the
+    most any ray made, as red 150x and green 255x that share on full blue
+    and alpha, an image [W, H] like `shade_barycentric`'s."""
+    c = _np(counts).astype(np.float64)
+    m = c.max() if c.max() > 0 else 1.0
+    norm = c / m
+    img = np.zeros((width * height, 4), np.uint8)
+    img[:, 0] = np.clip(norm * 150, 0, 255).astype(np.uint8)
+    img[:, 1] = np.clip(norm * 255, 0, 255).astype(np.uint8)
+    img[:, 2] = 255
+    img[:, 3] = 255
     return img.reshape(width, height, 4)

@@ -1,7 +1,8 @@
 """Scene fixtures: cornellbox, the procedural benchmark scenes, and the
 camera/transform presets. Same generators and seeds as `tpu_bvh.utils.scenes`,
 so both packages build the same triangles. Also the caterpillar scene of
-the JAX collapse tests and the JAX bench's shadow workload."""
+the JAX collapse tests, the deep chain of its traversal tests and the JAX
+bench's shadow workload."""
 from __future__ import annotations
 
 import math
@@ -14,12 +15,17 @@ from ..types import Camera, Transformation
 from .obj import load_obj
 
 
+# the reference checkout's cornellbox, where the JAX package looks for it
+_REFERENCE_CORNELLBOX = "/root/reference/src/Meshes/cornellbox/cornellBox.obj"
+
+
 def cornellbox() -> np.ndarray:
-    """The cornellbox: the OBJ named by `TPU_BVH_CORNELLBOX` when that file
-    exists (the reference's has 32 triangles), else a procedural box of the
-    same layout (36 triangles)."""
-    path = os.environ.get("TPU_BVH_CORNELLBOX")
-    if path and os.path.exists(path):
+    """The cornellbox, found as the JAX package finds it: the OBJ named by
+    `TPU_BVH_CORNELLBOX`, else the reference's (32 triangles) at
+    `_REFERENCE_CORNELLBOX`; when that file does not exist, a procedural
+    box of the same layout (36 triangles)."""
+    path = os.environ.get("TPU_BVH_CORNELLBOX", _REFERENCE_CORNELLBOX)
+    if os.path.exists(path):
         return load_obj(path)
     return _procedural_cornellbox()
 
@@ -164,6 +170,32 @@ def caterpillar() -> np.ndarray:
         x = 2.0 ** (i - CATERPILLAR_CHAIN)
         tris.append([[x, 0, 0], [x + 1e-6, 1e-6, 0], [x, 0, 1e-6]])
     return np.asarray(tris, np.float32)
+
+
+def deep_chain(n_leaves: int = 64, hot_prim: int = 60) -> dict:
+    """A hand-built Bvh2 deeper than the traversal's stack (the chain of
+    the JAX traversal tests): internal node i has left = leaf i and right =
+    internal i + 1, every box is [-10, 10]^3, so both children always hit
+    and a far leaf is pushed at every level. Only `hot_prim`'s triangle
+    crosses the first ray (at t = 2); the second ray misses the boxes.
+    Returns numpy arrays: node_min, node_max f32[M, 3], left, right i32[M],
+    tris f32[n, 3, 3], origin, direction f32[2, 3]."""
+    n, ni, m = n_leaves, n_leaves - 1, 2 * n_leaves - 1
+    left = np.full(m, -1, np.int32)
+    right = np.full(m, -1, np.int32)
+    left[:ni] = ni + np.arange(ni)
+    right[:ni] = np.append(np.arange(1, ni), m - 1)
+    left[ni:] = np.arange(n)
+    dx = np.where(np.arange(n) == hot_prim, 0.0, 6.0)[:, None]
+    tris = np.zeros((n, 3, 3), np.float32)
+    tris[:, :, 2] = 1.0
+    tris[:, 0, :2] = np.concatenate([-1 + dx, np.full_like(dx, -1)], axis=1)
+    tris[:, 1, :2] = np.concatenate([2 + dx, np.full_like(dx, -1)], axis=1)
+    tris[:, 2, :2] = np.concatenate([dx, np.full_like(dx, 2)], axis=1)
+    return {"node_min": np.full((m, 3), -10.0, np.float32),
+            "node_max": np.full((m, 3), 10.0, np.float32), "left": left, "right": right,
+            "tris": tris, "origin": np.array([[0.0, 0.0, -1.0], [50.0, 50.0, -1.0]], np.float32),
+            "direction": np.array([[0.0, 0.0, 1.0], [0.0, 0.0, 1.0]], np.float32)}
 
 
 def random_meshes(n: int, max_prims: int, seed: int = 0) -> list:
