@@ -11,7 +11,12 @@ rays), the PLOC++ and HPLOC builds, and the gather-free topologies
 on the reference's demo (`pad_meshes` and `build_batched` on 4096 copies of
 the cornellbox, one tree each); and the wavefront traversal of the 512^2
 frame (`pack_bvh2`, `traverse_packed` and the four variants of
-`traverse_bvh2`: the JAX bench's wavefront row). On the way it
+`traverse_bvh2`: the JAX bench's wavefront row); and the app
+(`tpu_bvh_torch.app.main`, as `python -m tpu_bvh_torch.app` runs) on
+sponza 262K at 512^2 with the four staged builds, each with the raster
+render and the speculative traversal (one run also writes the heat map),
+binned SAH on the cornellbox and the batched demo on a 32-triangle box.
+On the way it
 
 1. prints the card (name and power limit from nvidia-smi) and versions;
 2. builds the CUDA kernels from `tpu_bvh_torch/csrc/` (one nvcc per
@@ -53,7 +58,7 @@ frame (`pack_bvh2`, `traverse_packed` and the four variants of
    steps, overflowed rays), and on the 64-deep chain built with
    `Bvh2.from_rows`, whose stack overflows (prim 60 at t = 2, a miss);
 4. runs the main path path by path (build, topology, collapse, render,
-   shadow, ploc, batched, wavefront), every launch counter set to 0 just before each and read
+   shadow, ploc, batched, wavefront, app), every launch counter set to 0 just before each and read
    just after, and checks: every kernel of each path launched (on the
    ploc path one fused-round launch per round and none of B9's or B10's,
    host syncs = rounds + 1 per build); the fast
@@ -80,7 +85,15 @@ frame (`pack_bvh2`, `traverse_packed` and the four variants of
    `traverse_packed` capped at tmax); `trace_rays`' closest hits against
    `traverse_packed` on every ray of the slice, forward and reversed (from
    the light), out past the scene's edge; the leaf-visit heat map is
-   written beside the image;
+   written beside the image; then the app path (counters set to 0
+   before it): B4, B6, B7, `traverse_speculative` and `batched_build`
+   launched; each staged Bvh2 equals the same staged build on the CPU bit
+   for bit and is valid, its printed SAH lines the CPU build's; the
+   raster hits match the speculative ones (bench.py's
+   raster_matches_wavefront); the binned-SAH tree is valid; the batched
+   demo's first tree equals the CPU build; the app's perf block and
+   CUDA-event times per phase are printed beside the card's name and
+   power limit;
 5. times the builds, the fast topologies, the collapse, the renders,
    `shadow_occlusion` and `trace_rays` (medians after warm-up, on CUDA events and on the host
    clock; PLOC and HPLOC in 10 alternating pairs, with the gap per
@@ -101,7 +114,8 @@ frame (`pack_bvh2`, `traverse_packed` and the four variants of
 
 Any failure raises. The last three lines are the kernels JSON line (B1 to
 B16, then the batched build and the five traversal kernels, which replace
-no TPU kernel), the
+no TPU kernel; each row's `launches` counts every path, `app_launches`
+the app path alone), the
 nvidia-smi line and {"ok": true, "device": {...}}. Needs one CUDA device
 and nvcc; it imports no JAX.
 
@@ -110,8 +124,11 @@ Usage: python3 chip_smoke.py [--image PATH]
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -196,6 +213,10 @@ TRAVERSE_RAY_FLOPS = 81
 BATCHED_DEMO = 4096  # the reference's batched demo: copies of the cornellbox (main.cpp:39-47)
 BATCHED_RANDOM = 65_536  # random meshes of 2-32 prims at capacity 32
 BATCHED_WIDE = 4096  # random meshes of 2-64 prims at capacity 64
+APP_SIZE = (512, 512)  # the app phase: sponza 262K at 512^2, as a user runs it
+APP_BUILDERS = ("two_pass", "single_pass", "ploc", "hploc")  # the staged builds
+APP_HEATMAP = ("two_pass", "speculative")  # the run that also writes the heat map
+APP_BATCHED_TRIS = 32  # the batched demo's mesh limit: the procedural box's first 32
 
 
 def parse_args():
@@ -205,6 +226,15 @@ def parse_args():
                     help="where to write the 512^2 render (PNG); its leaf-visit heat map "
                          "goes beside it (_heatmap.png)")
     return ap.parse_args()
+
+
+def write_obj(path, tris):
+    """A triangle soup as an OBJ (every vertex written exactly)."""
+    with open(path, "w") as f:
+        for v in tris.reshape(-1, 3):
+            f.write("v %.9g %.9g %.9g\n" % tuple(v))
+        for k in range(len(tris)):
+            f.write(f"f {3 * k + 1} {3 * k + 2} {3 * k + 3}\n")
 
 
 def time_ms(torch, fn, reps, warmup=2):
@@ -446,6 +476,8 @@ def main():
     from tpu_bvh_torch.utils import camera, image, kernels, scenes, validate
     from tpu_bvh_torch.utils.cost import sah_cost_bvh2, sah_cost_bvh4
     from tpu_bvh_torch.utils.cpu_reference import collapse_cpu
+    from tpu_bvh_torch.utils.timer import Timer
+    from tpu_bvh_torch import app, config
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(
@@ -1150,6 +1182,98 @@ def main():
                 f"{int((both_c & (pc == pw)).sum())}/{int(both_c.sum())}, largest relative t "
                 f"difference {worst!r}, overflow {bool(ovf_c)}")
 
+    # the app as a user runs it (python -m tpu_bvh_torch.app) on sponza 262K at
+    # 512^2: the staged builds with the raster (B4) and the speculative
+    # traversal, binned SAH on the cornellbox, the batched demo on a
+    # 32-triangle box; every launch counter set to 0 just before
+    def app_phase():
+        """Drive and check the app path; returns its launch counts."""
+        app_dir = tempfile.mkdtemp(prefix="tpu_bvh_torch_app_")
+        box32 = os.path.join(app_dir, "cornellbox32.obj")
+        write_obj(box32, scenes._procedural_cornellbox()[:APP_BATCHED_TRIS])
+        wh = ["--width", str(APP_SIZE[0]), "--height", str(APP_SIZE[1])]
+        app_runs = {(b, t): ["--builder", b, "--traversal", t, "--scene", "sponza_like", *wh,
+                             "--out", f"app_{b}_{t}.png"]
+                    + (["--heatmap"] if (b, t) == APP_HEATMAP else [])
+                    for b in APP_BUILDERS for t in ("raster", "speculative")}
+        app_runs[("binned_sah", "speculative")] = [
+            "--builder", "binned_sah", "--scene", "cornellbox", *wh, "--out", "app_binned_sah.png"]
+        app_runs[("batched", None)] = ["--builder", "batched", "--scene", box32]
+
+        def app_path():
+            out = {}
+            cwd = os.getcwd()
+            os.chdir(app_dir)  # the app writes its PNGs to the working directory
+            try:
+                for key, argv in app_runs.items():
+                    print(f"  python -m tpu_bvh_torch.app {' '.join(argv)} (at "
+                          f"{time.perf_counter() - t_start:.1f} s; {smi})", flush=True)
+                    buf = io.StringIO()
+                    with contextlib.redirect_stdout(buf):
+                        res = app.main(argv)
+                    print("    " + buf.getvalue().rstrip().replace("\n", "\n    "), flush=True)
+                    out[key] = (res, buf.getvalue())
+            finally:
+                os.chdir(cwd)
+            return out
+
+        apps, app_counts = run_path("app", ["raster_sweep", "ploc_round", "ploc_finish",
+                                            "traverse_speculative", "batched_build"], app_path)
+        sponza_np = scenes.sponza_like(SPONZA_TRIS)
+        cpu_dev = torch.device("cpu")
+        tri_aabbs_cpu = triangle_aabbs(torch.from_numpy(sponza_np))
+
+        def cost_of(text, what):
+            (line,) = [ln for ln in text.splitlines() if ln.startswith(f"{what} : ")]
+            return float(line.split(" : ")[1])
+
+        for b in APP_BUILDERS:
+            t0 = time.perf_counter()
+            want = app.build_staged(config.parse_args(["--cpu", "--builder", b]), sponza_np,
+                                    cpu_dev, Timer(cpu_dev))
+            cpu_s = time.perf_counter() - t0
+            sah2 = float(sah_cost_bvh2(want))
+            sah4 = float(sah_cost_bvh4(collapse.collapse_bvh2_to_bvh4(want), *tri_aabbs_cpu))
+            for t in ("raster", "speculative"):
+                res, text = apps[(b, t)]
+                require(same_bvh(res["bvh"], want)
+                        and validate.check_bvh2_correctness(res["bvh"], n_tris),
+                        f"app {b}/{t}: staged Bvh2 (packed_t, left, right, root) == the staged CPU "
+                        f"build ({cpu_s:.2f} s on the CPU), valid")
+                got2, got4 = cost_of(text, "Bvh Cost"), cost_of(text, "Bvh4 Cost")
+                require(abs(got2 - sah2) <= 1e-6 * sah2 + 5e-5
+                        and abs(got4 - sah4) <= 1e-6 * sah4 + 5e-5,
+                        f"app {b}/{t}: SAH lines {got2} / {got4} == the CPU build's {sah2!r} / "
+                        f"{sah4!r} (printed to 4 decimals)")
+            hit_r, hit_s = apps[(b, "raster")][0]["hit"], apps[(b, "speculative")][0]["hit"]
+            pr, ps = hit_r.prim_idx.cpu().numpy(), hit_s.prim_idx.cpu().numpy()
+            tr_, ts_ = hit_r.t.cpu().numpy(), hit_s.t.cpu().numpy()
+            both = pr >= 0
+            diff = both & (pr != ps)
+            require(np.array_equal(pr >= 0, ps >= 0) and both.any()
+                    and np.allclose(tr_[both], ts_[both], rtol=1e-4)
+                    and (np.allclose(tr_[diff], ts_[diff], rtol=1e-3) if diff.any() else True),
+                    f"app {b}: raster_matches_wavefront (raster against speculative): "
+                    f"{int(both.sum())} hits, prim match {int((both & (pr == ps)).sum())}/"
+                    f"{int(both.sum())}")
+        res, text = apps[("binned_sah", "speculative")]
+        require(validate.check_bvh2_correctness(res["bvh"], cbox.shape[0])
+                and "Binned Sah Cost : " in text and bool((res["hit"].prim_idx >= 0).any()),
+                "app binned_sah on the cornellbox: valid Bvh2, its SAH line, hits")
+        res, _ = apps[("batched", None)]
+        box_b = batched.pad_meshes([scenes._procedural_cornellbox()[:APP_BATCHED_TRIS]],
+                                   device=cpu_dev)[0]
+        box_first = Bvh2(*(f[0] for f in batched.build_batched(box_b)))
+        require(same_bvh(res["bvh"], box_first),
+                f"app batched demo: the first of {app.BATCHED_COPIES} trees == the CPU build")
+        for key, (res, _) in apps.items():
+            print(f"  app {key}: host ms {res['total_ms']!r} (extents + Morton + sort + build); "
+                  f"CUDA events ms {res['device_ms']} on {smi}", flush=True)
+        shutil.rmtree(app_dir)
+        return app_counts
+
+    app_counts = app_phase()
+
     # phase 5: timings (medians after warm-up; host clock end to end)
     print(f"[5] timings on {smi} (ms: CUDA events / host clock to synchronize; at "
           f"{time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -1370,7 +1494,8 @@ def main():
               f"{notes.get(name, 'launches')} on the main path" + (f"; {info}" if info else ""),
               flush=True)
         row = {"name": name, "tpu_kernel": tpu, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": launches[name], "max_abs_err": errs[name],
+               "replaces": replaces, "launches": launches[name],
+               "app_launches": app_counts[name], "max_abs_err": errs[name],
                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": lib_ms}
         if name == "ploc_finish":

@@ -1,5 +1,6 @@
-"""PyTorch + CUDA port of tpu_bvh: the single-pass LBVH build, both BVH2 ->
-BVH4 collapses, the raster render and the general-ray sweep.
+"""PyTorch + CUDA port of tpu_bvh: the four builders, the batched build,
+both BVH2 -> BVH4 collapses, the raster render, the general-ray sweep,
+the wavefront traversal and the CLI app (`python -m tpu_bvh_torch.app`).
 
 The JAX package `tpu_bvh` is the reference. This package keeps its module
 names, public signatures and array layouts, runs plain PyTorch on CPU

@@ -60,6 +60,11 @@ def morton30_cols(nx, ny, nz):
     return (_spread3(q(nx)) * 4 + _spread3(q(ny)) * 2 + _spread3(q(nz))) & M32
 
 
+def morton30(normalized_pos):
+    """Row form of `morton30_cols` (f32[N, 3] -> int64 [N] of u32 values)."""
+    return morton30_cols(normalized_pos[:, 0], normalized_pos[:, 1], normalized_pos[:, 2])
+
+
 def _axis_order(ext):
     """Sorted axis order (largest extent first) and prebit counts, as host
     ints: num_prebits = (ilog2(e0/e1), ilog2(e1/e2), ilog2(e0/e2)) with
@@ -88,6 +93,20 @@ def _axis_order(ext):
 
     a0, a1, a2 = order
     return order, (ilog2_ratio(a0, a1), ilog2_ratio(a1, a2), ilog2_ratio(a0, a2))
+
+
+def extended_morton30(normalized_pos, scene_extent):
+    """Row form of `extended_morton30_cols`: normalized_pos f32[N, 3],
+    scene_extent f32[3] -> int64 [N] of u32 values."""
+    return extended_morton30_cols(normalized_pos[:, 0], normalized_pos[:, 1],
+                                  normalized_pos[:, 2], scene_extent)
+
+
+def normalize_centroids(centroids, scene_min, scene_extent):
+    """Centroid -> [0, 1)^3: (c - min) / extent, an IEEE f32 division (a
+    zero extent divides by 1), as the builders' column form computes it."""
+    safe = torch.where(scene_extent > 0, scene_extent, 1.0)
+    return (centroids - scene_min) / safe
 
 
 def extended_morton30_cols(px, py, pz, scene_extent):

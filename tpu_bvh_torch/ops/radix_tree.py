@@ -108,6 +108,15 @@ def apetrei_build_packed(codes, leaf_packed_t):
     return apetrei_build_packed_full(codes, leaf_packed_t)[:5]
 
 
+def apetrei_build(codes, leaf_min, leaf_max):
+    """Row form of `apetrei_build_packed`: leaf_min/max f32[n, 3] sorted.
+    Returns (left, right, parent, int_min f32[n-1, 3], int_max, root)."""
+    leaf_packed_t = torch.cat([leaf_min, -leaf_max], dim=1).T.contiguous()
+    left, right, parent, int_packed_t, root = apetrei_build_packed(codes, leaf_packed_t)
+    out = int_packed_t.T
+    return left, right, parent, out[:, :3], -out[:, 3:], root
+
+
 def apetrei_build_packed_full(codes, leaf_packed_t):
     """`apetrei_build_packed` plus the per-node leaf ranges (first, last)."""
     n = codes.shape[0]

@@ -37,6 +37,31 @@ def _shift_min(cur, s):
     return torch.minimum(cur, torch.cat([cur[:, s:], cur[:, -1:].expand(-1, s)], dim=1))
 
 
+def _packed(leaf_min, leaf_max):
+    return torch.cat([leaf_min, -leaf_max], dim=1).T.contiguous()
+
+
+def _rows(out_t):
+    out = out_t.T
+    return out[:, :3], -out[:, 3:]
+
+
+def refit_ranges(leaf_min, leaf_max, first, last):
+    """AABBs of nodes covering sorted-leaf ranges [first, last] (any
+    number of nodes, last > first) from one full min table.
+    leaf_min/max: f32[n, 3] in Morton-sorted leaf order; first/last: i32[m].
+    Returns (node_min f32[m, 3], node_max f32[m, 3])."""
+    return _rows(_refit_full_table(_packed(leaf_min, leaf_max), first, last))
+
+
+def refit_anchored(leaf_min, leaf_max, first, last, radius: int = 16):
+    """Row form of `refit_anchored_packed` (radius below 15 takes
+    `refit_ranges`, as JAX's does). Returns (node_min, node_max) f32[n-1, 3]."""
+    if radius < 15:
+        return refit_ranges(leaf_min, leaf_max, first, last)
+    return _rows(refit_anchored_packed(_packed(leaf_min, leaf_max), first, last, radius))
+
+
 def refit_anchored_packed(packed_t, first, last, radius: int = RADIUS):
     """packed_t: f32[6, n] sorted leaf columns; first/last: i32[n-1].
     Returns packed f32[6, n-1] (min xyz, -max xyz) of every internal node."""

@@ -1,5 +1,8 @@
-"""PNG output, barycentric shading and the leaf-visit heat map
-(dependency-free zlib PNG encoder)."""
+"""PNG output, barycentric shading and the leaf-visit heat map.
+
+`write_png` uses the repo's C++ writer (`utils/native.py`) when it loads,
+else the dependency-free zlib encoder below; both write the same pixels.
+"""
 from __future__ import annotations
 
 import struct
@@ -13,11 +16,18 @@ def _np(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def write_png(path: str, rgba: np.ndarray) -> None:
-    """rgba: u8[H, W, 4]."""
+def write_png(path: str, rgba: np.ndarray, prefer_native: bool = True) -> str:
+    """rgba: u8[H, W, 4]. Returns the codec that wrote the file: "native"
+    (the C++ writer, when `prefer_native` and the library loads) or
+    "python"."""
     h, w, c = rgba.shape
     if c != 4 or rgba.dtype != np.uint8:
         raise ValueError("write_png expects u8[H, W, 4]")
+    if prefer_native:
+        from . import native
+
+        if native.write_png(path, rgba):
+            return "native"
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
@@ -30,6 +40,7 @@ def write_png(path: str, rgba: np.ndarray) -> None:
     out += chunk(b"IEND", b"")
     with open(path, "wb") as f:
         f.write(out)
+    return "python"
 
 
 def shade_barycentric(hit_prim, hit_u, hit_v, width: int, height: int) -> np.ndarray:

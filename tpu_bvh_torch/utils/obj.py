@@ -1,12 +1,20 @@
 """Minimal OBJ mesh loader: v / f records, polygon fan triangulation,
-negative indices. Returns a flat triangle soup."""
+negative indices. Returns a flat triangle soup. `load_obj` uses the
+repo's C++ loader (`utils/native.py`) when it loads."""
 from __future__ import annotations
 
 import numpy as np
 
 
-def load_obj(path: str) -> np.ndarray:
-    """Parse an OBJ file into a triangle soup f32[N, 3, 3]."""
+def load_obj(path: str, prefer_native: bool = True) -> np.ndarray:
+    """Parse an OBJ file into a triangle soup f32[N, 3, 3], with the C++
+    loader when `prefer_native` and the library loads, else in Python."""
+    if prefer_native:
+        from . import native
+
+        tris = native.load_obj(path)
+        if tris is not None:
+            return tris
     verts: list[tuple[float, float, float]] = []
     faces: list[tuple[int, int, int]] = []
     with open(path, "r", encoding="utf-8", errors="replace") as f:

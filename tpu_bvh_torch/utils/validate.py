@@ -103,3 +103,33 @@ def check_bvh4_correctness(bvh4, n_prims: int) -> bool:
     prims = np.array(prims)
     uniq = np.unique(prims)
     return bool(len(prims) == n_prims and len(uniq) == n_prims)
+
+
+def reference_radix_tree_ranges(codes) -> list[tuple[int, int]]:
+    """Golden model: the sorted leaf ranges of the radix tree over the
+    sorted (code, index) keys, built by direct recursion (the split of a
+    range is its first least common prefix). Both LBVH topologies must
+    give exactly this set."""
+    codes = _as_np(codes)
+    n = len(codes)
+    keys = [((int(codes[i]) & 0xFFFFFFFF) << 32) | i for i in range(n)]
+
+    def delta(a, b):
+        return 64 - (keys[a] ^ keys[b]).bit_length()
+
+    ranges = []
+
+    def rec(lo, hi):
+        if lo == hi:
+            return
+        best, arg = None, lo
+        for j in range(lo, hi):
+            d = delta(j, j + 1)
+            if best is None or d < best:
+                best, arg = d, j
+        ranges.append((lo, hi))
+        rec(lo, arg)
+        rec(arg + 1, hi)
+
+    rec(0, n - 1)
+    return sorted(ranges)
