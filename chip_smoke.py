@@ -53,9 +53,12 @@ On the way it
    4096 of 2-64 at capacity 64 and on the +-0 soup in meshes of 32, with
    every tree of each checked valid, and its refusal of capacity 65 before
    a launch; the traversal kernels (`traverse_packed` and the four
-   variants, one thread a ray) on sponza's 512^2 frame against their plain
-   versions on the whole frame, their device counters (node steps, leaf
-   steps, overflowed rays), and on the 64-deep chain built with
+   variants: persistent lanes that fetch their rays) on sponza's 512^2
+   frame and on the reversed shadow slice (65,536 rays from the light
+   toward the 1080p frame's hit points, every one a hit; the origin one
+   row, stride 0) against their plain versions on every ray, their device
+   counters (node steps, leaf steps, overflowed rays) against the pins of
+   the one-thread-a-ray kernel, and on the 64-deep chain built with
    `Bvh2.from_rows`, whose stack overflows (prim 60 at t = 2, a miss);
 4. runs the main path path by path (build, topology, collapse, render,
    shadow, ploc, batched, wavefront, app), every launch counter set to 0 just before each and read
@@ -103,19 +106,24 @@ On the way it
    inputs (B11 also beside `torch.cummin`), and B4 at both sizes with its
    split's counters; the batched kernel (events) and `build_batched` (host
    clock, meshes/s) on its four inputs, each with its bound and the share
-   reached; the traversal kernels at 512^2 (events and host clock,
-   Mrays/s), with bounds from the rows their steps stood on (counted by a
-   launch that marks them) and their step counters;
+   reached; the traversal kernels on the 512^2 frame and on the reversed
+   shadow slice (events and host clock, Mrays/s, the plain version on the
+   slice), with bounds and their shares from the rows their steps stood on
+   (counted by a launch that marks them; pinned on the frame), their step
+   counters and SIMD efficiency (lane steps over 32 x warp steps);
 6. checks, from one torch.profiler trace each, that the dense refit (both
    entries), the collapse kernel, the topology scan (B1), the psv/nsv
    scans (B12/B13, B14) and `build_batched` launch one kernel a call, the
-   last four with no memset, and prints the grid of B1's and B12's launch on sponza and
+   last four with no memset, that each traversal kernel on the frame's
+   camera rays (a stride-0 origin) is one kernel and one memset a call,
+   and prints the grid of B1's and B12's launch on sponza and
    B12's SM cycles per phase (its clock64 stamps).
 
 Any failure raises. The last three lines are the kernels JSON line (B1 to
 B16, then the batched build and the five traversal kernels, which replace
 no TPU kernel; each row's `launches` counts every path, `app_launches`
-the app path alone), the
+the app path alone; a traversal row also holds its host ms, SIMD
+efficiency and, under `shadow_rev`, its numbers on the reversed slice), the
 nvidia-smi line and {"ok": true, "device": {...}}. Needs one CUDA device
 and nvcc; it imports no JAX.
 
@@ -210,6 +218,18 @@ TRAVERSE_STEP_BYTES = {"packed": (64, 48), "bvh2": (56, 40)}
 # triangle test) and a ray (two inverse transforms, three reciprocals)
 TRAVERSE_STEP_FLOPS = (48, 203)
 TRAVERSE_RAY_FLOPS = 81
+# the traversal's inputs: the 512^2 frame (mostly misses) and the reversed
+# shadow slice (from the light toward the 1080p frame's hit points)
+TRAVERSE_INPUTS = {"frame": f"sponza {WAVEFRONT[0]}x{WAVEFRONT[1]}",
+                   "shadow_rev": "the reversed shadow slice"}
+# each traversal kernel's device counters on them (node steps, leaf steps,
+# overflowed rays: they depend only on each ray's own walk, on the stack
+# kernels and the restart trail) and, on the frame, the internal and leaf
+# rows its steps stood on
+TRAVERSE_PINS = {("frame", "stack"): (880_752, 78_616, 0, 872, 382),
+                 ("frame", "restart_trail"): (1_489_452, 69_812, 0, 846, 377),
+                 ("shadow_rev", "stack"): (1_217_710, 147_026, 0),
+                 ("shadow_rev", "restart_trail"): (2_662_562, 141_471, 0)}
 BATCHED_DEMO = 4096  # the reference's batched demo: copies of the cornellbox (main.cpp:39-47)
 BATCHED_RANDOM = 65_536  # random meshes of 2-32 prims at capacity 32
 BATCHED_WIDE = 4096  # random meshes of 2-64 prims at capacity 64
@@ -478,6 +498,7 @@ def main():
     from tpu_bvh_torch.utils.cpu_reference import collapse_cpu
     from tpu_bvh_torch.utils.timer import Timer
     from tpu_bvh_torch import app, config
+    from tpu_bvh_torch.profile_slice import reversed_shadow_slice
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(
@@ -807,28 +828,33 @@ def main():
     require(refused and batched_build.launches == before,
             f"batched_build refuses capacity {batched_build.MAX_PRIMS + 1} before the launch")
 
-    # the traversal kernels (one thread a ray) on sponza's 512^2 primary
-    # frame, each against its plain version on the card on the whole frame,
-    # floats by their bits
+    # the traversal kernels on sponza's 512^2 primary frame and on the
+    # reversed shadow slice, each against its plain version on the card on
+    # every ray, floats by their bits
     t_packed = traverse.pack_bvh2(bvh, tris)
     t_rays = camera.generate_rays(cam, *WAVEFRONT)
 
     def traversal(v, rays, plain=False):
         return traverse.traverse_by_name(v, bvh, tris, rays, tr, t_packed, plain)
 
-    for v in TRAVERSALS:
-        hit, counts = traversal(v, t_rays)
-        stats = traverse.last_stats.cpu()
-        t0 = time.perf_counter()
-        want = traversal(v, t_rays, plain=True)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-        same_outputs([*hit, counts], [*want[0], want[1]], f"traverse_{v}",
-                     f"sponza {WAVEFRONT[0]}x{WAVEFRONT[1]}, the whole frame "
-                     f"({t_rays.origin.shape[0]} rays; the plain version {plain_s:.2f} s)")
-        require(int(stats[1]) == int(counts.sum()) and int(stats[2]) == 0,
-                f"traverse_{v}: device counters {stats.tolist()} (node steps, leaf steps, "
-                f"overflowed rays): the leaf steps are the counts' sum, no overflow")
+    t_inputs = {"frame": t_rays, "shadow_rev": reversed_shadow_slice(light, fwd, vsel)}
+    for what, rays in t_inputs.items():
+        for v in TRAVERSALS:
+            hit, counts = traversal(v, rays)
+            stats = traverse.last_stats.cpu().tolist()
+            t0 = time.perf_counter()
+            want = traversal(v, rays, plain=True)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            same_outputs([*hit, counts], [*want[0], want[1]], f"traverse_{v}",
+                         f"{TRAVERSE_INPUTS[what]}, every ray ({rays.origin.shape[0]} rays, "
+                         f"{int((hit.prim_idx >= 0).sum())} hits; the plain version "
+                         f"{plain_s:.2f} s)")
+            pin = TRAVERSE_PINS[(what, "restart_trail" if v == "restart_trail" else "stack")]
+            require(stats == list(pin[:3]) and stats[1] == int(counts.sum()),
+                    f"traverse_{v} on {TRAVERSE_INPUTS[what]}: device counters {stats} (node "
+                    f"steps, leaf steps, overflowed rays), the one-thread-a-ray kernel's "
+                    f"{list(pin[:3])}; the leaf steps are the counts' sum")
     # the deep chain: the stack overflows, the ray walks again stackless
     chain = {k: torch.from_numpy(x).to(dev) for k, x in scenes.deep_chain().items()}
     c_bvh = Bvh2.from_rows(chain["node_min"], chain["node_max"], chain["left"], chain["right"],
@@ -1341,27 +1367,48 @@ def main():
               f"build_batched {host!r} ms (host clock) = {B / host * 1e3!r} meshes/s; bound "
               f"{b_ms!r} ms (bytes), {b_ms / k_ev!r} of it reached", flush=True)
     n_wave = t_rays.origin.shape[0]
-    for v in TRAVERSALS:
-        ev, wall = time_ms(torch, lambda: traversal(v, t_rays), reps=20)
-        print(f"  traverse_{v}, sponza {WAVEFRONT[0]}x{WAVEFRONT[1]} ({n_wave} rays), {smi}: "
-              f"{ev!r} / {wall!r} ms = {n_wave / ev / 1e3!r} Mrays/s (events), "
-              f"{n_wave / wall / 1e3!r} Mrays/s (host clock)", flush=True)
-
-    # the rows each traversal kernel stands on in the wavefront frame: the
-    # same launch with the byte map set (after the main path's counts)
-    traverse.count_rows = True
-    t_rows = {}
-    for v in TRAVERSALS:
-        traversal(v, renders[WAVEFRONT][0])
-        t_rows[v] = traverse.last_rows.cpu().tolist()
-    traverse.count_rows = False
-    w_prims = waves["packed"][0][0].prim_idx
-    n_prims = int(torch.unique(w_prims[w_prims >= 0]).numel())
-    require(all(r[0] >= 1 and r[1] >= n_prims for r in t_rows.values())
-            and len({tuple(t_rows[v]) for v in TRAVERSALS[:4]}) == 1,
-            f"traversal rows stood on (internal, leaf) at {WAVEFRONT[0]}x{WAVEFRONT[1]}: {t_rows}; "
-            f"the stack kernels and the packed one the same, every kernel the leaves of the "
-            f"{n_prims} prims hit")
+    # each traversal kernel on each input: the rows its steps stand on (the
+    # same launch with the byte map set, after the main path's counts), its
+    # counters and SIMD efficiency, then its events and host clock
+    t_rows, t_stats, t_simd, t_times = {}, {}, {}, {}
+    for what, rays in t_inputs.items():
+        traverse.count_rows = True
+        for v in TRAVERSALS:
+            traversal(v, rays)
+            t_rows[(what, v)] = traverse.last_rows.cpu().tolist()
+        traverse.count_rows = False
+        for v in TRAVERSALS:
+            traversal(v, rays)
+            t_stats[(what, v)] = traverse.last_stats.cpu().tolist()
+            t_simd[(what, v)] = traverse.simd_efficiency(t_stats[(what, v)],
+                                                         traverse.last_warp_steps)
+        hits = traversal("packed", rays)[0].prim_idx
+        n_prims = int(torch.unique(hits[hits >= 0]).numel())
+        rows_v = {v: t_rows[(what, v)] for v in TRAVERSALS}
+        require(all(r[0] >= 1 and r[1] >= n_prims for r in rows_v.values())
+                and len({tuple(rows_v[v]) for v in TRAVERSALS[:4]}) == 1
+                and (what != "frame" or all(
+                    rows_v[v] == list(TRAVERSE_PINS[(what, "restart_trail" if v == "restart_trail"
+                                                     else "stack")][3:]) for v in TRAVERSALS)),
+                f"traversal rows stood on (internal, leaf), {TRAVERSE_INPUTS[what]}: {rows_v}; "
+                f"the stack kernels and the packed one the same, every kernel the leaves of the "
+                f"{n_prims} prims hit" + ("; the one-thread-a-ray kernel's" if what == "frame"
+                                          else ""))
+        n_r = rays.origin.shape[0]
+        for v in TRAVERSALS:
+            ev, wall = time_ms(torch, lambda: traversal(v, rays), reps=20)
+            p_ms = (time_ms(torch, lambda: traversal(v, rays, plain=True), 1, warmup=0)[0]
+                    if what != "frame" else None)  # the frame's plain time: the kernels line
+            (b_ms, b_by), info = traverse_bound(t_stats[(what, v)], t_rows[(what, v)], v, n_r)
+            t_times[(what, v)] = {"rays": n_r, "ms": ev, "host_ms": wall, "plain_ms": p_ms,
+                                  "bound_ms": b_ms, "bound_by": b_by,
+                                  "simd_efficiency": t_simd[(what, v)]}
+            print(f"  traverse_{v}, {TRAVERSE_INPUTS[what]} ({n_r} rays), {smi}: {ev!r} / "
+                  f"{wall!r} ms (events / host clock) = {n_r / ev / 1e3!r} / "
+                  f"{n_r / wall / 1e3!r} Mrays/s; bound {b_ms!r} ms ({b_by}; {b_ms / ev!r} of it "
+                  f"reached); SIMD efficiency {t_simd[(what, v)]!r}"
+                  + (f"; plain {p_ms!r} ms" if p_ms is not None else "") + f"; {info}",
+                  flush=True)
 
     mat, n, r_pt, r_first, r_last = inputs["refit"]
     rows, m_c, c_out = inputs["collapse"]
@@ -1380,7 +1427,7 @@ def main():
                           f"{demo_what}, {demo_t.shape[0]} x {demo_t.shape[1]}"),
         # the traversal kernels: the steps of the main path's run, the rows
         # stood on counted by the same kernel on the same rays
-        **{f"traverse_{v}": traverse_bound(waves[v][1].cpu(), t_rows[v], v, n_wave)
+        **{f"traverse_{v}": traverse_bound(waves[v][1].cpu(), t_rows[("frame", v)], v, n_wave)
            for v in TRAVERSALS},
     }
     # PLOC's first round (all clusters, shift 32) for B10, B9 and the round;
@@ -1505,6 +1552,10 @@ def main():
             row["launches_are"] = notes[name]
         if tpu is None:
             row["replaces_no_tpu_kernel"] = f"{replaces} is XLA ops, not a pl.pallas_call"
+        if name.startswith("traverse_"):  # and on the reversed shadow slice
+            v = name[len("traverse_"):]
+            row.update(host_ms=k_wall, simd_efficiency=t_simd[("frame", v)],
+                       shadow_rev=t_times[("shadow_rev", v)])
         rows_json.append(row)
     k_ms, _ = time_ms(torch, lambda: refit_dense.refit_dense_cols(r_pt, r_first, r_last, n,
                                                                   refit.RADIUS), 20)
@@ -1566,6 +1617,11 @@ def main():
         require(len(names) == 1 and (memsets == 0 or not no_memset),
                 f"{name}: one kernel a call in a torch.profiler trace {names}"
                 + (f", no memset ({memsets})" if no_memset else ""))
+    for v in TRAVERSALS:  # the frame's camera rays: a stride-0 origin, read in place
+        names, memsets = kernels_per_call(torch, lambda: traversal(v, t_rays))
+        require(len(names) == 1 and memsets == 1,
+                f"traverse_{v} (the {WAVEFRONT[0]}x{WAVEFRONT[1]} frame, a stride-0 origin): one "
+                f"kernel and one memset (the counters) a call in a torch.profiler trace {names}")
     for name, topo_grid in (("scan32", True), ("psv_nsv_packed", False)):
         print(f"  {name} on sponza's deltas (m={m_t}): grid "
               f"{threshold_core.launch_grid(m_t, dev, topology=topo_grid)}", flush=True)

@@ -8,6 +8,8 @@ are installed:
 """
 import json
 import os
+import subprocess
+import sys
 import tempfile
 
 import numpy as np
@@ -991,8 +993,8 @@ def test_traverse_kernel_deep_tree_overflow(cuda, variant):
 
 
 def test_traverse_kernel_takes_a_stride0_origin(cuda):
-    """A camera's origins are one row expanded (stride 0): the wrapper makes
-    them contiguous, and the hits equal those of materialized origins."""
+    """A camera's origins are one row expanded (stride 0): the kernel reads
+    them in place, and the hits equal those of materialized origins."""
     bvh, tris, rays, tr = _traverse_case("cornellbox", cuda)
     assert rays.origin.stride(0) == 0
     got = traverse.traverse_packed(traverse.pack_bvh2(bvh, tris), bvh.n_internal, bvh.root, rays, tr)
@@ -1001,6 +1003,106 @@ def test_traverse_kernel_takes_a_stride0_origin(cuda):
                                              bvh.root, dense, tr))
     _same_hits(traverse.traverse_bvh2(bvh, tris, rays, tr, "speculative"),
                traverse.traverse_bvh2_reference(bvh, tris, dense, tr, "speculative"))
+
+
+_ONE_LAUNCH = """
+import json, os, sys, tempfile
+import torch
+sys.path.insert(0, sys.argv[1])
+from tpu_bvh_torch.models import lbvh
+from tpu_bvh_torch.ops import traverse
+from tpu_bvh_torch.utils import camera, scenes
+dev = torch.device("cuda")
+tris = torch.from_numpy(scenes.cornellbox()).to(dev)
+tr, cam = scenes.preset("cornellbox", dev)
+bvh = lbvh.build_two_pass(tris)
+packed = traverse.pack_bvh2(bvh, tris)
+rays = camera.generate_rays(cam, 96, 64)
+assert rays.origin.stride(0) == 0
+calls = [lambda: traverse.traverse_packed(packed, bvh.n_internal, bvh.root, rays, tr)]
+calls += [lambda v=v: traverse.traverse_bvh2(bvh, tris, rays, tr, v) for v in traverse.VARIANTS]
+for fn in calls:
+    fn()
+torch.cuda.synchronize()
+acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+out = []
+for fn in calls:
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    out.append([[e["name"] for e in events if e.get("cat") == "kernel"],
+                sum(e.get("cat") == "gpu_memset" for e in events)])
+print(json.dumps(out))
+"""
+
+
+def test_traverse_kernel_is_one_launch_a_call(cuda):
+    """`traverse_packed` and each `traverse_bvh2` variant on a camera's rays
+    (a stride-0 origin, read in place) are one CUDA kernel and one memset
+    (the counters) a call: a torch.profiler trace of one call each, in a
+    process of their own (a later trace in a pytest process can come back
+    empty)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", _ONE_LAUNCH, root], capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    calls = json.loads(res.stdout.strip().splitlines()[-1])
+    assert len(calls) == len(traverse.KERNELS)
+    for names, memsets in calls:
+        assert len(names) == 1 and "traverse_kernel" in names[0] and memsets == 1, (names, memsets)
+
+
+@pytest.mark.parametrize("variant", list(traverse.KERNELS))
+@pytest.mark.parametrize("n", [1, 31, 33, "past_a_wave"])
+def test_traverse_kernel_ray_counts(cuda, variant, n):
+    """The persistent warps at ray counts below, around and past one warp,
+    and past what one wave of the card holds (every SM full: 2048 threads):
+    every ray's hit and count bit-equal to the plain engine's."""
+    bvh, tris, rays, tr = _traverse_case("soup", cuda)
+    if n == "past_a_wave":
+        n = torch.cuda.get_device_properties(cuda).multi_processor_count * 2048 + 777
+        reps = -(-n // rays.origin.shape[0])
+        rays = Rays(*(x.repeat(reps, *([1] * (x.dim() - 1)))[:n] for x in rays))
+    else:
+        rays = Rays(*(x[:n] for x in rays))
+    got = traverse.traverse_by_name(variant, bvh, tris, rays, tr)
+    want = traverse.traverse_by_name(variant, bvh, tris, rays, tr, plain=True)
+    _same_hits(got, want)
+    stats = traverse.last_stats.cpu().tolist()
+    assert stats[1] == int(got[1].sum()) and stats[2] == 0
+    assert int(traverse.last_warp_steps) * 32 >= stats[0] + stats[1] > 0
+
+
+@pytest.mark.parametrize("variant", list(traverse.KERNELS))
+def test_traverse_kernel_mixes_overflowing_and_ordinary_rays(cuda, variant):
+    """Rays that overflow the stack (they enter the deep chain's boxes) and
+    rays that miss them share warps, and lanes take new rays after an
+    overflow: hits and counts bit-equal to the plain engine, one overflowed
+    ray a ray that enters (none for the restart trail)."""
+    d = scenes.deep_chain(50, 40)
+    rows = [torch.from_numpy(d[k]).to(cuda) for k in ("node_min", "node_max", "left", "right")]
+    bvh = Bvh2.from_rows(*rows, torch.tensor(0, dtype=torch.int32, device=cuda))
+    rng = np.random.default_rng(9)
+    n = 1000
+    starts = np.array([[0.0, 0.0, -1.0], [6.5, 0.0, -1.0], [3.0, 5.0, -1.0], [50.0, 50.0, -1.0],
+                       [-40.0, 0.0, 0.0]], np.float32)
+    dirs = np.array([[0, 0, 1], [0, 0, 1], [0, 0, 1], [0, 0, 1], [0, 1, 0]], np.float32)
+    pick = rng.integers(0, len(starts), n)
+    rays = Rays(torch.from_numpy(starts[pick]).to(cuda), torch.from_numpy(dirs[pick]).to(cuda),
+                torch.zeros(n, device=cuda), torch.full((n,), 3.4e38, device=cuda))
+    tris = torch.from_numpy(d["tris"]).to(cuda)
+    tr = identity_transform(cuda)
+    got = traverse.traverse_by_name(variant, bvh, tris, rays, tr)
+    stats = traverse.last_stats.cpu().tolist()
+    _same_hits(got, traverse.traverse_by_name(variant, bvh, tris, rays, tr, plain=True))
+    entering = int((np.abs(starts[pick, 0]) < 10).sum())
+    assert stats[2] == (0 if variant == "restart_trail" else entering)
+    assert {40, -1} < set(got[0].prim_idx.tolist())
 
 
 def test_traverse_kernel_launch_counter_and_no_rays(cuda):

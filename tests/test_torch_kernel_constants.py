@@ -35,6 +35,10 @@ def _constexpr(source: str, name: str) -> int:
     ("psv_scan.cuh", "kV", lambda: threshold_core.V),
     ("batched_build.cu", "kMaxPrims", lambda: batched_build.MAX_PRIMS),
     ("traverse.cu", "kStackDepth", lambda: traverse.STACK_DEPTH),
+    ("traverse.cu", "kBlock", lambda: traverse.BLOCK),
+    ("traverse.cu", "kSmallBlock", lambda: traverse.SMALL_BLOCK),
+    ("traverse.cu", "kFetch", lambda: traverse.FETCH),
+    ("traverse.cu", "kStats", lambda: traverse.STATS),
 ])
 def test_python_mirror_equals_source(source, name, mirror):
     assert mirror() == _constexpr(source, name)
@@ -43,3 +47,8 @@ def test_python_mirror_equals_source(source, name, mirror):
 def test_finisher_width_is_its_slices():
     assert ploc_round.MAX_FIN_WIDTH == ploc_round.FIN_CTAS * ploc_round.FIN_CAP
     assert ploc_round.FIN_ONE_CTA <= ploc_round.FIN_CAP
+
+
+def test_traversal_block_is_whole_warps():
+    """The traversal sums its counters over whole warps, then the block."""
+    assert traverse.BLOCK % 32 == 0 and traverse.SMALL_BLOCK % 32 == 0 and traverse.FETCH >= 1

@@ -31,7 +31,7 @@ from tpu_bvh.utils import cpu_reference as jcpu_reference
 from tpu_bvh.utils import image as jimage
 from tpu_bvh.utils import scenes as jscenes
 from tpu_bvh_torch.ops import aabb, traverse
-from tpu_bvh_torch.types import Bvh2, Rays, Transformation, identity_transform
+from tpu_bvh_torch.types import Bvh2, HitInfo, Rays, Transformation, identity_transform
 from tpu_bvh_torch.utils import convert, cpu_reference, image, scenes
 
 VARIANTS = list(traverse.VARIANTS)
@@ -341,3 +341,330 @@ def test_identity_transform_equals_jax():
     got = identity_transform(device="cpu")
     for g, w in zip(got, jidentity()):
         assert _bits(g).tobytes() == _bits(w).tobytes()
+
+
+# ------------------------------------------- the kernel's schedule, emulated on the CPU
+
+
+def _take(pool, n, lanes, fetch, counter):
+    """The kernel's `Pool::take` for one lane: the next ray of its block's
+    chunk (one shared atomic) of the rays past the grid's `lanes`; the lane
+    that finds the chunk spent fetches the next `fetch` of them from the
+    shared counter. -1 once the rays are spent."""
+    while True:
+        base, k = lanes + pool["base"], pool["taken"]
+        pool["taken"] += 1
+        if base >= n:
+            return -1
+        if k < fetch:
+            return base + k if base + k < n else -1
+        nxt = counter[0]
+        counter[0] += fetch
+        pool.update(base=min(nxt, max(n - lanes, 0)), taken=0)
+
+
+class _Warp:
+    """One persistent block of `csrc/traverse.cu`'s schedule, one warp of
+    `lanes` lanes with a pool of its own. Its lanes walk with the plain
+    engine's step functions (`traverse._node_step`, `_leaf_step`,
+    `_packed_step`, `_trail_step`), one outer-loop pass each at a time; a
+    lane whose ray has ended takes its next one at once (the speculative
+    shape: every lane, when the warp's outer vote ends), in lane order, and
+    every piece of per-ray state is reset then, except the stack's slots,
+    which the kernel does not clear either."""
+
+    def __init__(self, kernel, bvh, tris, packed, rays, tr, lanes, fetch, counter, out,
+                 restarts, block, blocks):
+        self.kernel, self.bvh, self.tris, self.packed = kernel, bvh, tris, packed
+        self.restarts = restarts
+        self.rays, self.tr, self.fetch, self.counter, self.out = rays, tr, fetch, counter, out
+        self.n = rays.origin.shape[0]
+        self.ni = bvh.n_internal
+        self.nodes = (bvh.node_min, bvh.node_max, bvh.left, bvh.right)
+        self.lane_fetch = (traverse._packed_fetch(packed) if kernel == "packed"
+                           else traverse._bvh2_fetch(bvh, tris))
+        self.ids = torch.arange(lanes)
+        self.ray = torch.full((lanes,), -1, dtype=torch.int64)
+        self.node = torch.full((lanes,), traverse.INVALID, dtype=torch.int32)
+        self.stack = torch.full((lanes, traverse.STACK_DEPTH), 12345, dtype=torch.int32)
+        self.stack[:, 0] = traverse.INVALID
+        self.top = torch.ones(lanes, dtype=torch.int32)
+        self.hit = traverse._fresh_hit(lanes, "cpu")
+        self.counts = torch.zeros(lanes, dtype=torch.int32)
+        self.lane_rays = Rays(torch.zeros(lanes, 3), torch.ones(lanes, 3), torch.zeros(lanes),
+                              torch.zeros(lanes))
+        self.t_org, self.t_inv = traverse._transform_rays(self.lane_rays, tr)
+        self.walk = traverse._trail_start(bvh.root, lanes, "cpu")
+        self.pool = {"base": 0, "taken": fetch}  # a spent chunk: the first taker fetches
+        self.first = torch.arange(block * lanes, (block + 1) * lanes)  # each lane's first ray
+        self.grid_lanes = blocks * lanes
+        self.started = False
+        self.overflows = 0
+
+    def _start(self, new):
+        """The lanes in `new` start their rays: origin, direction, the
+        object-space ray, a fresh hit and count, the root, top 1, the trail."""
+        idx = self.ray[new]
+        org = self.lane_rays.origin.clone()
+        dirs = self.lane_rays.direction.clone()
+        org[new] = self.rays.origin[idx]
+        dirs[new] = self.rays.direction[idx]
+        self.lane_rays = self.lane_rays._replace(origin=org, direction=dirs)
+        t_org, t_inv = traverse._transform_rays(self.lane_rays, self.tr)
+        self.t_org = torch.where(new[:, None], t_org, self.t_org)
+        self.t_inv = torch.where(new[:, None], t_inv, self.t_inv)
+        self.hit = traverse._reset_hit(self.hit, new)
+        self.counts = torch.where(new, 0, self.counts)
+        self.node = torch.where(new, torch.as_tensor(self.bvh.root).to(torch.int32), self.node)
+        self.top = torch.where(new, 1, self.top)
+        walk = traverse._trail_start(self.bvh.root, new.shape[0], "cpu")
+        self.walk = tuple(
+            torch.where(new, w, v) if isinstance(w, torch.Tensor)
+            else (torch.where(new, w[0], v[0]), torch.where(new, w[1], v[1]))
+            for w, v in zip(walk, self.walk))
+
+    def _restart(self, over):
+        """The overflowed lanes walk again through the restart trail from a
+        fresh hit, in their own lanes: they take their rays' restart-trail
+        results (`restarts`, every ray's, walked together once), as the
+        kernel's in-lane walk leaves them."""
+        if not bool(over.any()):
+            return
+        self.overflows += int(over.sum())
+        hit, counts = self.restarts()
+        ids = self.ray[over]
+        self.hit = HitInfo(*(_scatter(h[ids], over, g) for h, g in zip(hit, self.hit)))
+        self.counts = _scatter(counts[ids], over, self.counts)
+
+    def _finish(self, done):
+        for f, field in zip(self.out[:4], self.hit):
+            f[self.ray[done]] = field[done]
+        self.out[4][self.ray[done]] = self.counts[done]
+        self.out[5][self.ray[done]] += 1
+        self.ray = torch.where(done, -1, self.ray)
+
+    def _node_steps(self, act, over):
+        if self.kernel == "packed":
+            self.node, self.top, self.hit, self.counts, over = traverse._packed_step(
+                self.packed, self.ni, self.lane_rays, self.tr, self.t_org, self.t_inv, self.node,
+                self.stack, self.top, self.hit, self.counts, over, self.ids, act)
+            return over
+        self.node, self.top, over = traverse._node_step(
+            self.nodes, self.t_org, self.t_inv, self.node, self.stack, self.top, self.hit.t, act,
+            over, self.ids)
+        return over
+
+    def _leaf_steps(self, act):
+        if self.kernel == "packed":
+            self.node, self.top, self.hit, self.counts, _ = traverse._packed_step(
+                self.packed, self.ni, self.lane_rays, self.tr, self.t_org, self.t_inv, self.node,
+                self.stack, self.top, self.hit, self.counts, torch.zeros_like(act), self.ids, act)
+        else:
+            self.node, self.top, self.hit, self.counts = traverse._leaf_step(
+                self.nodes, self.tris, self.tr, self.lane_rays, self.node, self.stack, self.top,
+                self.hit, self.counts, act, self.ids)
+
+    def _take(self, want):
+        """Each lane in `want` takes its next ray, in lane order, and starts
+        it: its own thread's first, then from the pool."""
+        if not self.started:
+            got = torch.where(want & (self.first < self.n), self.first, -1)
+        else:
+            got = torch.tensor([_take(self.pool, self.n, self.grid_lanes, self.fetch,
+                                      self.counter) if w else -1 for w in want.tolist()],
+                               dtype=torch.int64)
+        new = got >= 0
+        self.ray = torch.where(want, got, self.ray)
+        self._start(new)
+
+    def iterate(self):
+        """One pass of the outer loop; False once the warp has exited."""
+        if self.kernel == "speculative" or not self.started:
+            if self.kernel == "speculative" and bool((self.ray >= 0).any()):
+                raise AssertionError("a speculative warp refills only when all its lanes are done")
+            self._take(torch.ones_like(self.ray, dtype=torch.bool))
+            self.started = True
+        live = self.ray >= 0
+        if not bool(live.any()):
+            return False
+        valid = live & (self.node != traverse.INVALID)
+        internal = valid & (self.node < self.ni)
+        over = torch.zeros_like(live)
+        if self.kernel == "restart_trail":
+            self.walk, self.hit, self.counts, exited = traverse._trail_step(
+                self.lane_fetch, self.ni, traverse._roots(self.bvh.root, live.shape[0], "cpu"),
+                self.lane_rays, self.tr, self.t_org, self.t_inv, self.walk, self.hit,
+                self.counts, live)
+            self._finish(exited)
+            self._take(exited)
+            return True
+        if self.kernel in ("if_if", "packed"):
+            over = self._node_steps(internal, over)
+            self._leaf_steps(live & ~over & (self.node != traverse.INVALID)
+                             & (self.node >= self.ni))
+        elif self.kernel == "while_while":
+            while bool(internal.any()):
+                over = self._node_steps(internal, over)
+                internal = live & ~over & (self.node != traverse.INVALID) & (self.node < self.ni)
+            leaf = live & ~over & (self.node != traverse.INVALID) & (self.node >= self.ni)
+            while bool(leaf.any()):
+                self._leaf_steps(leaf)
+                leaf = live & ~over & (self.node != traverse.INVALID) & (self.node >= self.ni)
+        else:  # speculative: both votes over the whole warp
+            while bool((self.node != traverse.INVALID).any()):
+                internal = (self.node != traverse.INVALID) & (self.node < self.ni)
+                while bool(internal.any()):
+                    before = over
+                    over = self._node_steps(internal, over)
+                    self.node = torch.where(over & ~before, traverse.INVALID, self.node)
+                    internal = (self.node != traverse.INVALID) & (self.node < self.ni)
+                self._leaf_steps((self.node != traverse.INVALID) & (self.node >= self.ni))
+        self._restart(over)
+        done = live & (over | (self.node == traverse.INVALID))
+        self._finish(done)
+        if self.kernel != "speculative":
+            self._take(done)
+        return True
+
+
+def _scatter(values, mask, like):
+    """`values` (one a set lane of `mask`) spread over the lanes."""
+    out = like.clone()
+    out[mask] = values
+    return out
+
+
+def _emulate(kernel, bvh, tris, rays, tr, lanes, warps, fetch, max_passes=20_000):
+    """The kernel's schedule: `warps` blocks of one warp of `lanes` lanes,
+    taking turns one outer-loop pass at a time; each lane's first ray is its
+    own thread's, the rest come through its block's pool, fed `fetch` rays
+    at a time from the shared counter. Returns the hits and counts, how
+    often each ray was written, the rays handed out (the grid's lanes' and
+    the counter's), and the overflows."""
+    n = rays.origin.shape[0]
+    out = (torch.full((n,), -7, dtype=torch.int32), *(torch.full((n,), -7.0) for _ in range(3)),
+           torch.full((n,), -7, dtype=torch.int32), torch.zeros(n, dtype=torch.int64))
+    counter = [0]
+    packed = traverse.pack_bvh2(bvh, tris) if kernel == "packed" else None
+    fetcher = traverse._packed_fetch(packed) if kernel == "packed" else traverse._bvh2_fetch(bvh,
+                                                                                            tris)
+    trail = []
+
+    def restarts():
+        """Every ray's walk through the restart trail from a fresh hit."""
+        if not trail:
+            t_org, t_inv = traverse._transform_rays(rays, tr)
+            trail.append(traverse._restart_trail_engine(
+                fetcher, bvh.n_internal, bvh.root, rays, tr, t_org, t_inv,
+                torch.zeros(n, dtype=torch.bool), traverse._fresh_hit(n, "cpu"),
+                torch.zeros(n, dtype=torch.int32)))
+        return trail[0]
+
+    ws = [_Warp(kernel, bvh, tris, packed, rays, tr, lanes, fetch, counter, out, restarts, b,
+                warps) for b in range(warps)]
+    running = list(ws)
+    for _ in range(max_passes):
+        running = [w for w in running if w.iterate()]
+        if not running:
+            break
+    assert not running, "the schedule did not end"
+    return ((HitInfo(*out[:4]), out[4]), out[5], min(n, warps * lanes) + counter[0],
+            sum(w.overflows for w in ws))
+
+
+KERNELS = list(traverse.KERNELS)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("name,lanes,warps,fetch", [("cornellbox", 4, 3, 4), ("soup", 8, 2, 11)])
+def test_refill_schedule_equals_jax(name, lanes, warps, fetch, kernel):
+    """The persistent schedule (warps of 4 or 8 lanes, block pools fed 4 or
+    11 rays a fetch) gives every ray JAX's bits, whatever lane and block it
+    lands in: prims and counts as the jitted run, t, u and v as the eager
+    one; each ray is written once, and the counter hands out all rays and,
+    past the chunk that holds the last ray, at most one fetch a block."""
+    case = name if name == "cornellbox" else ("soup500_rotated" if kernel == "packed"
+                                              else "soup300")
+    _, (bvh, tris, rays, tr) = _inputs(case)
+    got, writes, handed, overflows = _emulate(kernel, bvh, tris, rays, tr, lanes, warps, fetch)
+    assert torch.equal(writes, torch.ones_like(writes)) and overflows == 0
+    n = rays.origin.shape[0]
+    assert n <= handed < n + (warps + 1) * fetch
+    _assert_like_jax(case, kernel, got)
+
+
+CHAIN_LEAVES, CHAIN_HOT = 50, 40  # a chain just deep enough to overflow the stack
+
+
+def _chain_mix(seed=5, n=24):
+    """A 50-leaf deep chain with a batch mixing rays that enter its boxes and
+    overflow the stack (hitting the hot prim, one of the stacked triangles,
+    or none) and rays that miss every box (no step past the root)."""
+    d = scenes.deep_chain(CHAIN_LEAVES, CHAIN_HOT)
+    starts = np.array([[0.0, 0.0, -1.0], [6.5, 0.0, -1.0], [3.0, 5.0, -1.0], [50.0, 50.0, -1.0],
+                       [0.0, 0.0, -20.0], [-40.0, 0.0, 0.0]], np.float32)
+    dirs = np.array([[0, 0, 1], [0, 0, 1], [0, 0, 1], [0, 0, 1], [0, 0, 1], [0, 1, 0]],
+                    np.float32)
+    pick = np.random.default_rng(seed).integers(0, len(starts), n)
+    rows = tuple(d[k] for k in ("node_min", "node_max", "left", "right"))
+    return rows, d["tris"], starts[pick], dirs[pick]
+
+
+_CHAIN = {}
+
+
+def _chain_case():
+    """The mixed chain batch on the port (CPU) and what JAX makes of it: the
+    port's plain engine (every kernel gives the restart trail's result for
+    an overflowed ray and a miss at the root otherwise, so one run serves
+    all) and JAX's jitted prims and counts."""
+    if not _CHAIN:
+        rows, tris_np, origin, direction = _chain_mix()
+        n = origin.shape[0]
+        bvh = Bvh2.from_rows(*map(torch.from_numpy, rows), torch.tensor(0, dtype=torch.int32))
+        rays = Rays(torch.from_numpy(origin), torch.from_numpy(direction), torch.zeros(n),
+                    torch.full((n,), 3.4e38))
+        args = (bvh, torch.from_numpy(tris_np), rays, identity_transform(device="cpu"))
+        jbvh = JBvh2.from_rows(*map(jnp.asarray, rows), jnp.int32(0))
+        jrays = JRays(origin=jnp.asarray(origin), direction=jnp.asarray(direction),
+                      tmin=jnp.zeros(n, jnp.float32), tmax=jnp.full(n, 3.4e38, jnp.float32))
+        jhit, jcounts = jtraverse.traverse_bvh2(jbvh, jnp.asarray(tris_np), jrays,
+                                                _jax_identity(), variant="if_if")
+        _CHAIN.update(args=args, entering=np.abs(origin[:, 0]) < 10,
+                      want=traverse.traverse_bvh2_reference(*args, "if_if"),
+                      jax=(np.asarray(jhit.prim_idx), np.asarray(jcounts).astype(np.int64)))
+    return _CHAIN
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_refill_schedule_resets_overflowed_lanes(kernel):
+    """Overflowing and ordinary rays share warps of 4 lanes: a lane that
+    takes a ray after an overflowed one must not inherit its hit, count,
+    stack top or trail. The schedule equals the plain engine on the batch,
+    bit for bit, and JAX's prims and counts; the stack kernels count one
+    overflow a ray that enters the boxes."""
+    case = _chain_case()
+    got, writes, _, overflows = _emulate(kernel, *case["args"], 4, 2, 6)
+    for g, w in zip([*got[0], got[1]], [*case["want"][0], case["want"][1]]):
+        assert _bits(g).tobytes() == _bits(w).tobytes()
+    entering = case["entering"]
+    assert torch.equal(writes, torch.ones_like(writes))
+    assert overflows == (0 if kernel == "restart_trail" else int(entering.sum()))
+    assert set(got[0].prim_idx[torch.from_numpy(entering)].tolist()) > {CHAIN_HOT, -1}
+    np.testing.assert_array_equal(got[0].prim_idx.numpy(), case["jax"][0])
+    np.testing.assert_array_equal(got[1].numpy(), case["jax"][1])
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_plain_engine_does_not_depend_on_ray_order(kernel):
+    """Each ray's walk is its own: the plain engine on the rays permuted,
+    then un-permuted, equals it on the given order, bit for bit (the refill
+    hands rays to lanes in any order)."""
+    _, (bvh, tris, rays, tr) = _inputs("soup300")
+    perm = torch.from_numpy(np.random.default_rng(3).permutation(rays.origin.shape[0]))
+    want = traverse.traverse_by_name(kernel, bvh, tris, rays, tr, plain=True)
+    hit, counts = traverse.traverse_by_name(kernel, bvh, tris, Rays(*(x[perm] for x in rays)), tr,
+                                            plain=True)
+    inv = torch.argsort(perm)
+    for g, w in zip([*hit, counts], [*want[0], want[1]]):
+        assert _bits(g[inv]).tobytes() == _bits(w).tobytes()

@@ -25,9 +25,13 @@ and `batched.build_batched` (one kernel launch) on the reference's demo,
 2-32 prims at capacity 32 and on 4096 of 2-64 prims at capacity 64; and
 the wavefront traversal of the 512^2 frame (`traverse.traverse_packed` as
 `traverse_packed_512`, `traverse.traverse_bvh2` with each variant as
-`traverse_<variant>_512`):
-first the median host-clock ms to a synchronize without the profiler,
-then `--reps` calls each under torch.profiler (CPU + CUDA).
+`traverse_<variant>_512`) and of the reversed shadow slice (65,536 rays
+from the light toward the 1080p frame's hit points, all hit; the origin
+one row expanded, stride 0) as `traverse_packed_shadow_rev` and
+`traverse_<variant>_shadow_rev`:
+first the median host-clock ms to a synchronize and the median CUDA-event
+ms around the call, without the profiler, then `--reps` calls each under
+torch.profiler (CPU + CUDA).
 From each Chrome trace it reads:
 
 * device busy: the union of the GPU's kernel, memcpy and memset intervals,
@@ -58,7 +62,7 @@ from .ops import (collapse_block, collapse_fast, plane_scan, ploc_nn, ploc_round
                   raster, raster_gpu, ray_sweep, refit, refit_dense, scan32, threshold_core,
                   traverse)
 from .ops import ploc as ploc_ops
-from .types import PLOC_RADIUS
+from .types import FLT_MAX, PLOC_RADIUS, Rays
 from .utils import camera, scenes
 
 SPONZA_TRIS = 262_000
@@ -69,6 +73,18 @@ BATCHED_DEMO = 4096  # copies of the cornellbox
 BATCHED_RANDOM = 65_536  # random meshes of 2-32 prims at capacity 32
 BATCHED_WIDE = 4096  # random meshes of 2-64 prims at capacity 64
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def reversed_shadow_slice(light, fwd, vsel):
+    """The shadow workload's strided slice reversed (`scenes.shadow_workload`'s
+    light, forward rays and slice indices): from the point light toward each
+    hit point, so every ray hits; the origin is the light's one row expanded
+    (stride 0)."""
+    direction = -fwd[1][vsel]
+    n = direction.shape[0]
+    dev = direction.device
+    return Rays(light.expand(n, 3), direction, torch.zeros(n, device=dev),
+                torch.full((n,), FLT_MAX, device=dev))
 
 
 def _busy_us(events):
@@ -82,20 +98,27 @@ def _busy_us(events):
 
 
 def _host_ms(fn, reps):
-    walls = []
+    """Median host-clock ms of a call to a synchronize, and median CUDA-event
+    ms around the call on its stream."""
+    walls, events = [], []
     for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
+        a.record()
         fn()
+        b.record()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(walls)
+        events.append(a.elapsed_time(b))
+    return statistics.median(walls), statistics.median(events)
 
 
 def profile(name, fn, reps, out_dir, top=8):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    host_ms = _host_ms(fn, reps)
+    host_ms, events_ms = _host_ms(fn, reps)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -118,6 +141,7 @@ def profile(name, fn, reps, out_dir, top=8):
     return {
         "name": name,
         "host_ms": host_ms,
+        "events_ms": events_ms,
         "wall_ms_profiled": wall_ms,
         "device_busy_ms": busy_ms,
         "busy_share_profiled": busy_ms / wall_ms,
@@ -161,7 +185,7 @@ def main():
         )
     rays = camera.generate_rays(cam, 1920, 1080)
     hit = raster_gpu.render_raster_gpu(packed, rays, tr, 1920, 1080, *RENDERS[(1920, 1080)])[0]
-    points, live, light, eps = scenes.shadow_workload(tris, rays, hit)[:4]
+    points, live, light, eps, fwd, vsel, _ = scenes.shadow_workload(tris, rays, hit)
     calls["shadow_occlusion"] = lambda: ray_sweep.shadow_occlusion(
         packed, points, live, light, tr, eps, *SHADOW_CAPS)
     codes = lbvh._sorted_leaves_from_tris(tris, True)[0]
@@ -225,13 +249,16 @@ def main():
     calls[f"batched_{BATCHED_RANDOM}"] = lambda: batched.build_batched(many)
     wide = batched.pad_meshes(scenes.random_meshes(BATCHED_WIDE, 64, 3), 64, device=dev)[0]
     calls[f"batched_{BATCHED_WIDE}x64"] = lambda: batched.build_batched(wide)
-    # the wavefront traversal of the 512^2 frame (one kernel launch a call)
+    # the wavefront traversal (one kernel launch a call) of the 512^2 frame
+    # and of the reversed shadow slice
     t_packed = traverse.pack_bvh2(aux[0], tris)
-    t_rays = camera.generate_rays(cam, 512, 512)
-    calls["traverse_packed_512"] = lambda: traverse.traverse_packed(
-        t_packed, aux[0].n_internal, aux[0].root, t_rays, tr)
-    for v in traverse.VARIANTS:
-        calls[f"traverse_{v}_512"] = lambda v=v: traverse.traverse_bvh2(aux[0], tris, t_rays, tr, v)
+    for what, t_rays in (("512", camera.generate_rays(cam, 512, 512)),
+                         ("shadow_rev", reversed_shadow_slice(light, fwd, vsel))):
+        calls[f"traverse_packed_{what}"] = lambda t_rays=t_rays: traverse.traverse_packed(
+            t_packed, aux[0].n_internal, aux[0].root, t_rays, tr)
+        for v in traverse.VARIANTS:
+            calls[f"traverse_{v}_{what}"] = (
+                lambda v=v, t_rays=t_rays: traverse.traverse_bvh2(aux[0], tris, t_rays, tr, v))
     if args.calls:
         calls = {k: v for k, v in calls.items() if k in args.calls}
     print(f"card: {smi} | torch {torch.__version__} | cuda {torch.version.cuda}", flush=True)
@@ -239,7 +266,8 @@ def main():
     for name, fn in calls.items():
         row = profile(name, fn, args.reps, out_dir)
         rows.append(row)
-        print(f"{name}: host {row['host_ms']!r} ms | under profiler: wall "
+        print(f"{name}: host {row['host_ms']!r} ms, events {row['events_ms']!r} ms | under "
+              f"profiler: wall "
               f"{row['wall_ms_profiled']!r} ms, device busy {row['device_busy_ms']!r} ms, "
               f"busy share {row['busy_share_profiled']!r}, kernels/call "
               f"{row['kernels_per_call']!r}, memsets/call {row['memsets_per_call']!r}", flush=True)

@@ -53,9 +53,10 @@ _SIGNATURES = {
     "tbvh_child_positions": [_P, _I, _P, _P, _P, _P, _P],
     "tbvh_plane_scan": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
     "tbvh_batched_build": [_P, _I, _I, _P, _P, _P, _P, _P],
-    "tbvh_traverse_bvh2": [_I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _P,
-                           _P, _P, _P, _P, _P, _P, _P, _P],
-    "tbvh_traverse_packed": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "tbvh_traverse_bvh2": [_I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _I,
+                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "tbvh_traverse_packed": [_P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P,
+                             _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None
