@@ -96,7 +96,23 @@ On the way it
    raster_matches_wavefront); the binned-SAH tree is valid; the batched
    demo's first tree equals the CPU build; the app's perf block and
    CUDA-event times per phase are printed beside the card's name and
-   power limit;
+   power limit; then the sharded path (`tpu_bvh_torch.parallel`), its
+   ranks started by `comm.spawn` after the kernels are built: NCCL at world
+   size 1 (`build_single_pass_sharded` and `to_bvh2` on sponza 262K), then
+   4 gloo ranks sharing the card (NCCL refuses two ranks on one card),
+   which drive the sharded build, `to_bvh2`, `sharded_scene_extents`,
+   `build_batched_sharded` on the demo (1024 meshes a rank),
+   `traverse_sharded` and `render_raster_sharded` on the 512^2 frame over
+   the assembled tree, counters set to 0 just before and read just after
+   on each rank; rank 0 gathers the counts and checks that B4, the
+   speculative traversal and the batched build launched on every rank;
+   both assembled trees equal the GPU single-pass build bit for bit
+   without overflow, the gloo tree is valid and on its SAH pin, the
+   extents equal the unsharded ones, and the batched trees, the
+   traversal's hits and counts and the raster strips, concatenated in rank
+   order, equal the unsharded calls' on the card bit for bit; each
+   sharded call's host and CUDA-event ms on every rank are printed beside
+   the unsharded call's (the cost of sharding on one card, not scaling);
 5. times the builds, the fast topologies, the collapse, the renders,
    `shadow_occlusion` and `trace_rays` (medians after warm-up, on CUDA events and on the host
    clock; PLOC and HPLOC in 10 alternating pairs, with the gap per
@@ -121,8 +137,9 @@ On the way it
 
 Any failure raises. The last three lines are the kernels JSON line (B1 to
 B16, then the batched build and the five traversal kernels, which replace
-no TPU kernel; each row's `launches` counts every path, `app_launches`
-the app path alone; a traversal row also holds its host ms, SIMD
+no TPU kernel; each row's `launches` counts every path in this process,
+`app_launches` the app path alone, `sharded_launches` the sharded path
+summed over its ranks; a traversal row also holds its host ms, SIMD
 efficiency and, under `shadow_rev`, its numbers on the reversed slice), the
 nvidia-smi line and {"ok": true, "device": {...}}. Needs one CUDA device
 and nvcc; it imports no JAX.
@@ -237,6 +254,16 @@ APP_SIZE = (512, 512)  # the app phase: sponza 262K at 512^2, as a user runs it
 APP_BUILDERS = ("two_pass", "single_pass", "ploc", "hploc")  # the staged builds
 APP_HEATMAP = ("two_pass", "speculative")  # the run that also writes the heat map
 APP_BATCHED_TRIS = 32  # the batched demo's mesh limit: the procedural box's first 32
+SHARDED_RANKS = 4  # gloo ranks sharing the one card (NCCL refuses two ranks on one card)
+SHARDED_REPS = 5  # timed calls of each sharded call, after one warm-up
+SHARDED_DEADLINE = 600.0  # seconds for one launch of ranks; they are killed past it
+# the sharded calls, each beside the unsharded call it shards
+SHARDED_CALLS = {"build_single_pass_sharded": "lbvh.build_single_pass",
+                 "sharded_scene_extents": "the extents' min_key reduction",
+                 "build_batched_sharded": "batched.build_batched",
+                 "traverse_sharded": "traverse.traverse_bvh2 (speculative)",
+                 "render_raster_sharded": "raster_gpu.render_raster_gpu"}
+SHARDED_KERNELS = ("raster_sweep", "traverse_speculative", "batched_build")  # on every rank
 
 
 def parse_args():
@@ -476,6 +503,110 @@ def kernels_per_call(torch, fn):
             sum(e.get("cat") == "gpu_memset" for e in events))
 
 
+def launch_counters():
+    """The port's launch counters: kernel -> (module, counter attribute[,
+    key of a counter dict])."""
+    from tpu_bvh_torch.ops import (batched_build, collapse_block, plane_scan, ploc_nn, ploc_round,
+                                   raster_gpu, ray_sweep, refit_dense, scan32, threshold_core,
+                                   traverse)
+    return {
+        "scan32": (scan32, "launches"), "refit_dense": (refit_dense, "launches"),
+        "collapse_block": (collapse_block, "launches"), "raster_sweep": (raster_gpu, "launches"),
+        "ray_sweep": (ray_sweep, "launches"), "ploc_round": (ploc_round, "rounds"),
+        "ploc_finish": (ploc_round, "finish_launches"),
+        "ploc_emit_compact": (ploc_round, "emit_launches"), "ploc_nn": (ploc_nn, "launches"),
+        "ploc_round_fused": (ploc_round, "fused_rounds"), "plane_scan": (plane_scan, "launches"),
+        "psv_nsv_packed": (threshold_core, "launches"),
+        "psv_nsv_packed_lanes": (threshold_core, "launches"),
+        "psv_nsv_payload": (threshold_core, "payload_launches"),
+        "child_positions": (threshold_core, "child_launches"),
+        "scan32_halves": (scan32, "half_launches"),
+        "batched_build": (batched_build, "launches"),
+        # the traversal kernels count by kernel in one dict
+        **{f"traverse_{v}": (traverse, "launches", v) for v in TRAVERSALS},
+    }
+
+
+def reset_counts(counters):
+    for mod, attr, *key in counters.values():
+        if key:
+            getattr(mod, attr)[key[0]] = 0
+        else:
+            setattr(mod, attr, 0)
+
+
+def read_counts(counters):
+    return {name: getattr(mod, attr)[key[0]] if key else getattr(mod, attr)
+            for name, (mod, attr, *key) in counters.items()}
+
+
+def sharded_rank(dev, sponza, cbox, full):
+    """One rank of the sharded phase (`comm.spawn` runs it in a process of
+    its own): the sharded path on sponza with every launch counter set to 0
+    just before it and read just after, then each sharded call timed on
+    this rank (CUDA events on its stream and the host clock). `full` drives
+    the whole path (build, `to_bvh2`, extents, the batched demo, the
+    traversal and the raster render of the 512^2 frame over the assembled
+    tree), else the build alone. Rank 0 checks that B4, the speculative
+    traversal and the batched build launched on every rank. Returns numpy:
+    the assembled tree (rank 0), this rank's shards, counts and times."""
+    import torch
+    from tpu_bvh_torch.models import batched
+    from tpu_bvh_torch.ops import raster
+    from tpu_bvh_torch.parallel import sharded, sharded_build
+    from tpu_bvh_torch.utils import camera, scenes
+
+    mesh = sharded.default_mesh()
+    counters = launch_counters()
+    tris = torch.from_numpy(sponza).to(dev)
+    n = tris.shape[0]
+    tr, cam = scenes.preset("sponza", dev)
+    rays = camera.generate_rays(cam, *WAVEFRONT)
+    demo = batched.pad_meshes([cbox] * BATCHED_DEMO, cbox.shape[0], device=dev)[0]
+    caps = dict(zip(("cand_cap", "pair_cap", "group"), RENDERS[WAVEFRONT]))
+
+    def build():
+        sb = sharded_build.build_single_pass_sharded(mesh, tris)
+        return sb, sharded_build.to_bvh2(sb, n, mesh)
+
+    reset_counts(counters)
+    sb, bvh = build()
+    calls = {}
+    if full:
+        packed = raster.pack_raster(bvh, tris, leaf_size=LEAF)
+        calls = {
+            "sharded_scene_extents": lambda: sharded.sharded_scene_extents(mesh, tris),
+            "build_batched_sharded": lambda: sharded.build_batched_sharded(mesh, demo),
+            "traverse_sharded": lambda: sharded.traverse_sharded(mesh, bvh, tris, rays, tr),
+            "render_raster_sharded": lambda: sharded.render_raster_sharded(
+                mesh, packed, rays, tr, *WAVEFRONT, **caps)}
+    res = {k: f() for k, f in calls.items()}
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    names = list(counts)
+    every = mesh.all_gather(torch.tensor([counts[k] for k in names], device=dev)).tolist()
+    if mesh.axis_index() == 0:
+        print(f"  sharded path ({mesh.size} rank(s), {mesh.backend}): launches by rank "
+              f"{[{k: c for k, c in zip(names, row) if c} for row in every]}", flush=True)
+        for k in SHARDED_KERNELS if full else ():
+            if not all(row[names.index(k)] > 0 for row in every):
+                raise AssertionError(f"{k} did not launch on every rank of the sharded path")
+    out = {"rank": mesh.axis_index(), "overflow": bool(sb.overflow),
+           "counts": dict(zip(names, every[mesh.axis_index()])),
+           "times": {k: time_ms(torch, f, SHARDED_REPS, warmup=1)
+                     for k, f in {"build_single_pass_sharded": build, **calls}.items()}}
+    to_np = lambda nt: [f.cpu().numpy() for f in nt]  # noqa: E731
+    if mesh.axis_index() == 0:
+        out["bvh"] = to_np(bvh)
+    if full:
+        out["extents"] = [x.cpu().numpy() for x in res["sharded_scene_extents"]]
+        out["batched"] = to_np(res["build_batched_sharded"])
+        hit, hcounts = res["traverse_sharded"]
+        out["traverse"] = to_np(hit) + [hcounts.cpu().numpy()]
+        out["raster"] = to_np(res["render_raster_sharded"])
+    return out
+
+
 def main():
     args = parse_args()
     t_start = time.perf_counter()
@@ -508,22 +639,7 @@ def main():
     sm_mhz = int(subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout.strip())
-    counters = {  # kernel: (module, name of its launch counter)
-        "scan32": (scan32, "launches"), "refit_dense": (refit_dense, "launches"),
-        "collapse_block": (collapse_block, "launches"), "raster_sweep": (raster_gpu, "launches"),
-        "ray_sweep": (ray_sweep, "launches"), "ploc_round": (ploc_round, "rounds"),
-        "ploc_finish": (ploc_round, "finish_launches"),
-        "ploc_emit_compact": (ploc_round, "emit_launches"), "ploc_nn": (ploc_nn, "launches"),
-        "ploc_round_fused": (ploc_round, "fused_rounds"), "plane_scan": (plane_scan, "launches"),
-        "psv_nsv_packed": (threshold_core, "launches"),
-        "psv_nsv_packed_lanes": (threshold_core, "launches"),
-        "psv_nsv_payload": (threshold_core, "payload_launches"),
-        "child_positions": (threshold_core, "child_launches"),
-        "scan32_halves": (scan32, "half_launches"),
-        "batched_build": (batched_build, "launches"),
-        # the traversal kernels count by kernel in one dict
-        **{f"traverse_{v}": (traverse, "launches", v) for v in TRAVERSALS},
-    }
+    counters = launch_counters()
     # phase 1: the card
     print(f"[1] device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch "
           f"{torch.__version__} | cuda {torch.version.cuda} | python {sys.version.split()[0]}",
@@ -876,20 +992,16 @@ def main():
     # phase 4: the main path through the entry points a user calls, path by
     # path, each with every launch counter set to 0 just before it
     print(f"[4] main path on sponza_like({SPONZA_TRIS}): build -> topology -> collapse -> render "
-          f"-> shadow -> ploc; then the batched demo and the wavefront traversal (at "
+          f"-> shadow -> ploc; then the batched demo, the wavefront traversal, the app and the "
+          f"sharded path (at "
           f"{time.perf_counter() - t_start:.1f} s)", flush=True)
     launches = {}
 
     def run_path(path, names, fn):
-        for mod, attr, *key in counters.values():
-            if key:
-                getattr(mod, attr)[key[0]] = 0
-            else:
-                setattr(mod, attr, 0)
+        reset_counts(counters)
         out = fn()
         torch.cuda.synchronize()
-        counts = {name: getattr(mod, attr)[key[0]] if key else getattr(mod, attr)
-                  for name, (mod, attr, *key) in counters.items()}
+        counts = read_counts(counters)
         print(f"  launches in the {path} path: {counts}", flush=True)
         require(all(counts[nm] > 0 for nm in names), f"every kernel of the {path} path launched")
         for nm, c in counts.items():  # over the whole main path
@@ -1300,6 +1412,82 @@ def main():
 
     app_counts = app_phase()
 
+    # the sharded path (tpu_bvh_torch.parallel) on ranks of their own
+    # processes: NCCL at world size 1, then SHARDED_RANKS gloo ranks sharing
+    # the card; each output against the unsharded call's on the card
+    def sharded_phase():
+        """Drive and check the sharded path; returns its launches summed
+        over the ranks."""
+        from tpu_bvh_torch.parallel import comm
+
+        print(f"  sharded path (at {time.perf_counter() - t_start:.1f} s)", flush=True)
+        s_np = sponza[:(sponza.shape[0] // SHARDED_RANKS) * SHARDED_RANKS]
+        require(s_np.shape[0] == n_tris, f"sponza's {n_tris} triangles split over "
+                f"{SHARDED_RANKS} ranks: the main path's tree is the single-device build")
+
+        def same_np(got, want):
+            return all(g.dtype == w.cpu().numpy().dtype and g.tobytes() == w.cpu().numpy().tobytes()
+                       for g, w in zip(got, want))
+
+        runs = {}
+        for world, backend, full in ((1, "nccl", False), (SHARDED_RANKS, "gloo", True)):
+            t0 = time.perf_counter()
+            runs[backend] = comm.spawn(sharded_rank, world, device="cuda", backend=backend,
+                                       args=(s_np, cbox, full), timeout=SHARDED_DEADLINE)
+            print(f"  {world} {backend} rank(s) on {torch.cuda.get_device_name(0)}: "
+                  f"{time.perf_counter() - t0:.1f} s with start-up", flush=True)
+            r0 = runs[backend][0]
+            require(not any(r["overflow"] for r in runs[backend]) and same_np(r0["bvh"], bvh),
+                    f"{backend}, world size {world}: to_bvh2(build_single_pass_sharded) on "
+                    f"sponza {n_tris} == the GPU build_single_pass (packed_t, left, right, root) "
+                    f"bit for bit, no overflow")
+        ranks = runs["gloo"]
+        tree = Bvh2(*(torch.from_numpy(f).to(dev) for f in ranks[0]["bvh"]))
+        valid_bvh2(tree, f"the sharded build over {SHARDED_RANKS} gloo ranks", SAH_PIN)
+        keys = aabb.min_key(bvh.packed_t[:, n_tris - 1:]).amin(dim=1)  # every leaf box
+        want_ext = [aabb.from_min_key(keys[:3]), -aabb.from_min_key(keys[3:])]
+        require(all(same_np(r["extents"], want_ext) for r in ranks),
+                "sharded_scene_extents on every rank == the unsharded extents, bit for bit")
+
+        def cat(key):
+            return [np.concatenate(parts) for parts in zip(*(r[key] for r in ranks))]
+
+        require(same_np(cat("batched"), demo), f"build_batched_sharded on the demo "
+                f"({BATCHED_DEMO // SHARDED_RANKS} meshes a rank) == build_batched, bit for bit")
+        hit_w, counts_w = waves["speculative"][0]
+        require(same_np(cat("traverse"), [*hit_w, counts_w]),
+                f"traverse_sharded on the {WAVEFRONT[0]}x{WAVEFRONT[1]} frame == traverse_bvh2 "
+                f"on every ray (hits and counts, bit for bit)")
+        require(same_np(cat("raster"), renders[WAVEFRONT][1][0]),
+                f"render_raster_sharded at {WAVEFRONT[0]}x{WAVEFRONT[1]} ({SHARDED_RANKS} strips) "
+                f"== render_raster_gpu on every pixel, bit for bit")
+
+        # times: the cost of sharding on one card (ranks share the card and
+        # move their collectives through host memory), not scaling
+        rr = renders[WAVEFRONT][0]
+        caps = RENDERS[WAVEFRONT]
+        plain = {"build_single_pass_sharded": lambda: lbvh.build_single_pass(tris),
+                 "sharded_scene_extents": lambda: aabb.min_key(
+                     aabb.packed_bounds(tris, -2, -1)).amin(0),
+                 "build_batched_sharded": lambda: batched.build_batched(b_inputs[demo_what]),
+                 "traverse_sharded": lambda: traverse.traverse_bvh2(bvh, tris, rr, tr),
+                 "render_raster_sharded": lambda: raster_gpu.render_raster_gpu(
+                     packed, rr, tr, *WAVEFRONT, *caps)}
+        for call, unsharded in SHARDED_CALLS.items():
+            u_ev, u_wall = time_ms(torch, plain[call], SHARDED_REPS, warmup=1)
+            ev = [r["times"][call][0] for r in ranks]
+            wall = [r["times"][call][1] for r in ranks]
+            line = (f"  {call}, {SHARDED_RANKS} gloo ranks on one card (the cost of sharding on "
+                    f"one card, not scaling): host ms by rank {wall}, CUDA-event ms by rank {ev}; "
+                    f"unsharded {unsharded}: host {u_wall!r}, events {u_ev!r} ms")
+            if call == "build_single_pass_sharded":
+                one = runs["nccl"][0]["times"][call]
+                line += f"; NCCL world size 1: host {one[1]!r}, events {one[0]!r} ms"
+            print(line + f" ({smi})", flush=True)
+        return {k: sum(r["counts"][k] for run in runs.values() for r in run) for k in counters}
+
+    sharded_counts = sharded_phase()
+
     # phase 5: timings (medians after warm-up; host clock end to end)
     print(f"[5] timings on {smi} (ms: CUDA events / host clock to synchronize; at "
           f"{time.perf_counter() - t_start:.1f} s)", flush=True)
@@ -1542,7 +1730,8 @@ def main():
               flush=True)
         row = {"name": name, "tpu_kernel": tpu, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches[name],
-               "app_launches": app_counts[name], "max_abs_err": errs[name],
+               "app_launches": app_counts[name], "sharded_launches": sharded_counts[name],
+               "max_abs_err": errs[name],
                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": lib_ms}
         if name == "ploc_finish":

@@ -1119,3 +1119,71 @@ def test_traverse_kernel_launch_counter_and_no_rays(cuda):
     cpu = [type(x)(*(f.cpu() for f in x)) for x in (bvh, rays, tr)]
     traverse.traverse_bvh2(cpu[0], tris.cpu(), cpu[1], cpu[2], "if_if")
     assert traverse.launches == after
+
+
+# ---- the sharded paths (tpu_bvh_torch.parallel) on ranks that use the card ----
+
+
+def _sharded_soup():
+    soup = scenes.sponza_like(16_384)
+    return soup[:(soup.shape[0] // 4) * 4]
+
+
+def test_sharded_build_on_gloo_ranks_sharing_the_card(cuda):
+    """Two gloo ranks on cuda:0: the assembled tree equals the
+    single-device GPU build bit for bit, on both ranks."""
+    import torch_ranks
+    from tpu_bvh_torch.parallel import comm
+
+    lbvh.build_single_pass(torch.from_numpy(_sharded_soup()).to(cuda))  # build the kernels once
+    got = comm.spawn(torch_ranks.sharded_vs_single, 2, device="cuda", backend="gloo",
+                     args=(_sharded_soup(),), timeout=300.0)
+    assert [r["same"] and not r["overflow"] for r in got] == [True, True]
+    assert {r["device"] for r in got} == {"cuda:0"}
+
+
+def test_sharded_build_over_nccl_at_world_size_1(cuda):
+    import torch_ranks
+    from tpu_bvh_torch.parallel import comm
+
+    lbvh.build_single_pass(torch.from_numpy(_sharded_soup()).to(cuda))
+    (got,) = comm.spawn(torch_ranks.sharded_vs_single, 1, device="cuda", backend="nccl",
+                        args=(_sharded_soup(),), timeout=300.0)
+    assert got["same"] and not got["overflow"] and got["backend"] == "nccl"
+
+
+def test_sharded_paths_on_the_card_equal_the_unsharded_calls(cuda):
+    """Two gloo ranks on the card: the extents, the batched build, the
+    traversal and the raster strips (B4), concatenated in rank order, equal
+    the unsharded calls on the card bit for bit."""
+    import torch_ranks
+    from tpu_bvh_torch.parallel import comm
+    from tpu_bvh_torch.utils import convert
+
+    tris_np = scenes.cornellbox()
+    tris = torch.from_numpy(tris_np).to(cuda)
+    tr, cam = scenes.preset("cornellbox", cuda)
+    bvh = lbvh.build_two_pass(tris)
+    rays = camera.generate_rays(cam, 128, 64)
+    packed = raster.pack_raster(bvh, tris, leaf_size=8)
+    caps = {"cand_cap": 16, "pair_cap": 128, "group": 4}
+    meshes = np.stack([tris_np[:32] + i for i in range(64)]).astype(np.float32)
+    np_of = lambda nt: {f: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)  # noqa: E731
+                        for f, v in nt._asdict().items()}
+    inputs = {"extents": tris_np, "batched": meshes,
+              "traverse": (np_of(bvh), tris_np, np_of(rays), np_of(tr)),
+              "raster": (np_of(packed), np_of(rays), np_of(tr), 128, 64, caps)}
+    want_b = batched.build_batched(torch.from_numpy(meshes).to(cuda))
+    want_t = traverse.traverse_bvh2(bvh, tris, rays, tr)
+    want_r = raster_gpu.render_raster_gpu(packed, rays, tr, 128, 64, *caps.values())[0]
+    got = comm.spawn(torch_ranks.sharded_paths, 2, device="cuda", backend="gloo",
+                     args=(inputs,), timeout=300.0)
+    cat = lambda parts: {f: np.concatenate([p[f] for p in parts]) for f in parts[0]}  # noqa: E731
+    assert torch_ranks.fields_equal(cat([r["batched"] for r in got]), np_of(want_b))
+    assert torch_ranks.fields_equal(cat([r["traverse"][0] for r in got]), np_of(want_t[0]))
+    assert np.concatenate([r["traverse"][1] for r in got]).tobytes() == \
+        want_t[1].cpu().numpy().tobytes()
+    assert torch_ranks.fields_equal(cat([r["raster"] for r in got]), np_of(want_r))
+    for r in got:
+        np.testing.assert_array_equal(r["extents"][0], tris_np.reshape(-1, 3).min(0))
+        np.testing.assert_array_equal(r["extents"][1], tris_np.reshape(-1, 3).max(0))

@@ -74,7 +74,8 @@ def test_jax_tree_renders_same_in_port():
 
 
 def test_port_imports_no_jax():
-    """In a fresh interpreter: every module of the port, and every import
+    """In a fresh interpreter: every module of the port (the multi-device
+    modules of `tpu_bvh_torch.parallel` among them), and every import
     statement of chip_smoke.py, pulls in neither jax nor tpu_bvh."""
     code = (
         "import ast, pkgutil, importlib, sys\n"
@@ -94,6 +95,8 @@ def test_port_imports_no_jax():
         "assert 'tpu_bvh_torch.ops.ray_sweep' in sys.modules\n"
         "assert 'tpu_bvh_torch.ops.ploc_round' in sys.modules\n"
         "assert 'tpu_bvh_torch.models.ploc' in sys.modules\n"
+        "for m in ('comm', 'sharded', 'sharded_build', 'dryrun'):\n"
+        "    assert 'tpu_bvh_torch.parallel.' + m in sys.modules, m\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert res.returncode == 0, res.stderr

@@ -28,7 +28,9 @@ the wavefront traversal of the 512^2 frame (`traverse.traverse_packed` as
 `traverse_<variant>_512`) and of the reversed shadow slice (65,536 rays
 from the light toward the 1080p frame's hit points, all hit; the origin
 one row expanded, stride 0) as `traverse_packed_shadow_rev` and
-`traverse_<variant>_shadow_rev`:
+`traverse_<variant>_shadow_rev`; and the sharded single-scene build
+(`parallel.sharded_build.build_single_pass_sharded` with `to_bvh2`) on a
+one-rank NCCL group in this process as `sharded_build_world1`:
 first the median host-clock ms to a synchronize and the median CUDA-event
 ms around the call, without the profiler, then `--reps` calls each under
 torch.profiler (CPU + CUDA).
@@ -58,6 +60,7 @@ import time
 import torch
 
 from .models import batched, lbvh, ploc
+from .parallel import sharded, sharded_build
 from .ops import (collapse_block, collapse_fast, plane_scan, ploc_nn, ploc_round, radix_tree,
                   raster, raster_gpu, ray_sweep, refit, refit_dense, scan32, threshold_core,
                   traverse)
@@ -150,6 +153,19 @@ def profile(name, fn, reps, out_dir, top=8):
         "top_kernels_us_per_call": [(k, us / reps) for k, us in by_name.most_common(top)],
         "trace": path,
     }
+
+
+def _world1_build(tris):
+    """The sharded build and its assembly on a one-rank NCCL group, which
+    this process joins at the first call (rendezvous through a file)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        init = "file://" + os.path.join(tempfile.mkdtemp(prefix="tpu_bvh_torch_world1_"), "rdv")
+        dist.init_process_group("nccl", init_method=init, rank=0, world_size=1)
+    mesh = sharded.default_mesh()
+    return sharded_build.to_bvh2(sharded_build.build_single_pass_sharded(mesh, tris),
+                                 tris.shape[0], mesh)
 
 
 def main():
@@ -259,6 +275,7 @@ def main():
         for v in traverse.VARIANTS:
             calls[f"traverse_{v}_{what}"] = (
                 lambda v=v, t_rays=t_rays: traverse.traverse_bvh2(aux[0], tris, t_rays, tr, v))
+    calls["sharded_build_world1"] = lambda: _world1_build(tris)
     if args.calls:
         calls = {k: v for k, v in calls.items() if k in args.calls}
     print(f"card: {smi} | torch {torch.__version__} | cuda {torch.version.cuda}", flush=True)
