@@ -9,7 +9,8 @@ general closest-hit trace on a 64K strided slice of the forward shadow
 rays), the PLOC++ and HPLOC builds, and the gather-free topologies
 (`apetrei_topology_fast`, `karras_topology_fast`); the batched builder
 on the reference's demo (`pad_meshes` and `build_batched` on 4096 copies of
-the cornellbox, one tree each); and the wavefront traversal of the 512^2
+the cornellbox, one tree each) and on meshes of 65-1024 prims
+(`build_batched` at capacities 1024 and 128); and the wavefront traversal of the 512^2
 frame (`pack_bvh2`, `traverse_packed` and the four variants of
 `traverse_bvh2`: the JAX bench's wavefront row); and the app
 (`tpu_bvh_torch.app.main`, as `python -m tpu_bvh_torch.app` runs) on
@@ -52,7 +53,11 @@ On the way it
    on the demo, on 65,536 random meshes of 2-32 prims at capacity 32, on
    4096 of 2-64 at capacity 64 and on the +-0 soup in meshes of 32, with
    every tree of each checked valid, and its refusal of capacity 65 before
-   a launch; the traversal kernels (`traverse_packed` and the four
+   a launch; the block kernel (one block a mesh, 65-1024 prims) on 1024
+   random meshes of 2-1024 prims at capacity 1024, 16,384 of 2-128 at 128,
+   4096 of 2-65 at 65 and the +-0 soup in meshes of 128 beside meshes of one
+   triangle repeated, one launch a call, every tree valid, and its refusal
+   of capacities 64 and 1025 before a launch; the traversal kernels (`traverse_packed` and the four
    variants: persistent lanes that fetch their rays) on sponza's 512^2
    frame and on the reversed shadow slice (65,536 rays from the light
    toward the 1080p frame's hit points, every one a hit; the origin one
@@ -61,7 +66,8 @@ On the way it
    the one-thread-a-ray kernel, and on the 64-deep chain built with
    `Bvh2.from_rows`, whose stack overflows (prim 60 at t = 2, a miss);
 4. runs the main path path by path (build, topology, collapse, render,
-   shadow, ploc, batched, wavefront, app), every launch counter set to 0 just before each and read
+   shadow, ploc, batched, batched block, wavefront, app), every launch counter set to 0 just
+   before each and read
    just after, and checks: every kernel of each path launched (on the
    ploc path one fused-round launch per round and none of B9's or B10's,
    host syncs = rounds + 1 per build); the fast
@@ -80,7 +86,10 @@ On the way it
    CPU ones bit for bit; no raster or shadow overflow; the reversed
    occlusion mask equals the forward trace's capped answer outside the
    boundary strips; the 512^2 image is written as a PNG; the batched demo's
-   trees equal the port's CPU build, are all valid and all the same; the
+   trees equal the port's CPU build, are all valid and all the same;
+   `build_batched` at capacities 1024 and 128 launches the block kernel
+   once each and B1, B2 and the warp kernel no time, its trees equal the
+   kernel's checked ones and, for the first 8 meshes, the port's CPU build; the
    four traversal variants find the same prims, the stack variants and
    the packed engine the same hits and counts; bench.py's
    raster_matches_wavefront (the 512^2 render against `traverse_packed`)
@@ -120,23 +129,27 @@ On the way it
    PLOC build's rounds, finisher launches and host syncs, and times each
    kernel beside its plain version and computes its bound from this run's
    inputs (B11 also beside `torch.cummin`), and B4 at both sizes with its
-   split's counters; the batched kernel (events) and `build_batched` (host
-   clock, meshes/s) on its four inputs, each with its bound and the share
-   reached; the traversal kernels on the 512^2 frame and on the reversed
+   split's counters; the batched kernels (events) beside their plain
+   versions and `build_batched` (host clock, meshes/s) on their four
+   inputs each, each with its bound and the share reached, the per-mesh
+   single-pass loop (the route before the block kernel) on 32 meshes of
+   1024, and both kernels' clock64 cycles per phase;
+   the traversal kernels on the 512^2 frame and on the reversed
    shadow slice (events and host clock, Mrays/s, the plain version on the
    slice), with bounds and their shares from the rows their steps stood on
    (counted by a launch that marks them; pinned on the frame), their step
    counters and SIMD efficiency (lane steps over 32 x warp steps);
 6. checks, from one torch.profiler trace each, that the dense refit (both
    entries), the collapse kernel, the topology scan (B1), the psv/nsv
-   scans (B12/B13, B14) and `build_batched` launch one kernel a call, the
-   last four with no memset, that each traversal kernel on the frame's
-   camera rays (a stride-0 origin) is one kernel and one memset a call,
+   scans (B12/B13, B14) and `build_batched` (the demo and capacity 1024)
+   launch one kernel a call, the last five with no memset, that each
+   traversal kernel on the frame's camera rays (a stride-0 origin) is one
+   kernel and one memset a call,
    and prints the grid of B1's and B12's launch on sponza and
    B12's SM cycles per phase (its clock64 stamps).
 
 Any failure raises. The last three lines are the kernels JSON line (B1 to
-B16, then the batched build and the five traversal kernels, which replace
+B16, then the two batched builds and the five traversal kernels, which replace
 no TPU kernel; each row's `launches` counts every path in this process,
 `app_launches` the app path alone, `sharded_launches` the sharded path
 summed over its ranks; a traversal row also holds its host ms, SIMD
@@ -211,8 +224,10 @@ KERNELS = {  # name: (TPU kernel, source, the TPU kernel it replaces), B1 to B16
     "psv_nsv_payload": ("B14", THR_SOURCE, f"{THR_TPU}:482"),
     "child_positions": ("B15", "tpu_bvh_torch/csrc/child_scan.cu", f"{THR_TPU}:673"),
     "scan32_halves": ("B16", "tpu_bvh_torch/csrc/scan32.cu", "tpu_bvh/ops/pallas/scan32.py:260"),
-    # no TPU kernel: JAX's dense batched build is XLA ops, not a pl.pallas_call
+    # no TPU kernel: JAX's batched builds are XLA ops, not a pl.pallas_call (the dense
+    # form up to 64 prims a mesh, the vmapped single-pass build past it)
     "batched_build": (None, "tpu_bvh_torch/csrc/batched_build.cu", "tpu_bvh/models/batched.py:64"),
+    "batched_block": (None, "tpu_bvh_torch/csrc/batched_block.cu", "tpu_bvh/models/batched.py:59"),
     # no TPU kernel: JAX's wavefront traversal is XLA ops in lax.while_loop
     "traverse_packed": (None, TRAVERSE_SOURCE, "tpu_bvh/ops/traverse.py:271"),
     "traverse_if_if": (None, TRAVERSE_SOURCE, "tpu_bvh/ops/traverse.py:134"),
@@ -250,6 +265,7 @@ TRAVERSE_PINS = {("frame", "stack"): (880_752, 78_616, 0, 872, 382),
 BATCHED_DEMO = 4096  # the reference's batched demo: copies of the cornellbox (main.cpp:39-47)
 BATCHED_RANDOM = 65_536  # random meshes of 2-32 prims at capacity 32
 BATCHED_WIDE = 4096  # random meshes of 2-64 prims at capacity 64
+BLOCK_LOOP = 32  # meshes of input (a) that the per-mesh single-pass loop builds, timed
 APP_SIZE = (512, 512)  # the app phase: sponza 262K at 512^2, as a user runs it
 APP_BUILDERS = ("two_pass", "single_pass", "ploc", "hploc")  # the staged builds
 APP_HEATMAP = ("two_pass", "speculative")  # the run that also writes the heat map
@@ -319,6 +335,13 @@ def max_err(got, want):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def batched_bytes(tris_b):
+    """What a batched build must move: 36 B a prim read; per mesh 32 B a
+    node (6 box rows, left, right) and 4 B of root written."""
+    B, M = tris_b.shape[:2]
+    return B * M * 36 + B * (32 * (2 * M - 1) + 4)
 
 
 def bound(n_bytes, flops):
@@ -417,24 +440,6 @@ def ploc_bounds(nn, nc, radius, shift):
             "ploc_round_fused": (bound(4 * (round_reads + 8 * nc + 8 * nm), flops), info)}
 
 
-def signed_zero_soup(np, n=SIGNED_ZERO_TRIS, seed=0):
-    """n triangles with coordinates drawn from {-0.0, +0.0, 1.0}, half of
-    them replaced by uniform draws (`np.where` keeps the -0.0)."""
-    rng = np.random.default_rng(seed)
-    pick = rng.integers(0, 3, (n, 3, 3))
-    f32 = np.float32
-    coords = np.where(pick == 0, f32(-0.0), np.where(pick == 1, f32(0.0), f32(1.0)))
-    draws = rng.random((n, 3, 3), dtype=f32)
-    return np.where(rng.random((n, 3, 3)) < 0.5, coords, draws).astype(f32)
-
-
-def batched_bytes(tris_b):
-    """What the batched build must move: 36 B a prim read; per mesh 32 B a
-    node (6 box rows, left, right) and 4 B of root written."""
-    B, M = tris_b.shape[:2]
-    return B * M * 36 + B * (32 * (2 * M - 1) + 4)
-
-
 def batched_valid(torch, trees, M):
     """Every tree of a batch-stacked Bvh2 of M leaves, checked on the card:
     its leaves hold a permutation of the prims; a walk from the root meets
@@ -506,9 +511,9 @@ def kernels_per_call(torch, fn):
 def launch_counters():
     """The port's launch counters: kernel -> (module, counter attribute[,
     key of a counter dict])."""
-    from tpu_bvh_torch.ops import (batched_build, collapse_block, plane_scan, ploc_nn, ploc_round,
-                                   raster_gpu, ray_sweep, refit_dense, scan32, threshold_core,
-                                   traverse)
+    from tpu_bvh_torch.ops import (batched_block, batched_build, collapse_block, plane_scan,
+                                   ploc_nn, ploc_round, raster_gpu, ray_sweep, refit_dense, scan32,
+                                   threshold_core, traverse)
     return {
         "scan32": (scan32, "launches"), "refit_dense": (refit_dense, "launches"),
         "collapse_block": (collapse_block, "launches"), "raster_sweep": (raster_gpu, "launches"),
@@ -522,6 +527,7 @@ def launch_counters():
         "child_positions": (threshold_core, "child_launches"),
         "scan32_halves": (scan32, "half_launches"),
         "batched_build": (batched_build, "launches"),
+        "batched_block": (batched_block, "launches"),
         # the traversal kernels count by kernel in one dict
         **{f"traverse_{v}": (traverse, "launches", v) for v in TRAVERSALS},
     }
@@ -617,7 +623,8 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_bvh_torch.models import batched, lbvh, ploc
-    from tpu_bvh_torch.ops import (aabb, batched_build, collapse, collapse_block, collapse_fast,
+    from tpu_bvh_torch.ops import (aabb, batched_block, batched_build, collapse, collapse_block,
+                                   collapse_fast,
                                    plane_scan, ploc_nn, ploc_round, radix_tree, raster, raster_gpu,
                                    ray_sweep, refit, refit_dense, scan32, threshold_core,
                                    traverse)
@@ -694,7 +701,7 @@ def main():
             same_outputs(got, want, name, what)
         return pay
 
-    sz = signed_zero_soup(np)
+    sz = scenes.signed_zero_soup(SIGNED_ZERO_TRIS)
     for name, soup in (("sponza", sponza), ("dup", dup), ("+-0 soup", sz)):
         tris = torch.from_numpy(soup).to(dev)
         codes, leaf_packed_t, _ = lbvh._sorted_leaves_from_tris(tris, True)
@@ -944,6 +951,44 @@ def main():
     require(refused and batched_build.launches == before,
             f"batched_build refuses capacity {batched_build.MAX_PRIMS + 1} before the launch")
 
+    # the block kernel (one block a mesh, 65-1024 prims) on its four inputs:
+    # (a) 1024 random meshes of 2-1024 prims at capacity 1024, (b) 16,384 of
+    # 2-128 at 128, (c) 4096 of 2-65 at 65, (d) the +-0 soup in meshes of
+    # 128 beside meshes of one triangle repeated; one launch a call, every
+    # output bit for bit against the plain version on the card, every tree
+    # valid; capacities 64 and 1025 refused before a launch
+    t_block = time.perf_counter()
+    k_inputs = {name: batched.pad_meshes(meshes, cap, device=dev)[0]
+                for name, (meshes, cap) in scenes.block_meshes().items()}
+    k_what = {"1024x1024": "(a) 1024 random meshes", "16384x128": "(b) 16,384 random meshes",
+              "4096x65": "(c) 4096 random meshes",
+              "signed_zero_one_tri128": "(d) the +-0 soup and one-triangle meshes"}
+    k_got = {}
+    for name, t in k_inputs.items():
+        B, M = t.shape[:2]
+        before = batched_block.launches
+        got = Bvh2(*batched_block.batched_block(t))
+        want = batched_block.batched_block_reference(t)
+        torch.cuda.synchronize()
+        require(batched_block.launches == before + 1,
+                f"batched_block, {k_what[name]}: one launch a call")
+        same_outputs(got, want, "batched_block", f"{k_what[name]}, {B} meshes at capacity {M}")
+        ends = [Bvh2(*(f[b] for f in got)) for b in (0, B - 1)]
+        require(batched_valid(torch, got, M) and all(
+            validate.check_bvh2_correctness(one, M) and validate.check_root_aabb(one)
+            for one in ends), f"batched_block, {k_what[name]}: all {B} trees valid")
+        k_got[name] = got
+    for cap in (batched_build.MAX_PRIMS, batched_block.MAX_PRIMS + 1):
+        before = batched_block.launches
+        try:
+            batched_block.batched_block(torch.zeros((1, cap, 3, 3), device=dev))
+            refused = False
+        except ValueError:
+            refused = True
+        require(refused and batched_block.launches == before,
+                f"batched_block refuses capacity {cap} before the launch")
+    print(f"  the block kernel's checks: {time.perf_counter() - t_block:.1f} s", flush=True)
+
     # the traversal kernels on sponza's 512^2 primary frame and on the
     # reversed shadow slice, each against its plain version on the card on
     # every ray, floats by their bits
@@ -992,7 +1037,8 @@ def main():
     # phase 4: the main path through the entry points a user calls, path by
     # path, each with every launch counter set to 0 just before it
     print(f"[4] main path on sponza_like({SPONZA_TRIS}): build -> topology -> collapse -> render "
-          f"-> shadow -> ploc; then the batched demo, the wavefront traversal, the app and the "
+          f"-> shadow -> ploc; then the batched demo and block path, the wavefront traversal, the "
+          f"app and the "
           f"sharded path (at "
           f"{time.perf_counter() - t_start:.1f} s)", flush=True)
     launches = {}
@@ -1056,6 +1102,13 @@ def main():
     demo, b_counts = run_path("batched", ["batched_build"], lambda: batched.build_batched(
         batched.pad_meshes([cbox] * BATCHED_DEMO, cbox.shape[0], device=dev)[0]))
     require(b_counts["batched_build"] == 1, "batched path: one batched_build launch")
+    # meshes of 65-1024 prims as a user builds them: capacities 1024 and 128
+    wide_trees, w_counts = run_path("batched block", ["batched_block"], lambda: [
+        batched.build_batched(k_inputs[name]) for name in ("1024x1024", "16384x128")])
+    require(w_counts["batched_block"] == 2 and w_counts["batched_build"] == 0
+            and w_counts["scan32"] == 0 and w_counts["refit_dense"] == 0,
+            "batched block path: build_batched at capacities 1024 and 128 launches the block "
+            "kernel once each and B1 (scan32), B2 (refit_dense) and the warp kernel no time")
 
     # the wavefront traversal of the 512^2 frame as a user runs it: pack the
     # tree, trace the packed layout and each variant of traverse_bvh2
@@ -1232,6 +1285,12 @@ def main():
     require(batched_valid(torch, demo, cbox.shape[0])
             and all(torch.equal(bits(f), bits(f[:1]).expand_as(f)) for f in demo),
             f"batched demo: all {BATCHED_DEMO} trees valid, each copy's tree the same")
+    require(all(same_bvh(Bvh2(*got), k_got[name])
+                for got, name in zip(wide_trees, ("1024x1024", "16384x128"))),
+            "batched block path: build_batched's trees == the kernel's checked ones, bit for bit")
+    few = k_inputs["1024x1024"][:8]
+    require(same_bvh(Bvh2(*(f[:8] for f in wide_trees[0])), batched.build_batched(few.cpu())),
+            "batched block path: the first 8 trees of (a) == the port's CPU build")
 
     # the wavefront traversal: the four variants find the same prims, the
     # stack variants and the packed engine the same hits and counts, bit for bit
@@ -1546,14 +1605,34 @@ def main():
     ev, wall = time_ms(torch, lambda: ray_sweep.trace_rays(packed, srays, tr, *TRACE_CAPS), reps=10)
     print(f"  trace_rays ({vsel.numel()} rays): {ev!r} / {wall!r} ms = "
           f"{vsel.numel() / wall / 1e3!r} Mrays/s (host clock)", flush=True)
-    for what, t in b_inputs.items():
+    warp_fns = (batched_build.batched_build, batched_build.batched_build_reference)
+    block_fns = (batched_block.batched_block, batched_block.batched_block_reference)
+    b_timed = [("batched_build", what, t, *warp_fns) for what, t in b_inputs.items()]
+    b_timed += [("batched_block", k_what[name], t, *block_fns) for name, t in k_inputs.items()]
+    for kname, what, t, kernel, plain in b_timed:
         B, M = t.shape[:2]
-        k_ev = time_ms(torch, lambda: batched_build.batched_build(t), reps=20)[0]
+        k_ev = time_ms(torch, lambda: kernel(t), reps=20)[0]
+        p_ev = time_ms(torch, lambda: plain(t), reps=3, warmup=1)[0]
         host = time_ms(torch, lambda: batched.build_batched(t), reps=20)[1]
         b_ms = bound(batched_bytes(t), 0)[0]
-        print(f"  batched_build, {what} ({B} x {M}), {smi}: kernel {k_ev!r} ms (events); "
-              f"build_batched {host!r} ms (host clock) = {B / host * 1e3!r} meshes/s; bound "
-              f"{b_ms!r} ms (bytes), {b_ms / k_ev!r} of it reached", flush=True)
+        print(f"  {kname}, {what} ({B} x {M}), {smi}: kernel {k_ev!r} ms (events), plain "
+              f"{p_ev!r} ms; build_batched {host!r} ms (host clock) = {B / host * 1e3!r} "
+              f"meshes/s; bound {b_ms!r} ms (bytes), {b_ms / k_ev!r} of it reached", flush=True)
+    few = k_inputs["1024x1024"][:BLOCK_LOOP]
+    loop_ms = time_ms(torch, lambda: [lbvh.build_single_pass(t, use_extended=False)
+                                      for t in few], reps=3, warmup=1)[1]
+    print(f"  the per-mesh single-pass loop (the route before the block kernel) on {BLOCK_LOOP} "
+          f"meshes of (a), {smi}: {loop_ms!r} ms (host clock) = {BLOCK_LOOP / loop_ms * 1e3!r} "
+          f"meshes/s", flush=True)
+    for what, fn, t in (("batched_build", batched_build.phase_cycles, b_inputs[demo_what]),
+                        ("batched_build", batched_build.phase_cycles,
+                         b_inputs[f"{BATCHED_WIDE} random meshes"]),
+                        ("batched_build", batched_build.phase_cycles,
+                         b_inputs[f"{BATCHED_RANDOM} random meshes"]),
+                        ("batched_block", batched_block.phase_cycles, k_inputs["1024x1024"]),
+                        ("batched_block", batched_block.phase_cycles, k_inputs["16384x128"])):
+        print(f"  {what} phase clocks, {tuple(t.shape[:2])} (SM cycles: median, largest, sum over "
+              f"the meshes; at most {sm_mhz} MHz): {fn(t)}", flush=True)
     n_wave = t_rays.origin.shape[0]
     # each traversal kernel on each input: the rows its steps stand on (the
     # same launch with the byte map set, after the main path's counts), its
@@ -1605,6 +1684,7 @@ def main():
     scan_out = scan32.scan_core(inputs["scan"])
     refit_out = refit_dense.refit_dense(mat, n, refit.RADIUS)
     demo_t = b_inputs[demo_what]
+    wide_t = k_inputs["1024x1024"]
     bounds = {  # kernel: ((bound ms, what sets it), what the sweep did)
         "scan32": (bound(nbytes(inputs["scan"], *scan_out), 0), ""),
         "refit_dense": (bound(nbytes(mat, *refit_out), 0), ""),
@@ -1613,6 +1693,8 @@ def main():
         "ray_sweep": sweep_bound(torch, "ray_sweep", so_args, so_out),
         "batched_build": (bound(batched_bytes(demo_t), 0),
                           f"{demo_what}, {demo_t.shape[0]} x {demo_t.shape[1]}"),
+        "batched_block": (bound(batched_bytes(wide_t), 0),
+                          f"{k_what['1024x1024']}, {wide_t.shape[0]} x {wide_t.shape[1]}"),
         # the traversal kernels: the steps of the main path's run, the rows
         # stood on counted by the same kernel on the same rays
         **{f"traverse_{v}": traverse_bound(waves[v][1].cpu(), t_rows[("frame", v)], v, n_wave)
@@ -1692,6 +1774,8 @@ def main():
                                    scan32.scan_rev_reference(h32f, h_m)), 20, 3, 1),
         "batched_build": (lambda: batched_build.batched_build(demo_t),
                           lambda: batched._build_batched_small(demo_t), 20, 5, 1),
+        "batched_block": (lambda: batched_block.batched_block(wide_t),
+                          lambda: batched_block.batched_block_reference(wide_t), 20, 3, 1),
         **{f"traverse_{v}": (lambda v=v: traversal(v, t_rays),
                              lambda v=v: traversal(v, t_rays, plain=True), 20, 1, 0)
            for v in TRAVERSALS},
@@ -1711,6 +1795,7 @@ def main():
         "psv_nsv_packed_lanes": "calls of the one psv/nsv kernel that B12 and B13 share",
         "scan32_halves": "launches of either half",
         "batched_build": "calls of batched_build (one CUDA launch each)",
+        "batched_block": "calls of batched_block (one CUDA launch each)",
         "traverse_packed": "calls of traverse_packed (one CUDA launch each)",
         **{f"traverse_{v}": f"calls of traverse_bvh2(variant={v!r}) (one CUDA launch each)"
            for v in TRAVERSALS[1:]},
@@ -1801,7 +1886,8 @@ def main():
             ("scan32", lambda: scan32.scan_core(inputs["scan"]), True),
             ("psv_nsv_packed", lambda: threshold_core.psv_nsv_packed(t_dlt), True),
             ("psv_nsv_payload", lambda: threshold_core.psv_nsv_payload_auto(t_dlt, t_pay), True),
-            ("batched_build (the demo)", lambda: batched.build_batched(demo_t), True)):
+            ("batched_build (the demo)", lambda: batched.build_batched(demo_t), True),
+            ("batched_block ((a) at capacity 1024)", lambda: batched.build_batched(wide_t), True)):
         names, memsets = kernels_per_call(torch, fn)
         require(len(names) == 1 and (memsets == 0 or not no_memset),
                 f"{name}: one kernel a call in a torch.profiler trace {names}"

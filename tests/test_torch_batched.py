@@ -12,8 +12,13 @@ slot at j = 32), the deltas from the next slot's code, the six ballots
 of the deltas' bit planes, each boundary's comparator mask of smaller
 deltas and its psv / nsv as the highest / lowest set bit (`__clzll`,
 `__ffsll`), the children as bit-sliced argmins, the root as the lowest bit
-of a ballot, and the refit as a walk over each node's leaf keys with the
-key of 3e38 where the range is not the whole mesh.
+of a ballot, and the refit: up to WALK_MAX prims a walk over each node's
+leaves, past it (two slots a lane) two tables built by shuffles over the
+sorted leaves' keys (each leaf's min from the start of its block of 8
+slots and to its end, and a min table over the blocks): a range across
+blocks is the suffix of its first block, the prefix of its last and two
+windows over the blocks between, a range inside one block a walk; with
+the key of 3e38 where the range is not the whole mesh.
 
 Floats are compared by their bytes: `torch.equal` and
 `np.testing.assert_array_equal` take -0.0 for +0.0."""
@@ -120,8 +125,9 @@ def test_build_batched_equals_jax(case):
 
 
 def test_build_batched_wide_meshes_equal_jax():
-    """Capacity 96 > 64 takes the per-mesh single-pass build, as JAX's
-    vmapped path does."""
+    """Capacity 96 > 64 takes the block kernel's plain version
+    (`ops/batched_block.py`), the contract of JAX's vmapped single-pass
+    path."""
     rng = np.random.default_rng(96)
     tris_b, _ = jbatched.pad_meshes([random_tris(rng, int(n)) for n in (96, 70, 2)], 96)
     got = batched.build_batched(torch.from_numpy(tris_b))
@@ -256,14 +262,52 @@ def emulate_kernel(tris_b):
     root_ballot = torch.where(bnd & (first == 0) & (last == m), 1 << k, 0).sum(1)
     root = _bit_index(root_ballot, highest=False)
 
-    # 4. refit: each node's walk over its leaves' keys
-    full = (last - first + 1) >= M
-    acc = torch.where(full, INT_MAX, aabb.min_key(torch.tensor(3.0e38)))[:, None, :]
-    acc = acc.expand(B, 6, N).clone()
-    for t in range(M):
+    # 4. refit, past WALK_MAX prims (two slots a lane): in-block prefix and
+    # suffix mins of the sorted leaves' keys
+    # (blocks of 8 slots; three shuffles within groups of 8 lanes) and a min
+    # table over the blocks, whose unwritten entries hold 0 (a read of one
+    # would change the tree); a range across blocks is the suffix of its
+    # first, the prefix of its last and two windows over the blocks between,
+    # a range inside one block a walk
+    NB = N // 8
+    kv = torch.where(prim_ok[None, None, :], leaf_keys, INT_MAX)  # [B, 6, N]
+    sub = k % 8
+    pre, suf = kv, kv
+    for d in (1, 2, 4):
+        up = pre[:, :, (k - d).clamp(min=0)]  # __shfl_up_sync(.., d, 8)
+        dn = suf[:, :, (k + d).clamp(max=N - 1)]  # __shfl_down_sync(.., d, 8)
+        pre = torch.where(sub >= d, torch.minimum(pre, up), pre)
+        suf = torch.where(sub + d < 8, torch.minimum(suf, dn), suf)
+    x = torch.arange(NB)
+    blk = [suf[:, :, ::8]]  # [B, 6, NB]: each block's min
+    for lvl in (1, 2):
+        prev = blk[-1]
+        nxt = prev[:, :, (x + (1 << (lvl - 1))).clamp(max=NB - 1)]
+        blk.append(torch.where(x + (1 << lvl) <= NB, torch.minimum(prev, nxt), 0))
+    blk = torch.stack(blk)  # [3, B, 6, NB]
+
+    def gather(t, idx):  # t [B, 6, n] at idx [B, N]
+        return t.gather(2, idx.clamp(0, t.shape[2] - 1)[:, None, :].expand(B, 6, N))
+
+    bf, bl = first >> 3, last >> 3
+    cross = torch.minimum(gather(suf, first), gather(pre, last))
+    a, z = bf + 1, bl - 1
+    kk = (torch.frexp((z - a + 1).clamp(min=1).double()).exponent - 1).long()
+    bi = torch.arange(B)[:, None, None]
+    ri = torch.arange(6)[None, :, None]
+    k3 = kk[:, None, :]
+    mid = torch.minimum(blk[k3, bi, ri, a.clamp(0, NB - 1)[:, None, :]],
+                        blk[k3, bi, ri, (z - (1 << kk) + 1).clamp(0, NB - 1)[:, None, :]])
+    cross = torch.where((bl - bf >= 2)[:, None], torch.minimum(cross, mid), cross)
+    walk = torch.full((B, 6, N), INT_MAX, dtype=torch.int32)
+    for t in range(N):  # the walk over each range
         inside = ((first <= t) & (t <= last))[:, None, :]
-        acc = torch.where(inside, torch.minimum(acc, leaf_keys[:, :, t:t + 1]), acc)
-    box = aabb.from_min_key(acc.to(torch.int32))
+        walk = torch.where(inside, torch.minimum(walk, leaf_keys[:, :, t:t + 1]), walk)
+    acc = torch.where((bf == bl)[:, None], walk, cross)
+    if N == 32 or M <= batched_build.WALK_MAX:  # one slot a lane or short meshes: the walk
+        acc = walk
+    fill = torch.where(last - first + 1 < M, aabb.min_key(torch.tensor(3.0e38)), INT_MAX)
+    box = aabb.from_min_key(torch.minimum(acc, fill[:, None, :].to(torch.int32)))
 
     # 5. the outputs
     i32 = torch.int32
@@ -275,7 +319,8 @@ def emulate_kernel(tris_b):
     return Bvh2(packed_t, left, right, root.to(i32))
 
 
-@pytest.mark.parametrize("case", CASES + ["random3", "random31", "random63"])
+@pytest.mark.parametrize("case", CASES + ["random3", "random31", "random48", "random49",
+                                          "random63"])
 def test_kernel_schedule_equals_plain(case):
     tris_b = torch.from_numpy(_padded(case)[0])
     got = emulate_kernel(tris_b)

@@ -17,9 +17,9 @@ import pytest
 import torch
 
 from tpu_bvh_torch.models import batched, lbvh, ploc
-from tpu_bvh_torch.ops import (batched_build, collapse_block, collapse_fast, plane_scan, ploc_nn,
-                               ploc_round, radix_tree, raster, raster_gpu, ray_sweep, refit_dense,
-                               scan32, threshold_core, traverse)
+from tpu_bvh_torch.ops import (batched_block, batched_build, collapse_block, collapse_fast,
+                               plane_scan, ploc_nn, ploc_round, radix_tree, raster, raster_gpu,
+                               ray_sweep, refit_dense, scan32, threshold_core, traverse)
 from tpu_bvh_torch.ops import ploc as ploc_ops
 from tpu_bvh_torch.types import PLOC_RADIUS, Bvh2, Bvh4, Rays, Transformation, identity_transform
 from tpu_bvh_torch.utils import camera, scenes, validate
@@ -856,22 +856,108 @@ def test_batched_kernel_matches_plain(cuda, kind):
 
 
 def test_batched_kernel_refuses_past_its_capacity(cuda):
-    """A capacity past MAX_PRIMS is refused before any launch; build_batched
-    takes the per-mesh single-pass build there (B1 and B2 once a mesh),
-    equal to the CPU build."""
+    """A capacity past MAX_PRIMS is refused by the warp kernel before any
+    launch, and build_batched sends 65 to the block kernel (one launch, no
+    B1 or B2); the block kernel refuses 1025 before any launch, and
+    build_batched takes the per-mesh single-pass build there (B1 and B2
+    once a mesh). Each route equals the CPU build."""
     cap = batched_build.MAX_PRIMS + 1
     meshes, _ = _batched_meshes("random64", seed=1)
     tris_b = batched.pad_meshes(meshes[:3], cap, device=cuda)[0]
     before = batched_build.launches
     with pytest.raises(ValueError, match="2 <= M <= 64"):
         batched_build.batched_build(tris_b)
-    scans, refits = scan32.launches, refit_dense.launches
+    scans, refits, blocks = scan32.launches, refit_dense.launches, batched_block.launches
     got = batched.build_batched(tris_b)
     torch.cuda.synchronize()
-    assert batched_build.launches == before
+    assert batched_build.launches == before and batched_block.launches == blocks + 1
+    assert scan32.launches == scans and refit_dense.launches == refits
+    for g, w in zip(got, batched.build_batched(tris_b.cpu())):
+        assert g.dtype == w.dtype and torch.equal(_bits(g).cpu(), _bits(w))
+    cap = batched_block.MAX_PRIMS + 1
+    tris_b = batched.pad_meshes(meshes[:3], cap, device=cuda)[0]
+    with pytest.raises(ValueError, match="65 <= M <= 1024"):
+        batched_block.batched_block(tris_b)
+    got = batched.build_batched(tris_b)
+    torch.cuda.synchronize()
+    assert batched_block.launches == blocks + 1
     assert scan32.launches == scans + 3 and refit_dense.launches == refits + 3
     for g, w in zip(got, batched.build_batched(tris_b.cpu())):
         assert g.dtype == w.dtype and torch.equal(_bits(g).cpu(), _bits(w))
+
+
+def _block_meshes(kind, seed=0):
+    """Meshes and a capacity for the block kernel: random soups at a
+    capacity (sizes 2 to it), the +-0 soup, one triangle repeated (every
+    code equal), the cornellbox padded, x near FLT_MAX with a geometric run
+    (the 3e38 rule of both refit paths)."""
+    rng = np.random.default_rng(seed)
+    if kind.startswith("random"):
+        cap = int(kind[len("random"):])
+        return scenes.random_meshes(max(64, 65_536 // cap), cap, seed), cap
+    if kind == "signed_zero":
+        pick = rng.integers(0, 3, (8192, 3, 3))
+        f32 = np.float32
+        coords = np.where(pick == 0, f32(-0.0), np.where(pick == 1, f32(0.0), f32(1.0)))
+        tris = np.where(rng.random((8192, 3, 3)) < 0.5, coords, rng.random((8192, 3, 3), f32))
+        return list(tris.astype(f32).reshape(-1, 128, 3, 3)), 128
+    if kind == "one_tri":
+        tri = scenes.random_meshes(1, 2, seed)[0][:1]
+        return [np.repeat(tri, int(n), axis=0) for n in rng.integers(1, 97, 64)], 96
+    if kind == "cornellbox":
+        box = scenes.cornellbox()
+        return [box] * 512, 65
+    assert kind == "huge"
+    out = scenes.random_meshes(64, 1024, seed)
+    out[0] = np.concatenate([out[0]] * (1024 // len(out[0]) + 1))[:1024]
+    out[0][..., 1] = (np.float32(0.97) ** np.arange(1024, dtype=np.float32))[:, None]
+    for t in out:
+        t[..., 0] = rng.uniform(3.1e38, 3.35e38, t.shape[:2])
+    return out, 1024
+
+
+@pytest.mark.parametrize("kind", ["random65", "random96", "random128", "random257", "random512",
+                                  "random1024", "signed_zero", "one_tri", "cornellbox", "huge"])
+def test_batched_block_kernel_matches_plain(cuda, kind):
+    """The block kernel (one launch a call, through build_batched) against
+    its plain version on the card and on the CPU, floats by their bits;
+    every tree valid."""
+    meshes, cap = _block_meshes(kind)
+    tris_b = batched.pad_meshes(meshes, cap, device=cuda)[0]
+    before, warps = batched_block.launches, batched_build.launches
+    scans, refits = scan32.launches, refit_dense.launches
+    got = batched.build_batched(tris_b)
+    torch.cuda.synchronize()
+    assert batched_block.launches == before + 1 and batched_build.launches == warps
+    assert scan32.launches == scans and refit_dense.launches == refits
+    for want in (batched_block.batched_block_reference(tris_b),
+                 batched_block.batched_block_reference(tris_b.cpu())):
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(_bits(g).cpu(), _bits(w).cpu())
+    for b in range(0, tris_b.shape[0], max(1, tris_b.shape[0] // 32)):
+        one = type(got)(*(f[b] for f in got))
+        assert validate.check_bvh2_correctness(one, cap) and validate.check_root_aabb(one)
+
+
+def test_batched_phase_clocks(cuda):
+    """Both kernels' clock64 phase stamps: every phase of every mesh takes
+    cycles, and a launch with its clocks on builds the same trees."""
+    for mod, cap in ((batched_build, 64), (batched_block, 1024)):
+        tris_b = batched.pad_meshes(scenes.random_meshes(256, cap, 3), cap, device=cuda)[0]
+        want = (batched_build.batched_build if mod is batched_build
+                else batched_block.batched_block)(tris_b)
+        cyc = mod.phase_cycles(tris_b)
+        assert all(cyc[p][0] > 0 and cyc[p][2] >= cyc[p][1] for p in batched_build.PHASES)
+        assert cyc["total"] > 0
+        clk = torch.zeros((256, 6), dtype=torch.int64, device=cuda)
+        got = mod._launch(tris_b, clk)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want) and bool((clk.diff(dim=1) > 0).all())
+
+
+def test_batched_block_on_an_empty_batch(cuda):
+    got = batched.build_batched(torch.zeros((0, 200, 3, 3), device=cuda))
+    assert [tuple(f.shape) for f in got] == [(0, 6, 399), (0, 399), (0, 399), (0,)]
 
 
 def test_batched_kernel_on_an_empty_batch(cuda):

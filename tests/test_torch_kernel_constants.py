@@ -6,8 +6,8 @@ import re
 
 import pytest
 
-from tpu_bvh_torch.ops import (batched_build, collapse_block, ploc_round, raster_gpu, ray_sweep,
-                               refit_dense, threshold_core, traverse)
+from tpu_bvh_torch.ops import (batched_block, batched_build, collapse_block, ploc_round,
+                               raster_gpu, ray_sweep, refit_dense, threshold_core, traverse)
 from tpu_bvh_torch.utils import kernels
 
 
@@ -34,6 +34,10 @@ def _constexpr(source: str, name: str) -> int:
     ("psv_scan.cuh", "kTile", lambda: threshold_core.TILE),
     ("psv_scan.cuh", "kV", lambda: threshold_core.V),
     ("batched_build.cu", "kMaxPrims", lambda: batched_build.MAX_PRIMS),
+    ("batched_build.cu", "kWalkMax", lambda: batched_build.WALK_MAX),
+    ("batched_block.cu", "kMinPrims", lambda: batched_block.MIN_PRIMS),
+    ("batched_block.cu", "kMaxPrims", lambda: batched_block.MAX_PRIMS),
+    ("batched_block.cu", "kRadius", lambda: batched_block.RADIUS),
     ("traverse.cu", "kStackDepth", lambda: traverse.STACK_DEPTH),
     ("traverse.cu", "kBlock", lambda: traverse.BLOCK),
     ("traverse.cu", "kSmallBlock", lambda: traverse.SMALL_BLOCK),

@@ -28,9 +28,20 @@
 //     over the planes: the lowest set bit of the survivors is the earliest
 //     argmin.
 //  4. Refit: an internal node takes the min of the min_keys of its leaves
-//     [first, last] from shared memory (the key order is jmin's, so the min
-//     of keys is exact in any order), and the key of 3e38 where the range is
-//     not the whole mesh (JAX's masked min).
+//     [first, last] (the key order is jmin's, so the min of keys is exact
+//     in any order). A walk over the range costs the root's lane 6 M loads;
+//     past kWalkMax prims (at two slots a lane) two tables built by shuffles
+//     over the dead room of the mesh take its place: each sorted
+//     leaf's min from the start of its block of 8 and to its end, and a min
+//     table over the blocks. A range across blocks is the suffix of its
+//     first, the prefix of its last and two windows over the blocks between
+//     (at most 24 loads a row); a range inside one block a walk of at most 8
+//     leaves. The tables cost a fixed number of shuffles a slot, the walk
+//     grows with M: on the H100 the walk won at one slot a lane and at 36
+//     and 40 prims, the tables at 48 (by 1%), 56 and 64 (device time on
+//     4096 meshes, profile_slice's batched_* calls). Each box
+//     is taken down to 3e38 where the range is not the whole mesh (JAX's
+//     masked min).
 //  5. Each row of packed_t, left and right is written at lane-consecutive
 //     addresses.
 //
@@ -42,42 +53,22 @@
 
 #include <cuda_runtime.h>
 
+#include "batched_common.cuh"
 #include "common.cuh"
 
 namespace {
 
+using tbvh::from_min_key;
 using tbvh::jmax;
 using tbvh::jmin;
+using tbvh::min_key;
 using u64 = unsigned long long;
 
 constexpr int kMaxPrims = 64;  // the largest capacity: batched_build.MAX_PRIMS
+constexpr int kWalkMax = 48;   // two slots a lane: the walk up to here, the tables past it
 constexpr int kWarps = 4;      // meshes a block, one warp each
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kBig = 3.0e38f;
-
-// aabb.min_key: an int whose order is jmin's (-0.0 < +0.0, NaN lowest)
-__device__ __forceinline__ int min_key(float x) {
-  const int b = __float_as_int(x);
-  return x != x ? INT_MIN : b ^ ((b >> 31) & 0x7fffffff);
-}
-
-__device__ __forceinline__ float from_min_key(int k) {
-  return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
-}
-
-// 10 -> 30 bit spread (morton._spread3; the products wrap at 32 bits)
-__device__ __forceinline__ unsigned spread3(unsigned x) {
-  x = (x * 0x00010001u) & 0xFF0000FFu;
-  x = (x * 0x00000101u) & 0x0F00F00Fu;
-  x = (x * 0x00000011u) & 0xC30C30C3u;
-  x = (x * 0x00000005u) & 0x49249249u;
-  return x;
-}
-
-// clip(p * 1024, 0, 1023) truncated, as morton30_cols
-__device__ __forceinline__ unsigned quantize(float p) {
-  return static_cast<unsigned>(fminf(fmaxf(p * 1024.0f, 0.0f), 1023.0f));
-}
 
 // the earliest argmin of the deltas over the boundaries in `c` (-1 if none):
 // from the top bit plane down, keep the candidates whose bit is 0 where any is
@@ -90,21 +81,44 @@ __device__ __forceinline__ int argmin(u64 c, const u64 (&plane)[6]) {
   return c ? __ffsll(static_cast<long long>(c)) - 1 : -1;
 }
 
-template <int E>
+// One warp's shared memory: the sorted leaves' keys, and the mesh and its
+// leaf rows (steps 1-3), whose room the refit's tables take (step 4)
+template <int N>
+struct WarpSmem {
+  int key[6][N];  // min_keys by sorted leaf
+  union {
+    struct {
+      float tri[9 * N];  // the mesh as loaded
+      float row[6][N];   // leaf rows (min xyz, -max xyz) by prim
+    } in;
+    struct {
+      int pre[6][N];         // a sorted leaf's min over its block of 8, from the block's start
+      int suf[6][N];         // and to the block's end
+      int blk[3][6][N / 8];  // windows of 1, 2 and 4 blocks
+    } fit;
+  } u;
+};
+
+// kClock: lane 0 stamps clock64 after each phase into clk (compiled out of
+// the launches that take no clock record)
+template <int E, bool kClock>
 __global__ void __launch_bounds__(kWarps * 32)
     batched_build_warp(const float* __restrict__ tris, int B, int M, float* __restrict__ packed_t,
-                       int* __restrict__ left, int* __restrict__ right, int* __restrict__ root) {
+                       int* __restrict__ left, int* __restrict__ right, int* __restrict__ root,
+                       long long* __restrict__ clk) {
   constexpr int N = 32 * E;  // slots a warp
-  __shared__ float s_tri[kWarps][9 * N];  // the mesh as loaded
-  __shared__ float s_row[kWarps][6][N];   // leaf rows (min xyz, -max xyz) by prim
-  __shared__ int s_key[kWarps][6][N];     // their min_keys by sorted leaf
+  constexpr int NB = N / 8;  // blocks of 8 sorted leaves
+  __shared__ WarpSmem<N> s_warp[kWarps];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarps + warp;
   if (b >= B) return;  // the whole warp; only warp-level syncs follow
   const int m = M - 1;
   const int W = 2 * M - 1;
-  float* tri = s_tri[warp];
+  long long* stamp = kClock && lane == 0 ? clk + 6 * static_cast<size_t>(b) : nullptr;
+  if (stamp) stamp[0] = clock64();
+  WarpSmem<N>& sm = s_warp[warp];
+  float* tri = sm.u.in.tri;
   const float* src = tris + static_cast<size_t>(b) * M * 9;
   for (int t = lane; t < 9 * M; t += 32) tri[t] = src[t];
   __syncwarp();
@@ -122,8 +136,8 @@ __global__ void __launch_bounds__(kWarps * 32)
         const float v0 = tri[p * 9 + a], v1 = tri[p * 9 + 3 + a], v2 = tri[p * 9 + 6 + a];
         mn[e][a] = jmin(jmin(v0, v1), v2);
         mx[e][a] = jmax(jmax(v0, v1), v2);
-        s_row[warp][a][p] = mn[e][a];
-        s_row[warp][3 + a][p] = -mx[e][a];
+        sm.u.in.row[a][p] = mn[e][a];
+        sm.u.in.row[3 + a][p] = -mx[e][a];
         kmn[a] = min(kmn[a], min_key(mn[e][a]));
         kmx[a] = min(kmx[a], min_key(-mx[e][a]));
       }
@@ -136,17 +150,14 @@ __global__ void __launch_bounds__(kWarps * 32)
     const float ext = -from_min_key(__reduce_min_sync(kFull, kmx[a])) - smin[a];
     safe[a] = ext > 0.0f ? ext : 1.0f;
   }
+  if (stamp) stamp[1] = clock64();
 
   // 2. codes and the sort
   u64 key[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int p = e * 32 + lane;
-    unsigned q[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-      q[a] = quantize(((mn[e][a] + mx[e][a]) * 0.5f - smin[a]) / safe[a]);
-    const unsigned code = spread3(q[0]) * 4u + spread3(q[1]) * 2u + spread3(q[2]);
+    const unsigned code = tbvh::morton30(mn[e], mx[e], smin, safe);
     key[e] = p < M ? (static_cast<u64>(code) << 6) | static_cast<u64>(p) : ~0ull;
   }
 #pragma unroll
@@ -169,8 +180,10 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
   }
 
+  if (stamp) stamp[2] = clock64();
+
   // 3. sorted leaves, deltas, leaf ranges and children
-  __syncwarp();  // s_row is complete
+  __syncwarp();  // the leaf rows are complete
   float leaf[E][6];
   int prim[E], dlt[E];
 #pragma unroll
@@ -181,8 +194,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int r = 0; r < 6; ++r) {
       leaf[e][r] = 0.0f;
       if (k < M) {
-        leaf[e][r] = s_row[warp][r][prim[e]];
-        s_key[warp][r][k] = min_key(leaf[e][r]);
+        leaf[e][r] = sm.u.in.row[r][prim[e]];
+        sm.key[r][k] = min_key(leaf[e][r]);
       }
     }
     const unsigned code = static_cast<unsigned>(key[e] >> 6);
@@ -191,9 +204,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       const unsigned wrap = __shfl_sync(kFull, static_cast<unsigned>(key[E - 1] >> 6), 0);
       if (lane == 31) next = wrap;
     }
-    const unsigned x = code ^ next;
-    const int raw = x ? __clz(static_cast<int>(x)) : 32 + __clz(k ^ (k + 1));
-    dlt[e] = raw <= 31 ? raw - 2 : raw - 11;
+    dlt[e] = tbvh::remapped_delta(code, next, k);
   }
   u64 plane[6];
 #pragma unroll
@@ -234,9 +245,89 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     root_bal[e] = __ballot_sync(kFull, i < m && first[e] == 0 && last[e] == m);
   }
-  __syncwarp();  // s_key is complete
+  __syncwarp();  // the keys are complete, the mesh and the leaf rows dead
+  if (stamp) stamp[3] = clock64();
 
-  // 4. refit and 5. the outputs
+  // 4. refit
+  int acc[E][6];
+  if (E == 1 || M <= kWalkMax) {  // short meshes: a walk over each node's leaves
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int i = e * 32 + lane;
+      if (i < m) {
+#pragma unroll
+        for (int r = 0; r < 6; ++r) acc[e][r] = INT_MAX;
+        for (int t = first[e]; t <= last[e]; ++t) {
+#pragma unroll
+          for (int r = 0; r < 6; ++r) acc[e][r] = min(acc[e][r], sm.key[r][t]);
+        }
+      }
+    }
+  } else {
+    // the in-block prefix and suffix mins of the sorted leaves' keys (three
+    // shuffles each within groups of 8 lanes) and a min table over the
+    // blocks; a range across blocks is the suffix of its first block, the
+    // prefix of its last and two windows over the blocks between, a range
+    // inside one block a walk of at most 8 keys
+    const int sub = lane & 7;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int k = e * 32 + lane;
+#pragma unroll
+      for (int r = 0; r < 6; ++r) {
+        int p = k < M ? min_key(leaf[e][r]) : INT_MAX, q = p;
+#pragma unroll
+        for (int d = 1; d < 8; d <<= 1) {
+          const int up = __shfl_up_sync(kFull, p, d, 8), dn = __shfl_down_sync(kFull, q, d, 8);
+          if (sub >= d) p = min(p, up);
+          if (sub + d < 8) q = min(q, dn);
+        }
+        sm.u.fit.pre[r][k] = p;
+        sm.u.fit.suf[r][k] = q;
+        if (sub == 0) sm.u.fit.blk[0][r][k >> 3] = q;
+      }
+    }
+#pragma unroll
+    for (int lvl = 1; lvl < 3; ++lvl) {
+      __syncwarp();
+      for (int c = lane; c < 6 * NB; c += 32) {
+        const int r = c / NB, x = c % NB;
+        if (x + (1 << lvl) <= NB)
+          sm.u.fit.blk[lvl][r][x] =
+              min(sm.u.fit.blk[lvl - 1][r][x], sm.u.fit.blk[lvl - 1][r][x + (1 << (lvl - 1))]);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int i = e * 32 + lane;
+      if (i < m) {
+        const int f = first[e], l = last[e], bf = f >> 3, bl = l >> 3;
+        if (bf == bl) {
+#pragma unroll
+          for (int r = 0; r < 6; ++r) acc[e][r] = INT_MAX;
+          for (int t = f; t <= l; ++t) {
+#pragma unroll
+            for (int r = 0; r < 6; ++r) acc[e][r] = min(acc[e][r], sm.key[r][t]);
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < 6; ++r) acc[e][r] = min(sm.u.fit.suf[r][f], sm.u.fit.pre[r][l]);
+          if (bl - bf >= 2) {  // the blocks between: two windows of 2^k blocks
+            const int a = bf + 1, z = bl - 1, k = 31 - __clz(z - a + 1);
+#pragma unroll
+            for (int r = 0; r < 6; ++r)
+              acc[e][r] = min(acc[e][r], min(sm.u.fit.blk[k][r][a],
+                                             sm.u.fit.blk[k][r][z - (1 << k) + 1]));
+          }
+        }
+      }
+    }
+  }
+  __syncwarp();
+  if (stamp) stamp[4] = clock64();
+
+  // 5. the outputs
   float* out = packed_t + static_cast<size_t>(b) * 6 * W;
   int* lo = left + static_cast<size_t>(b) * W;
   int* ro = right + static_cast<size_t>(b) * W;
@@ -244,15 +335,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int e = 0; e < E; ++e) {
     const int i = e * 32 + lane;
     if (i < m) {
-      int acc[6];
+      const int fill = last[e] - first[e] + 1 < M ? min_key(kBig) : INT_MAX;
 #pragma unroll
-      for (int r = 0; r < 6; ++r) acc[r] = last[e] - first[e] + 1 < M ? min_key(kBig) : INT_MAX;
-      for (int t = first[e]; t <= last[e]; ++t) {
-#pragma unroll
-        for (int r = 0; r < 6; ++r) acc[r] = min(acc[r], s_key[warp][r][t]);
-      }
-#pragma unroll
-      for (int r = 0; r < 6; ++r) out[r * W + i] = from_min_key(acc[r]);
+      for (int r = 0; r < 6; ++r) out[r * W + i] = from_min_key(min(acc[e][r], fill));
       lo[i] = lc[e] >= 0 ? lc[e] : m + i;
       ro[i] = rc[e] >= 0 ? rc[e] : m + i + 1;
     }
@@ -270,19 +355,32 @@ __global__ void __launch_bounds__(kWarps * 32)
       if (root_bal[e]) r = e * 32 + __ffs(static_cast<int>(root_bal[e])) - 1;
     root[b] = r;
   }
+  if (stamp) stamp[5] = clock64();
+}
+
+template <int E>
+void launch(const float* tris, int B, int M, float* packed_t, int* left, int* right, int* root,
+            long long* clk, cudaStream_t stream) {
+  const int grid = (B + kWarps - 1) / kWarps;
+  if (clk)
+    batched_build_warp<E, true><<<grid, kWarps * 32, 0, stream>>>(tris, B, M, packed_t, left,
+                                                                   right, root, clk);
+  else
+    batched_build_warp<E, false><<<grid, kWarps * 32, 0, stream>>>(tris, B, M, packed_t, left,
+                                                                    right, root, clk);
 }
 
 }  // namespace
 
-extern "C" int tbvh_batched_build(const float* tris, int B, int M, float* packed_t, int* left,
-                                  int* right, int* root, cudaStream_t stream) {
+// tris f32[B, M, 3, 3]; packed_t f32[B, 6, 2M - 1]; left, right i32[B, 2M - 1];
+// root i32[B]; clk i64[B, 6] (lane 0's phase clocks, a row a mesh) or null
+extern "C" int tbvh_batched_build(const float* tris, int B, int M, float* packed_t,
+                                  int* left, int* right, int* root, long long* clk,
+                                  cudaStream_t stream) {
   if (B < 1 || M < 2 || M > kMaxPrims) return (int)cudaErrorInvalidValue;
-  const int grid = (B + kWarps - 1) / kWarps;
   if (M <= 32)
-    batched_build_warp<1><<<grid, kWarps * 32, 0, stream>>>(tris, B, M, packed_t, left, right,
-                                                             root);
+    launch<1>(tris, B, M, packed_t, left, right, root, clk, stream);
   else
-    batched_build_warp<2><<<grid, kWarps * 32, 0, stream>>>(tris, B, M, packed_t, left, right,
-                                                             root);
+    launch<2>(tris, B, M, packed_t, left, right, root, clk, stream);
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import batched_build
+from ..ops import batched_block, batched_build
 from ..types import MAX_BATCHED_PRIMS, Bvh2
 from . import lbvh
 
@@ -40,15 +40,20 @@ def build_batched(tris_b) -> Bvh2:
     as the batched reference kernel does (`BatchedBuildKernel.h:266-287`).
 
     The capacity M picks the path, as JAX's `build_batched` does by shape:
-    M <= 64 takes the dense form (`ops/batched_build.py`: one kernel launch
-    for the whole batch on a CUDA tensor, the all-pairs plain version on a
-    CPU tensor); M > 64 builds each mesh with `lbvh.build_single_pass(...,
+    M <= 64 takes the dense form (`ops/batched_build.py`: one launch of the
+    warp-a-mesh kernel for the whole batch on a CUDA tensor, the all-pairs
+    plain version on a CPU tensor); 64 < M <= 1024 the vmapped single-pass
+    build's contract (`ops/batched_block.py`: one launch of the
+    block-a-mesh kernel on a CUDA tensor, its plain version on a CPU
+    tensor); M > 1024 builds each mesh with `lbvh.build_single_pass(...,
     use_extended=False)` and stacks the trees (on a CUDA tensor that
-    launches B1 and B2 once a mesh). The larger meshes take that path by
-    the size rule, not as a fallback; both give the same trees."""
+    launches B1 and B2 once a mesh). Each size takes its path by this
+    rule, not as a fallback."""
     B, M = tris_b.shape[:2]
     if M <= batched_build.MAX_PRIMS:
         return Bvh2(*batched_build.batched_build(tris_b))
+    if M <= batched_block.MAX_PRIMS:
+        return Bvh2(*batched_block.batched_block(tris_b))
     if B == 0:  # no tree to stack: JAX's shapes and dtypes
         dev = tris_b.device
         return Bvh2(torch.empty((0, 6, 2 * M - 1), dtype=torch.float32, device=dev),

@@ -36,6 +36,7 @@ from . import morton, radix_tree, scan32
 from .aabb import fmax, fmin, from_min_key, min_key
 
 MAX_PRIMS = 64  # the largest capacity (kMaxPrims in csrc/batched_build.cu)
+WALK_MAX = 48  # past it (two slots a lane) the kernel refits from tables (kWalkMax)
 BIG = 3.0e38
 I32 = torch.int32
 launches = 0  # kernel launches by `batched_build` since the last reset
@@ -112,8 +113,9 @@ def batched_build_reference(tris_b):
     return torch.cat([int_packed, leaf_packed], dim=2), left, right, root
 
 
-def _launch(tris_b):
-    """One launch for the whole batch (none for an empty batch)."""
+def _launch(tris_b, clk=None):
+    """One launch for the whole batch (none for an empty batch); `clk`
+    i64[B, 6] takes each warp's phase clocks."""
     global launches
     B, M = tris_b.shape[:2]
     dev = tris_b.device
@@ -125,7 +127,34 @@ def _launch(tris_b):
         return packed_t, left, right, root
     err = kernels.lib().tbvh_batched_build(
         tris_b.data_ptr(), B, M, packed_t.data_ptr(), left.data_ptr(), right.data_ptr(),
-        root.data_ptr(), kernels.stream_of(tris_b))
+        root.data_ptr(), 0 if clk is None else clk.data_ptr(), kernels.stream_of(tris_b))
     kernels.check("tbvh_batched_build", err)
     launches += 1
     return packed_t, left, right, root
+
+
+PHASES = ("load and boxes", "codes and sort", "topology", "refit", "writes")
+
+
+def phase_cycles(tris_b) -> dict:
+    """One launch on the CUDA tensor `tris_b` with its phase clocks on
+    (lane 0 of each warp reads clock64 at the start and after each of the
+    PHASES, into i64[B, 6]): per phase the median and the largest of the
+    warps' SM cycles and their sum over the meshes, and the median of the
+    warps' totals."""
+    _check(tris_b)
+    kernels.require(tris_b, "tris_b", torch.float32)
+    clk = torch.zeros((tris_b.shape[0], len(PHASES) + 1), dtype=torch.int64,
+                      device=tris_b.device)
+    _launch(tris_b, clk)
+    return cycles_by_phase(clk)
+
+
+def cycles_by_phase(clk) -> dict:
+    """Per phase of an i64[units, 6] clock64 record: (median, largest, sum)
+    of the units' cycles; "total" the median of their sums."""
+    d = torch.diff(clk.cpu(), dim=1)
+    out = {name: (d[:, k].median().item(), d[:, k].max().item(), d[:, k].sum().item())
+           for k, name in enumerate(PHASES)}
+    out["total"] = d.sum(1).median().item()
+    return out

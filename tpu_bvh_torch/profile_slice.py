@@ -22,7 +22,12 @@ the shadow rays (occlusion), B4 `raster_sweep` at both render sizes and
 B7 `ploc_finish` on the HPLOC hand-over states at FIN_WIDTH and at 4096;
 and `batched.build_batched` (one kernel launch) on the reference's demo,
 4096 copies of the cornellbox at its own size, on 65,536 random meshes of
-2-32 prims at capacity 32 and on 4096 of 2-64 prims at capacity 64; and
+2-32 prims at capacity 32, on 4096 of 2-64 prims at capacity 64 and on
+4096 of 2-M at M = 40, 48, 56, either side of the warp kernel's cutover
+from the refit walk to the tables (the warp kernel; `batched_4096x<M>`),
+and on 1024 random meshes of 2-1024 prims at capacity 1024 and 16,384 of
+2-128 at 128 (the block kernel; `batched_block_1024`, `batched_block_128`,
+`scenes.block_meshes`' (a) and (b)); and
 the wavefront traversal of the 512^2 frame (`traverse.traverse_packed` as
 `traverse_packed_512`, `traverse.traverse_bvh2` with each variant as
 `traverse_<variant>_512`) and of the reversed shadow slice (65,536 rays
@@ -75,6 +80,7 @@ SHADOW_CAPS = (4096, 32768, 32)
 BATCHED_DEMO = 4096  # copies of the cornellbox
 BATCHED_RANDOM = 65_536  # random meshes of 2-32 prims at capacity 32
 BATCHED_WIDE = 4096  # random meshes of 2-64 prims at capacity 64
+BATCHED_CUTOVER = (40, 48, 56)  # capacities of 4096 random meshes between the walk and the tables
 GPU_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -265,6 +271,13 @@ def main():
     calls[f"batched_{BATCHED_RANDOM}"] = lambda: batched.build_batched(many)
     wide = batched.pad_meshes(scenes.random_meshes(BATCHED_WIDE, 64, 3), 64, device=dev)[0]
     calls[f"batched_{BATCHED_WIDE}x64"] = lambda: batched.build_batched(wide)
+    for cap in BATCHED_CUTOVER:
+        cut = batched.pad_meshes(scenes.random_meshes(BATCHED_WIDE, cap, 3), cap, device=dev)[0]
+        calls[f"batched_{BATCHED_WIDE}x{cap}"] = lambda cut=cut: batched.build_batched(cut)
+    blocks = {name: batched.pad_meshes(meshes, cap, device=dev)[0]
+              for name, (meshes, cap) in scenes.block_meshes().items()}
+    calls["batched_block_1024"] = lambda: batched.build_batched(blocks["1024x1024"])
+    calls["batched_block_128"] = lambda: batched.build_batched(blocks["16384x128"])
     # the wavefront traversal (one kernel launch a call) of the 512^2 frame
     # and of the reversed shadow slice
     t_packed = traverse.pack_bvh2(aux[0], tris)

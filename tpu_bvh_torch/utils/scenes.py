@@ -198,6 +198,18 @@ def deep_chain(n_leaves: int = 64, hot_prim: int = 60) -> dict:
             "direction": np.array([[0.0, 0.0, 1.0], [0.0, 0.0, 1.0]], np.float32)}
 
 
+def signed_zero_soup(n: int = 512, seed: int = 0) -> np.ndarray:
+    """n triangles with coordinates drawn from {-0.0, +0.0, 1.0}, half of
+    them replaced by uniform draws (`np.where` keeps the -0.0): a soup on
+    which every min and max must order the signed zeros as JAX does."""
+    rng = np.random.default_rng(seed)
+    pick = rng.integers(0, 3, (n, 3, 3))
+    f32 = np.float32
+    coords = np.where(pick == 0, f32(-0.0), np.where(pick == 1, f32(0.0), f32(1.0)))
+    draws = rng.random((n, 3, 3), dtype=f32)
+    return np.where(rng.random((n, 3, 3)) < 0.5, coords, draws).astype(f32)
+
+
 def random_meshes(n: int, max_prims: int, seed: int = 0) -> list:
     """n random soups of 2..max_prims triangles each, for batched builds:
     a uniform base in [-10, 10]^3 and normal vertex offsets of 0.5, as the
@@ -206,6 +218,22 @@ def random_meshes(n: int, max_prims: int, seed: int = 0) -> list:
     sizes = rng.integers(2, max_prims + 1, n)
     tris = rng.uniform(-10, 10, (n, 1, 1, 3)) + rng.normal(0, 0.5, (n, max_prims, 3, 3))
     return [t[:k] for t, k in zip(tris.astype(np.float32), sizes)]
+
+
+def block_meshes() -> dict:
+    """name -> (meshes, capacity) of the batched block kernel's four inputs:
+    (a) 1024 random meshes at capacity 1024 (sizes 2-1024: heavy padding),
+    (b) 16,384 of 2-128 at 128, (c) 4096 of 2-65 at 65, (d) the +-0 soup in
+    meshes of 128 beside meshes of one triangle repeated (every code
+    equal) at 128."""
+    rng = np.random.default_rng(7)
+    tri = random_meshes(1, 2, 8)[0][:1]
+    one_tri = [np.repeat(tri, int(n), axis=0) for n in rng.integers(2, 129, 16)]
+    soup = list(signed_zero_soup(2048, seed=1).reshape(-1, 128, 3, 3))
+    return {"1024x1024": (random_meshes(1024, 1024, 4), 1024),
+            "16384x128": (random_meshes(16_384, 128, 5), 128),
+            "4096x65": (random_meshes(4096, 65, 6), 65),
+            "signed_zero_one_tri128": (soup + one_tri, 128)}
 
 
 def shadow_workload(tris, rays, hit):
