@@ -43,9 +43,12 @@ On the way it
    shared-memory width limit (one cluster more is refused), printing its
    device counters (rounds and clock64 cycles per regime and phase); the
    threshold scans (B12/B13, B14, B15) on sponza's and the dup soup's
-   deltas and on 262,144 random deltas in [0, 53) (values repeat), the
-   plane scan (B11) on sponza's [m, 64] threshold plane, min and max,
-   forward and reverse, and the two V=32 scan halves (B16) on sponza's
+   deltas and on 262,144 random deltas in [0, 53) (values repeat), B15
+   also on a soup of a few repeated deltas, on equal deltas and at m = 1,
+   the plane scan (B11) on sponza's [m, 64] threshold plane, min and max,
+   forward and reverse, and on planes of other shapes (rows that are no
+   multiple of its tile, widths 3 and 130, one row), one launch a call,
+   and the two V=32 scan halves (B16) on sponza's
    and dup's deltas, forward and flipped, also against B1's outputs; B1
    on the deltas of 2^22 sorted random codes and B12/B13, B14 on 2^23
    random deltas in [0, 63], where each block walks many tiles (printing
@@ -113,8 +116,10 @@ On the way it
    `build_batched_sharded` on the demo (1024 meshes a rank),
    `traverse_sharded` and `render_raster_sharded` on the 512^2 frame over
    the assembled tree, counters set to 0 just before and read just after
-   on each rank; rank 0 gathers the counts and checks that B4, the
-   speculative traversal and the batched build launched on every rank;
+   on each rank; rank 0 gathers the counts and checks that the build ran
+   B11 twice on every rank (its psv and nsv plane scans; at both world
+   sizes) and that B4, the speculative traversal and the batched build
+   launched on every rank;
    both assembled trees equal the GPU single-pass build bit for bit
    without overflow, the gloo tree is valid and on its SAH pin, the
    extents equal the unsharded ones, and the batched trees, the
@@ -141,8 +146,9 @@ On the way it
    counters and SIMD efficiency (lane steps over 32 x warp steps);
 6. checks, from one torch.profiler trace each, that the dense refit (both
    entries), the collapse kernel, the topology scan (B1), the psv/nsv
-   scans (B12/B13, B14) and `build_batched` (the demo and capacity 1024)
-   launch one kernel a call, the last five with no memset, that each
+   scans (B12/B13, B14), the child positions (B15), the plane scan (B11)
+   and `build_batched` (the demo and capacity 1024) launch one kernel a
+   call, the last seven with no memset, that each
    traversal kernel on the frame's camera rays (a stride-0 origin) is one
    kernel and one memset a call,
    and prints the grid of B1's and B12's launch on sponza and
@@ -280,6 +286,7 @@ SHARDED_CALLS = {"build_single_pass_sharded": "lbvh.build_single_pass",
                  "traverse_sharded": "traverse.traverse_bvh2 (speculative)",
                  "render_raster_sharded": "raster_gpu.render_raster_gpu"}
 SHARDED_KERNELS = ("raster_sweep", "traverse_speculative", "batched_build")  # on every rank
+SHARDED_BUILD_KERNELS = {"plane_scan": 2}  # launches a sharded build makes on every rank
 
 
 def parse_args():
@@ -553,8 +560,9 @@ def sharded_rank(dev, sponza, cbox, full):
     this rank (CUDA events on its stream and the host clock). `full` drives
     the whole path (build, `to_bvh2`, extents, the batched demo, the
     traversal and the raster render of the 512^2 frame over the assembled
-    tree), else the build alone. Rank 0 checks that B4, the speculative
-    traversal and the batched build launched on every rank. Returns numpy:
+    tree), else the build alone. Rank 0 checks that the build's kernels
+    launched as often as it runs them on every rank and, with `full`, that
+    B4, the speculative traversal and the batched build did. Returns numpy:
     the assembled tree (rank 0), this rank's shards, counts and times."""
     import torch
     from tpu_bvh_torch.models import batched
@@ -594,6 +602,10 @@ def sharded_rank(dev, sponza, cbox, full):
     if mesh.axis_index() == 0:
         print(f"  sharded path ({mesh.size} rank(s), {mesh.backend}): launches by rank "
               f"{[{k: c for k, c in zip(names, row) if c} for row in every]}", flush=True)
+        for k, want in SHARDED_BUILD_KERNELS.items():
+            if not all(row[names.index(k)] == want for row in every):
+                raise AssertionError(f"{k} did not launch {want} times on every rank of the "
+                                     f"sharded build")
         for k in SHARDED_KERNELS if full else ():
             if not all(row[names.index(k)] > 0 for row in every):
                 raise AssertionError(f"{k} did not launch on every rank of the sharded path")
@@ -765,6 +777,34 @@ def main():
 
     draws = torch.from_numpy(rng.integers(0, 53, 262_144).astype(np.int32)).to(dev)
     check_threshold(draws, "262,144 random deltas in [0, 53)")
+    # B15 where deltas repeat: a soup of a few values (63 included: its <=
+    # answers are the neighbours), every delta equal, one row
+    odd_rng = np.random.default_rng(16)  # its own draws: `rng`'s later inputs stay as they were
+    soup = odd_rng.choice(np.array([0, 5, 5, 17, 62, 63], np.int32), 262_144)
+    for what, d in (("a soup of 262,144 deltas in {0, 5, 17, 62, 63}", soup),
+                    ("262,144 equal deltas", np.full(262_144, 7, np.int32)),
+                    ("one delta", np.array([9], np.int32))):
+        d = torch.from_numpy(d).to(dev)
+        got = threshold_core.child_positions_auto(d)
+        want = threshold_core.child_positions_reference(d)
+        torch.cuda.synchronize()
+        same_outputs(got, want, "child_positions", what)
+    # B11 on planes of other shapes: rows that are no multiple of its tile,
+    # widths below one strip and past two (no 16-byte rows), one row
+    for m_p, v_p in ((3 * plane_scan.TILE_ROWS + 5, 64), (1000, 3), (777, 130), (1, 64),
+                     (1, 5)):
+        x = torch.from_numpy(odd_rng.integers(-(2**31), 2**31, size=(m_p, v_p),
+                                              dtype=np.int64).astype(np.int32)).to(dev)
+        for is_min in (True, False):
+            for reverse in (False, True):
+                before = plane_scan.launches
+                got = plane_scan.plane_scan(x, is_min=is_min, reverse=reverse)
+                require(plane_scan.launches == before + 1, "plane_scan: one launch a call")
+                want = plane_scan.plane_scan_reference(x, is_min=is_min, reverse=reverse)
+                torch.cuda.synchronize()
+                same_outputs([got], [want], "plane_scan",
+                             f"a [{m_p}, {v_p}] plane, {'min' if is_min else 'max'}, "
+                             f"{'reverse' if reverse else 'forward'}")
     # B1 and B12/B13, B14 where a block walks many tiles: B1 at its largest
     # m (the deltas of 2^22 sorted random codes), the psv/nsv scans on 2^23
     # random deltas in [0, 63]
@@ -1886,6 +1926,12 @@ def main():
             ("scan32", lambda: scan32.scan_core(inputs["scan"]), True),
             ("psv_nsv_packed", lambda: threshold_core.psv_nsv_packed(t_dlt), True),
             ("psv_nsv_payload", lambda: threshold_core.psv_nsv_payload_auto(t_dlt, t_pay), True),
+            ("child_positions", lambda: threshold_core.child_positions_auto(t_dlt), True),
+            ("plane_scan (max, forward)",
+             lambda: plane_scan.plane_scan(inputs["planes"][False], is_min=False, reverse=False),
+             True),
+            ("plane_scan (min, reverse)",
+             lambda: plane_scan.plane_scan(plane, is_min=True, reverse=True), True),
             ("batched_build (the demo)", lambda: batched.build_batched(demo_t), True),
             ("batched_block ((a) at capacity 1024)", lambda: batched.build_batched(wide_t), True)):
         names, memsets = kernels_per_call(torch, fn)

@@ -684,14 +684,18 @@ def test_psv_nsv_kernels_past_one_resident_wave(cuda):
 
 
 def test_topology_and_psv_scans_are_one_launch_each(cuda):
-    """B1, B12/B13 and B14 are one CUDA kernel a call, with no memset: one
-    torch.profiler trace of one call each, a synchronize between them (one
-    trace for all three: a later trace in the same process can come back
-    empty)."""
+    """B1, B12/B13, B14, B15 and B11 are one CUDA kernel a call, with no
+    memset: one torch.profiler trace of one call each, a synchronize
+    between them (one trace for all: a later trace in the same process can
+    come back empty)."""
     dlt_raw = radix_tree.adjacent_deltas(_codes("random", 262_145).to(cuda))
     dlt = scan32.remap_deltas(dlt_raw)
+    plane = torch.where(dlt[:, None] < torch.arange(64, device=cuda)[None, :],
+                        dlt[:, None], threshold_core.BIG)
     calls = (lambda: scan32.scan_core(dlt_raw), lambda: threshold_core.psv_nsv_packed(dlt),
-             lambda: threshold_core.psv_nsv_payload_auto(dlt, dlt))
+             lambda: threshold_core.psv_nsv_payload_auto(dlt, dlt),
+             lambda: threshold_core.child_positions_auto(dlt),
+             lambda: plane_scan.plane_scan(plane, is_min=True, reverse=True))
     for fn in calls:
         fn()
     torch.cuda.synchronize()
@@ -707,8 +711,9 @@ def test_topology_and_psv_scans_are_one_launch_each(cuda):
             events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     names = [e["name"] for e in sorted(events, key=lambda e: e["ts"]) if e.get("cat") == "kernel"]
     assert sum(e.get("cat") == "gpu_memset" for e in events) == 0
-    assert len(names) == 3, names
-    assert "Topology" in names[0] and all("PsvNsv" in nm for nm in names[1:]), names
+    assert len(names) == 5, names
+    assert "Topology" in names[0] and all("PsvNsv" in nm for nm in names[1:3]), names
+    assert "ChildPositions" in names[3] and "plane_scan_kernel" in names[4], names
 
 
 def test_psv_nsv_phase_clocks(cuda):
@@ -745,10 +750,17 @@ def test_threshold_kernels_refuse_large_m(cuda, which):
     assert bool((got[0] == -1).all())
 
 
+_T = plane_scan.TILE_ROWS
+PLANES = sorted({(1000, 64), (262_144, 64), (300, 5), (700, 130)}
+                | {(m, v) for m in (1, 2, _T - 1, _T, _T + 1, 262_143) for v in (3, 64, 130)})
+
+
 @pytest.mark.parametrize("is_min", [True, False])
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("m,v", [(1, 64), (1000, 64), (262_144, 64), (300, 5), (700, 130)])
+@pytest.mark.parametrize("m,v", PLANES)
 def test_plane_scan_kernel_matches_plain(cuda, is_min, reverse, m, v):
+    """B11 (one launch) around a tile's rows, at widths of one strip, part
+    of one and three strips (V = 130: no 16-byte rows)."""
     x = np.random.default_rng(m + v).integers(-(2**31), 2**31 - 1, size=(m, v), dtype=np.int64)
     x = torch.from_numpy(x.astype(np.int32)).to(cuda)
     before = plane_scan.launches
@@ -756,6 +768,60 @@ def test_plane_scan_kernel_matches_plain(cuda, is_min, reverse, m, v):
     torch.cuda.synchronize()
     assert plane_scan.launches == before + 1
     assert torch.equal(got, plane_scan.plane_scan_reference(x, is_min=is_min, reverse=reverse))
+
+
+def test_plane_scan_reuses_its_scratch(cuda):
+    """Calls of other shapes and modes back to back, with no synchronize:
+    each reads only its own epoch's status words from the shared scratch,
+    and a 16-byte-misaligned view takes the scalar loads."""
+    rng = np.random.default_rng(5)
+    big = torch.from_numpy(rng.integers(-50, 50, size=(5000, 130), dtype=np.int32)).to(cuda)
+    cases = [(big, True, False), (big[:3000, :64].contiguous(), False, True),
+             (big[:70].contiguous(), True, True), (big.view(-1)[1:64 * 999 + 1].view(999, 64),
+                                                   False, False),
+             (big[:4000], False, True), (big, True, False)]
+    got = [plane_scan.plane_scan(x, is_min=mn, reverse=rv) for x, mn, rv in cases]
+    for g, (x, mn, rv) in zip(got, cases):
+        assert torch.equal(g, plane_scan.plane_scan_reference(x, is_min=mn, reverse=rv))
+
+
+_SPONZA_DELTAS = {}
+
+
+def _child_deltas(kind, m, cuda):
+    """Deltas in [0, 63] for B15: a soup of a few repeated values, every
+    delta equal, draws, or sponza 262K's remapped deltas (repeated past
+    its 261,995 rows)."""
+    rng = np.random.default_rng(m + 11)
+    if kind == "soup":
+        d = rng.choice(np.array([0, 5, 5, 17, 62, 63], np.int32), m)
+    elif kind == "equal":
+        d = np.full(m, 7, np.int32)
+    elif kind == "draws":
+        d = rng.integers(0, 64, m).astype(np.int32)
+    else:
+        if "d" not in _SPONZA_DELTAS:
+            tris = torch.from_numpy(scenes.sponza_like(262_000)).to(cuda)
+            codes = lbvh._sorted_leaves_from_tris(tris, True)[0]
+            _SPONZA_DELTAS["d"] = scan32.remap_deltas(radix_tree.adjacent_deltas(codes))
+        s = _SPONZA_DELTAS["d"]
+        return s.repeat(-(-m // s.shape[0]))[:m].contiguous()
+    return torch.from_numpy(d).to(cuda)
+
+
+@pytest.mark.parametrize("kind", ["soup", "equal", "draws", "sponza"])
+@pytest.mark.parametrize("m", [1, 2, 1023, 1025, 262_143, (1 << 22) - 1])
+def test_child_positions_kernel_one_pass(cuda, kind, m):
+    """B15 (one cooperative launch of psv_scan.cuh with the <= answers and
+    the scatter) against its plain version: at and past one resident wave
+    (2^22 - 1 rows: many tiles a block, the answers parked)."""
+    d = _child_deltas(kind, m, cuda)
+    before = threshold_core.child_launches
+    got = threshold_core.child_positions_auto(d)
+    torch.cuda.synchronize()
+    assert threshold_core.child_launches == before + 1
+    for g, w in zip(got, threshold_core.child_positions_reference(d)):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("kind", ["random", "dups", "all_equal", "sorted_line"])

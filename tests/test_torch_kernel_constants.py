@@ -6,8 +6,9 @@ import re
 
 import pytest
 
-from tpu_bvh_torch.ops import (batched_block, batched_build, collapse_block, ploc_round,
-                               raster_gpu, ray_sweep, refit_dense, threshold_core, traverse)
+from tpu_bvh_torch.ops import (batched_block, batched_build, collapse_block, plane_scan,
+                               ploc_round, raster_gpu, ray_sweep, refit_dense, threshold_core,
+                               traverse)
 from tpu_bvh_torch.utils import kernels
 
 
@@ -33,6 +34,8 @@ def _constexpr(source: str, name: str) -> int:
     ("collapse_block.cu", "kErrWindow", lambda: collapse_block.ERR_WINDOW),
     ("psv_scan.cuh", "kTile", lambda: threshold_core.TILE),
     ("psv_scan.cuh", "kV", lambda: threshold_core.V),
+    ("plane_scan.cu", "kRows", lambda: plane_scan.TILE_ROWS),
+    ("plane_scan.cu", "kCols", lambda: plane_scan.COLS),
     ("batched_build.cu", "kMaxPrims", lambda: batched_build.MAX_PRIMS),
     ("batched_build.cu", "kWalkMax", lambda: batched_build.WALK_MAX),
     ("batched_block.cu", "kMinPrims", lambda: batched_block.MIN_PRIMS),

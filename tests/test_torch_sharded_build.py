@@ -135,6 +135,17 @@ def test_parents_are_the_links_read_backwards(ranks, scene, soups):
     np.testing.assert_array_equal(got["gathered"]["parent_leaf"], parent[m:])
 
 
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_sharded_scans_run_b11_twice_a_rank(ranks, scene):
+    """`_sharded_scans` takes its psv and nsv from `plane_scan.plane_scan`
+    (B11 on the card), JAX's `lax.cummax` and reverse `lax.cummin`: one
+    call each on every rank, and the tree still equals JAX's (the tests
+    above)."""
+    p, results = ranks
+    want = [{"is_min": False, "reverse": False}, {"is_min": True, "reverse": True}]
+    assert [r[scene]["plane_scans"] for r in results] == [want] * p
+
+
 def test_every_rank_assembles_the_same_tree(ranks):
     p, results = ranks
     assert len(results) == p

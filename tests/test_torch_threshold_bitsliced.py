@@ -49,9 +49,10 @@ def _first_bit(x):
     return _last_bit(x & -x)
 
 
-def _less_mask(planes, q):
-    """Per warp row and query q [W, K]: the mask of the warp's rows with
-    d < q, by the comparator over the bit planes [W, 6], high bit first."""
+def _compare(planes, q):
+    """Per warp row and query q [W, K]: the masks of the warp's rows with
+    d < q and with d == q, by the comparator over the bit planes [W, 6],
+    high bit first."""
     lt = torch.zeros_like(q)
     eq = torch.full_like(q, FULL)
     for b in range(5, -1, -1):
@@ -59,7 +60,11 @@ def _less_mask(planes, q):
         qb = torch.where((q >> b) & 1 == 1, FULL, 0)
         lt = lt | (eq & ~pb & qb)
         eq = eq & ~(pb ^ qb) & FULL
-    return lt
+    return lt, eq
+
+
+def _less_mask(planes, q):
+    return _compare(planes, q)[0]
 
 
 def _runs(nt, blocks):
@@ -68,8 +73,10 @@ def _runs(nt, blocks):
     return [(nt * b // g, nt * (b + 1) // g) for b in range(g)]
 
 
-def schedule(d, tile, blocks):
-    """(psv, nsv) i64[m] of the kernel's schedule on deltas d in [0, 63]."""
+def schedule(d, tile, blocks, le=False):
+    """(psv, nsv) i64[m] of the kernel's schedule on deltas d in [0, 63];
+    with `le` also (pl, nl), the same with d[j] <= q (an Op with kLe: the
+    threshold q + 1 of the same scans, the neighbours at q = 63)."""
     m = d.shape[0]
     nt = -(-m // tile)
     wpt = tile // WARP
@@ -100,12 +107,20 @@ def schedule(d, tile, blocks):
     t_n = w_n.gather(1, _first_bit(hit).clamp(min=0))[:, 0]
     t_p = torch.where(hit[:, 0] > 0, t_p, -1)
     t_n = torch.where(hit[:, 0] > 0, t_n, BIG)
-    mk = _less_mask(planes, dw)
-    before = mk & ((1 << lane) - 1)
-    after = mk & ~((2 << lane) - 1) & FULL
-    jb, ja = _last_bit(before), _first_bit(after)
-    p = torch.where(jb >= 0, 64 * (base + jb) + dw.gather(1, jb.clamp(min=0)), ex_p.gather(1, dw))
-    n = torch.where(ja >= 0, 64 * (base + ja) + dw.gather(1, ja.clamp(min=0)), ex_n.gather(1, dw))
+    mk, eq = _compare(planes, dw)
+
+    def in_tile(mk, q):
+        before = mk & ((1 << lane) - 1)
+        after = mk & ~((2 << lane) - 1) & FULL
+        jb, ja = _last_bit(before), _first_bit(after)
+        return (torch.where(jb >= 0, 64 * (base + jb) + dw.gather(1, jb.clamp(min=0)),
+                            ex_p.gather(1, q)),
+                torch.where(ja >= 0, 64 * (base + ja) + dw.gather(1, ja.clamp(min=0)),
+                            ex_n.gather(1, q)))
+
+    p, n = in_tile(mk, dw)
+    q1 = (dw + 1).clamp(max=V - 1)
+    pl, nl = in_tile(mk | eq, q1)
 
     # the blocks' totals and hit masks; phase 2: each block's carry-in (the
     # total of the last earlier / first later block whose mask has v),
@@ -133,7 +148,16 @@ def schedule(d, tile, blocks):
     tile = (torch.arange(nt * wpt) // wpt)[:, None].expand(-1, WARP)
     p = torch.where(p >= 0, p, c_p[tile, dw])
     n = torch.where(n != BIG, n, c_n[tile, dw])
-    return p.reshape(-1)[:m], n.reshape(-1)[:m]
+    if not le:
+        return p.reshape(-1)[:m], n.reshape(-1)[:m]
+    pl = torch.where(pl >= 0, pl, c_p[tile, q1]).reshape(-1)[:m]
+    nl = torch.where(nl != BIG, nl, c_n[tile, q1]).reshape(-1)[:m]
+    i = torch.arange(m)
+    key = 64 * i + d.to(torch.int64)
+    top = d == V - 1  # every row has d <= 63: the neighbouring rows
+    pl = torch.where(top, torch.cat([torch.tensor([-1]), key[:-1]]), pl)
+    nl = torch.where(top, torch.cat([key[1:], torch.tensor([BIG])]), nl)
+    return p.reshape(-1)[:m], n.reshape(-1)[:m], pl, nl
 
 
 def payload(p, n, pay):
@@ -142,6 +166,27 @@ def payload(p, n, pay):
     pp = torch.where(p >= 0, pay[(p >> 6).clamp(min=0)], -1)
     np_ = torch.where(n != BIG, pay[(n >> 6).clamp(max=pay.numel() - 1)], -1)
     return pp, np_
+
+
+def child_positions(d, tile, blocks):
+    """B15 by the kernel's one pass: ns (strict), pl and nl (<=) from the
+    schedule with `le`, left and right -1, then each row j writes itself
+    into left[ns(j)] where pl(ns(j)) = pl(j) and into right[pl(j)] where
+    nl(pl(j)) = ns(j). Returns (left, right) and the writes to each slot."""
+    m = d.shape[0]
+    _, ns, pl, nl = schedule(d, tile, blocks, le=True)
+    j = torch.arange(m)
+    left = torch.full((m,), -1, dtype=torch.int64)
+    right = left.clone()
+    writes_l = torch.zeros(m, dtype=torch.int64)
+    writes_r = writes_l.clone()
+    to_l = (ns != BIG) & (pl[(ns >> 6).clamp(max=m - 1)] == pl)
+    to_r = (pl >= 0) & (nl[(pl >> 6).clamp(min=0)] == ns)
+    for out, writes, at, who in ((left, writes_l, ns[to_l] >> 6, j[to_l]),
+                                 (right, writes_r, pl[to_r] >> 6, j[to_r])):
+        out[at] = who
+        writes.index_add_(0, at, torch.ones_like(at))
+    return (left.to(torch.int32), right.to(torch.int32)), writes_l, writes_r
 
 
 def topology(dlt_raw, tile, blocks):
@@ -267,3 +312,28 @@ def test_topology_epilogue_matches_pallas(kind, m):
     got = topology(dlt_raw, SMALL_TILE, 3)[0]
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("kind", ["sponza", "dup", "all_equal", "equal", "draws", "soup"])
+@pytest.mark.parametrize("m", SIZES)
+def test_child_one_pass_matches_jax(kind, m):
+    """B15's one pass (ns, pl, nl from the less and equal masks, then the
+    scatter) writes each slot at most once and equals JAX's
+    `child_positions_reference` and the port's plain version, on every
+    schedule: the deltas of sorted codes, every delta equal, draws in
+    [0, 63], and a soup of a few repeated values."""
+    if kind == "soup":
+        d = torch.from_numpy(np.random.default_rng(m + 3).choice(
+            np.array([0, 5, 5, 17, 62, 63], np.int32), m))
+    elif kind == "equal":
+        d = torch.full((m,), 7, dtype=torch.int32)
+    else:
+        d = _deltas(kind, m)
+    want = jtc.child_positions_reference(jnp.asarray(d.numpy()))
+    plain = threshold_core.child_positions_reference(d)
+    for tile, blocks in _grids(m):
+        got, writes_l, writes_r = child_positions(d, tile, blocks)
+        assert int(writes_l.max()) <= 1 and int(writes_r.max()) <= 1, (tile, blocks)
+        for g, w, pw in zip(got, want, plain):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=f"{tile}, {blocks}")
+            assert torch.equal(g, pw), (tile, blocks)

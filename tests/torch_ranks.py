@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from tpu_bvh_torch.models import lbvh
-from tpu_bvh_torch.ops import raster
+from tpu_bvh_torch.ops import plane_scan, raster
 from tpu_bvh_torch.parallel import sharded, sharded_build
 from tpu_bvh_torch.types import Bvh2, Rays, Transformation
 from tpu_bvh_torch.utils import convert
@@ -27,15 +27,28 @@ def _fields(nt):
 
 def sharded_builds(dev, cases):
     """cases: name -> (tris f32[n, 3, 3], keyword arguments). Per case: the
-    assembled Bvh2, the gathered ShardedBvh2 and the overflow flag."""
+    assembled Bvh2, the gathered ShardedBvh2, the overflow flag and the
+    build's calls of `plane_scan.plane_scan` on this rank (counted by a
+    wrapper put in its place for the build)."""
     mesh = sharded.default_mesh()
     out = {}
+    real = plane_scan.plane_scan
     for name, (tris, kw) in cases.items():
         t = torch.from_numpy(tris).to(dev)
-        sb = sharded_build.build_single_pass_sharded(mesh, t, **kw)
+        calls = []
+
+        def counted(*args, **kwargs):
+            calls.append(kwargs)
+            return real(*args, **kwargs)
+
+        plane_scan.plane_scan = counted
+        try:
+            sb = sharded_build.build_single_pass_sharded(mesh, t, **kw)
+        finally:
+            plane_scan.plane_scan = real
         out[name] = {"bvh": _fields(sharded_build.to_bvh2(sb, t.shape[0], mesh)),
                      "gathered": _fields(sharded_build.gather(mesh, sb)),
-                     "overflow": bool(sb.overflow)}
+                     "overflow": bool(sb.overflow), "plane_scans": calls}
     return out
 
 

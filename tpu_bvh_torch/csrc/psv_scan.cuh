@@ -1,12 +1,18 @@
-// The one-launch strict psv/nsv scan shared by threshold_scan.cu (B12/B13,
-// B14) and scan32.cu (B1). The two differ only in how a row's delta is
-// read and in what each row writes (the `Op` of `launch`).
+// The one-launch psv/nsv scan shared by threshold_scan.cu (B12/B13, B14),
+// scan32.cu (B1) and child_scan.cu (B15). They differ only in how a row's
+// delta is read, in what each row writes (the `Op` of `launch`) and, for
+// B15 (an Op with kLe), in the <= answers and a scatter after a second
+// grid sync.
 //
 // Input: deltas d[m] with values in [0, 63]. For every row i and q = d[i]:
 //   psv(i) = 64 j + d[j] for the last j < i with d[j] < q, -1 if none;
 //   nsv(i) = 64 j + d[j] for the first j > i with d[j] < q, kBig if none.
 // The packed key grows with j, so "last" is a max and "first" a min, as
-// in tpu_bvh/ops/pallas/threshold_core.py.
+// in tpu_bvh/ops/pallas/threshold_core.py. An Op with kLe also takes
+//   pl(i) = the same as psv with d[j] <= q, nl(i) = the same as nsv;
+// d[j] <= q is d[j] < q + 1, so these are the threshold q + 1 of the same
+// scans (the equal rows join the warp's mask: the comparator yields them),
+// and at q = 63 every row hits: the neighbouring rows.
 //
 // Design: one cooperative launch of a persistent grid.
 //  * Bit-sliced masks. A warp takes 6 ballots, one per bit plane of d. A
@@ -31,7 +37,9 @@
 //    (psv) and of the first later one (nsv), found by ballots over the
 //    blocks' masks, 32 blocks a step; its tiles' totals are rewritten in
 //    place as exclusive carries. Phase 3: a row without an answer in its
-//    tile takes its tile's carry at q, and the Op writes the row.
+//    tile takes its tile's carry at q, and the Op writes the row. With
+//    kLe, a second grid sync, then phase 4: the Op's scatter, a row at a
+//    time (each row reads the answers other rows wrote in phase 3).
 //  * The grid is the one the card holds resident (occupancy x SMs, at most
 //    one block a tile and kMaxBlocks). A grid that cannot be resident is an
 //    error.
@@ -78,10 +86,11 @@ struct Smem {
   int carryN[kKeep][kV];
 };
 
-// Bit j is set where row j of this warp has d < q; plane[b] is the ballot
-// of bit b of d.
-__device__ __forceinline__ unsigned less_mask(const unsigned (&plane)[6], int q) {
-  unsigned lt = 0u, eq = kFull;
+// Bit j is set where row j of this warp has d < q, and in `eq` where it
+// has d == q; plane[b] is the ballot of bit b of d.
+__device__ __forceinline__ unsigned compare(const unsigned (&plane)[6], int q, unsigned& eq) {
+  unsigned lt = 0u;
+  eq = kFull;
 #pragma unroll
   for (int b = 5; b >= 0; --b) {
     const unsigned qb = 0u - ((unsigned)(q >> b) & 1u);  // all ones where q's bit b is 1
@@ -89,6 +98,22 @@ __device__ __forceinline__ unsigned less_mask(const unsigned (&plane)[6], int q)
     eq &= ~(plane[b] ^ qb);
   }
   return lt;
+}
+
+// The packed key of the nearest set bit of mk before (after) this lane in
+// its warp, -1 (kBig) where none; `base` is the warp's first row.
+__device__ __forceinline__ int before_key(unsigned mk, int d, int base) {
+  const int lane = threadIdx.x & 31;
+  const int j = 31 - __clz(mk & ((1u << lane) - 1u));
+  const int dj = __shfl_sync(kFull, d, j & 31);
+  return j >= 0 ? 64 * (base + j) + dj : -1;
+}
+
+__device__ __forceinline__ int after_key(unsigned mk, int d, int base) {
+  const int lane = threadIdx.x & 31;
+  const int j = __ffs(mk & ~((2u << lane) - 1u)) - 1;
+  const int dj = __shfl_sync(kFull, d, j & 31);
+  return j >= 0 ? 64 * (base + j) + dj : kBig;
 }
 
 __device__ __forceinline__ void bit_planes(int d, unsigned (&plane)[6]) {
@@ -124,7 +149,9 @@ __device__ __forceinline__ void warp_aggregates(const unsigned (&plane)[6], int 
 }
 
 // `Op` reads a row's delta (`delta(i)`, i < m, in [0, 63]) and writes a
-// row's answers (`write(i, d, psv, nsv)`).
+// row's answers (`write(i, d, psv, nsv)`; with `Op::kLe`,
+// `write(i, d, psv, nsv, pl, nl)` and then `scatter(i)` after a second
+// grid sync).
 template <class Op>
 __device__ __forceinline__ int load(const Op& op, int t, int m) {
   const int i = t * kTile + (int)threadIdx.x;
@@ -133,13 +160,15 @@ __device__ __forceinline__ int load(const Op& op, int t, int m) {
 
 // pp and pn hold each row's answer within its tile (-1 / kBig where the
 // tile has none) between phases 1 and 3 for the tiles past a block's first
-// kKeep (those stay in registers); two of the Op's own outputs serve.
+// kKeep (those stay in registers); two of the Op's own outputs serve, and
+// with kLe ppl and pnl hold the <= answers.
 // Where clk is not null, thread 0 of block b writes its SM's clock64 to
 // clk[5 b + k] at the start (k = 0), when the block's phase 1 is done (1),
 // after the grid sync (2), after phase 2 (3) and after phase 3 (4).
 template <class Op>
 __global__ void __launch_bounds__(kTile)
-    scan_kernel(Op op, int m, int nt, int* __restrict__ agg, int* pp, int* pn, long long* clk) {
+    scan_kernel(Op op, int m, int nt, int* __restrict__ agg, int* pp, int* pn, int* ppl,
+                int* pnl, long long* clk) {
   __shared__ Smem s;
   const int G = gridDim.x, b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -157,6 +186,7 @@ __global__ void __launch_bounds__(kTile)
   int bp[2] = {-1, -1}, bn[2] = {kBig, kBig};
   static_assert(kKeep == 2, "phases 1 and 3 name the two kept tiles");
   int kd[kKeep], kp[kKeep], kn[kKeep];  // the first kKeep tiles' rows: d and answers
+  int kpl[kKeep], knl[kKeep];  // and their <= answers (kLe)
   int d = load(op, t0, m);
   for (int t = t0; t < t1; ++t) {
     const int dn = t + 1 < t1 ? load(op, t + 1, m) : kPad;
@@ -166,10 +196,14 @@ __global__ void __launch_bounds__(kTile)
     unsigned plane[6];
     bit_planes(d, plane);
     warp_aggregates(plane, d, base, P, N);
-    const unsigned mk = less_mask(plane, d);  // this row's hits in its warp
-    const int jb = 31 - __clz(mk & ((1u << lane) - 1u)), ja = __ffs(mk & ~((2u << lane) - 1u)) - 1;
-    const int db = __shfl_sync(kFull, d, jb & 31);
-    const int da = __shfl_sync(kFull, d, ja & 31);
+    unsigned eq;
+    const unsigned mk = compare(plane, d, eq);  // this row's hits in its warp
+    const int wp = before_key(mk, d, base), wn = after_key(mk, d, base);
+    int wpl = -1, wnl = kBig;  // kLe: the hits of d <= q, the equal rows too
+    if constexpr (Op::kLe) {
+      wpl = before_key(mk | eq, d, base);
+      wnl = after_key(mk | eq, d, base);
+    }
     __syncthreads();
 #pragma unroll
     for (int h = 0; h < 2; ++h) {  // lane w' holds warp w''s last / first hit at v
@@ -193,15 +227,25 @@ __global__ void __launch_bounds__(kTile)
       bn[h] = min(bn[h], tn);
     }
     __syncthreads();
-    const int p = jb >= 0 ? 64 * (base + jb) + db : P[warp][d];
-    const int n = ja >= 0 ? 64 * (base + ja) + da : N[warp][d];
+    const int p = wp >= 0 ? wp : P[warp][d];
+    const int n = wn != kBig ? wn : N[warp][d];
+    int pl = -1, nl = kBig;
+    if constexpr (Op::kLe) {  // threshold d + 1; d = 63 takes its neighbours in phase 3
+      const int q1 = d + 1 < kV ? d + 1 : kV - 1;
+      pl = wpl >= 0 ? wpl : P[warp][q1];
+      nl = wnl != kBig ? wnl : N[warp][q1];
+    }
     if (t == t0) {
-      kd[0] = d, kp[0] = p, kn[0] = n;
+      kd[0] = d, kp[0] = p, kn[0] = n, kpl[0] = pl, knl[0] = nl;
     } else if (t == t0 + 1) {
-      kd[1] = d, kp[1] = p, kn[1] = n;
+      kd[1] = d, kp[1] = p, kn[1] = n, kpl[1] = pl, knl[1] = nl;
     } else if (i < m) {
       pp[i] = p;
       pn[i] = n;
+      if constexpr (Op::kLe) {
+        ppl[i] = pl;
+        pnl[i] = nl;
+      }
     }
     d = dn;  // no barrier: the next tile fills the other buffer
   }
@@ -289,17 +333,37 @@ __global__ void __launch_bounds__(kTile)
   for (int t = t0; t < t1; ++t) {
     const int i = t * kTile + tid, r = t - t0;
     if (i >= m) break;
-    int di, p, n;
+    int di, p, n, pl, nl;
     if (r == 0) {
-      di = kd[0], p = kp[0], n = kn[0];
+      di = kd[0], p = kp[0], n = kn[0], pl = kpl[0], nl = knl[0];
     } else if (r == 1) {
-      di = kd[1], p = kp[1], n = kn[1];
+      di = kd[1], p = kp[1], n = kn[1], pl = kpl[1], nl = knl[1];
     } else {
       di = op.delta(i), p = pp[i], n = pn[i];
+      if constexpr (Op::kLe) pl = ppl[i], nl = pnl[i];
     }
     if (p < 0) p = r < kKeep ? s.carryP[r][di] : aggP[t * kV + di];
     if (n == kBig) n = r < kKeep ? s.carryN[r][di] : aggN[t * kV + di];
-    op.write(i, di, p, n);
+    if constexpr (Op::kLe) {
+      if (di == kV - 1) {  // every row has d <= 63: the neighbours
+        pl = i > 0 ? 64 * (i - 1) + op.delta(i - 1) : -1;
+        nl = i + 1 < m ? 64 * (i + 1) + op.delta(i + 1) : kBig;
+      } else {
+        if (pl < 0) pl = r < kKeep ? s.carryP[r][di + 1] : aggP[t * kV + di + 1];
+        if (nl == kBig) nl = r < kKeep ? s.carryN[r][di + 1] : aggN[t * kV + di + 1];
+      }
+      op.write(i, di, p, n, pl, nl);
+    } else {
+      op.write(i, di, p, n);
+    }
+  }
+  if constexpr (Op::kLe) {  // phase 4, once every row's answers are written
+    cg::this_grid().sync();
+    for (int t = t0; t < t1; ++t) {
+      const int i = t * kTile + tid;
+      if (i >= m) break;
+      op.scatter(i);
+    }
   }
   if (clk) {
     __syncthreads();
@@ -349,17 +413,18 @@ cudaError_t grid_of(int m, int* out) {
 }
 
 // One cooperative launch on `stream`; an error where the card cannot hold
-// one block resident. pp and pn are two of the Op's i32[m] outputs, which
-// the Op's write must leave in place or overwrite only at its own row.
+// one block resident. pp and pn (with kLe also ppl and pnl) are i32[m]
+// arrays of the Op's, which its write must leave in place or overwrite
+// only at its own row.
 template <class Op>
 cudaError_t launch(Op op, int m, int* agg, int* pp, int* pn, long long* clk,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int* ppl = nullptr, int* pnl = nullptr) {
   int g[4];
   cudaError_t err = grid_of<Op>(m, g);
   if (err != cudaSuccess) return err;
   if (g[0] < 1) return cudaErrorCooperativeLaunchTooLarge;
   int nt = (m + kTile - 1) / kTile;
-  void* args[] = {&op, &m, &nt, &agg, &pp, &pn, &clk};
+  void* args[] = {&op, &m, &nt, &agg, &pp, &pn, &ppl, &pnl, &clk};
   return cudaLaunchCooperativeKernel((const void*)scan_kernel<Op>, dim3(g[0]), dim3(kTile), args,
                                      0, stream);
 }

@@ -43,6 +43,7 @@ __device__ __forceinline__ int remap(int raw) { return raw <= 31 ? raw - 2 : raw
 
 // B1's epilogue: the raw deltas in, the six outputs out
 struct Topology {
+  static constexpr bool kLe = false;  // strict answers only
   const int* raw;
   int m;
   int* psv_pos;

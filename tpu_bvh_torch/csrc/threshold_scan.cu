@@ -24,6 +24,7 @@ namespace {
 
 // B12/B13 and, with `pay`, B14
 struct PsvNsv {
+  static constexpr bool kLe = false;  // strict answers only
   const int* d;
   int* psv;
   int* nsv;

@@ -2,11 +2,14 @@
 forward or from the bottom.
 
 The contract of `tpu_bvh.ops.pallas.plane_scan.plane_scan`. A CUDA tensor
-launches `csrc/plane_scan.cu`; a CPU tensor takes `plane_scan_reference`,
-a Hillis-Steele doubling over the rows (what the TPU kernel does inside a
-chunk). One PyTorch call computes the same function (`torch.cummin` /
-`torch.cummax` along dim 0); `chip_smoke.py` times it as the yardstick,
-and the port does not call it.
+launches `csrc/plane_scan.cu` (one launch: a chained scan with decoupled
+look-back); a CPU tensor takes `plane_scan_reference`, a Hillis-Steele
+doubling over the rows (what the TPU kernel does inside a chunk). The
+port's caller is the sharded build (`parallel/sharded_build.py`), whose psv
+and nsv are a forward max and a reverse min over [L, 64] threshold planes,
+as JAX's `lax.cummax` / `lax.cummin` there. One PyTorch call computes the
+same function (`torch.cummin` / `torch.cummax` along dim 0);
+`chip_smoke.py` times it as the yardstick, and the port does not call it.
 """
 from __future__ import annotations
 
@@ -15,8 +18,11 @@ import torch
 from ..utils import kernels
 from ..utils.platform import on_cuda
 
-_SEG_ROWS = 256  # rows per block of csrc/plane_scan.cu (4 segments of 64)
+TILE_ROWS = 128  # rows per tile of csrc/plane_scan.cu (kRows)
+COLS = 64  # columns per strip of csrc/plane_scan.cu (kCols)
 launches = 0  # kernel launches by `plane_scan` since the last reset
+_epoch = 0  # launches in this process: tags the look-back status words
+_work = {}  # (device, stream) -> (status i64, ticket i32[1]), reused by every call
 
 
 def plane_scan(x, *, is_min: bool, reverse: bool):
@@ -44,20 +50,37 @@ def plane_scan_reference(x, *, is_min: bool, reverse: bool):
     return x
 
 
+def _scratch(x):
+    """The look-back status words (one a column of every tile's strip) and
+    the ticket of x's device and stream, grown to x's plane. Both start as
+    zeros; a launch leaves the ticket at 0 and its words tagged with its
+    epoch, so no call clears them."""
+    m, v = x.shape
+    words = -(-m // TILE_ROWS) * -(-v // COLS) * COLS
+    key = (x.device, kernels.stream_of(x))
+    status, ticket = _work.get(key, (None, None))
+    if ticket is None:
+        ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
+    if status is None or status.numel() < words:
+        status = torch.zeros(words, dtype=torch.int64, device=x.device)
+    _work[key] = (status, ticket)
+    return status, ticket
+
+
 def _plane_scan_cuda(x, is_min: bool, reverse: bool):
-    global launches
+    global launches, _epoch
     if x.dim() != 2:
         raise ValueError(f"plane_scan: expected a 2-D plane, got shape {tuple(x.shape)}")
     m, v = x.shape
     kernels.require(x, "x", torch.int32, (m, v))
     if m < 1 or v < 1:
         raise ValueError(f"plane_scan needs a non-empty plane, got shape {(m, v)}")
-    segs = (m + _SEG_ROWS - 1) // _SEG_ROWS * 4
-    work = torch.empty(2 * segs * v, dtype=torch.int32, device=x.device)
+    status, ticket = _scratch(x)
     out = torch.empty_like(x)
+    _epoch = _epoch % ((1 << 31) - 2) + 1  # in [1, 2^31), never 0 (a zeroed word)
     err = kernels.lib().tbvh_plane_scan(x.data_ptr(), m, v, int(is_min), int(reverse),
-                                        work.data_ptr(), work[segs * v:].data_ptr(),
-                                        out.data_ptr(), kernels.stream_of(x))
+                                        out.data_ptr(), status.data_ptr(), ticket.data_ptr(),
+                                        _epoch, kernels.stream_of(x))
     kernels.check("tbvh_plane_scan", err)
     launches += 1
     return out

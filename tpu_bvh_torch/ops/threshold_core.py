@@ -16,9 +16,9 @@ The contract of `tpu_bvh.ops.pallas.threshold_core`:
   since the last row with d_j <= v, exclusive of k (left), and its mirror
   (right); -1 where that window is empty.
 
-A CUDA tensor launches `csrc/threshold_scan.cu` (the first two: one
-cooperative launch of `csrc/psv_scan.cuh`) or `csrc/child_scan.cu`; a CPU
-tensor takes the `*_reference` forms, which
+A CUDA tensor launches `csrc/threshold_scan.cu` (the first two) or
+`csrc/child_scan.cu`, each one cooperative launch of `csrc/psv_scan.cuh`;
+a CPU tensor takes the `*_reference` forms, which
 build the 64-lane threshold planes. `lax.associative_scan` has no PyTorch
 counterpart, so the plain child positions run the same segmented combine
 as a Hillis-Steele doubling loop, which is exact (min and or).
@@ -109,8 +109,8 @@ def psv_nsv_payload_reference(dlt, pay):
 
 def scan_scratch(m: int, device):
     """The tile totals, block totals and block masks of one
-    `csrc/psv_scan.cuh` launch over m rows (B1, B12/B13, B14); no value
-    needs clearing."""
+    `csrc/psv_scan.cuh` launch over m rows (B1, B12/B13, B14, B15); no
+    value needs clearing."""
     nt = -(-m // TILE)
     return torch.empty((4 * V + 32) * nt, dtype=torch.int32, device=device)
 
@@ -262,8 +262,7 @@ def _child_cuda(dlt):
     if m < 1:
         raise ValueError("child_positions_auto needs m >= 1")
     dev = dlt.device
-    nb = (m + 1023) // 1024
-    agg = torch.empty(2 * nb * V, dtype=torch.int32, device=dev)
+    agg = scan_scratch(m, dev)
     scratch = torch.empty(3 * m, dtype=torch.int32, device=dev)  # nsv <, psv <=, nsv <=
     left = torch.empty(m, dtype=torch.int32, device=dev)
     right = torch.empty(m, dtype=torch.int32, device=dev)

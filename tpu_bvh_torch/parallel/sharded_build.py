@@ -20,7 +20,10 @@ build_single_pass` tree:
   no order for a float MIN on +0.0 against -0.0).
 
 JAX's scans are XLA ops (its docstring calls them the "XLA formulation of
-ops/pallas/scan32"), so this build is torch ops; no kernel of its own.
+ops/pallas/scan32"). Its psv and nsv are `lax.cummax` / `lax.cummin` over
+[L, 64] threshold planes, which is B11's function: they run
+`ops.plane_scan` (on the card one launch of `csrc/plane_scan.cu` a scan,
+on every rank). The segmented lc / rc scans and the rest are torch ops.
 
 Per-shard layout (p shards, L = n/p): rank s owns sorted leaves and
 boundaries [sL, (s+1)L); the last shard's final boundary slot is a pad
@@ -41,6 +44,7 @@ import torch
 
 from ..ops import aabb as A
 from ..ops import morton as M
+from ..ops import plane_scan
 from ..ops.radix_tree import _clz32
 from ..ops.scan32 import remap_deltas
 from ..types import Bvh2
@@ -173,10 +177,8 @@ def _seg_comb(a, b):
 
 def _scan(items, comb, neutral):
     """Inclusive scan of the planes `items` along axis 0 by log-step
-    doubling (`lax.associative_scan`, `lax.cummax`, `lax.cummin`), exact
-    because each combine here is a max, a min or the segmented min.
-    torch's cummax / cummin along an outer axis run one thread a column:
-    100 ms each on a [262144, 64] plane on the H100."""
+    doubling (`lax.associative_scan`), exact because the combine here is
+    the segmented min. No TPU kernel computes a segmented plane scan."""
     d = 1
     while d < items[0].shape[0]:
         prev = tuple(torch.cat([torch.full_like(x[:d], v), x[:-d]])
@@ -233,7 +235,7 @@ def _sharded_scans(dlt, gb, mesh: Mesh, p: int, n_sentinel: int):
     # smaller" sentinel
     packed = (gb * 64 + torch.clamp(dlt, min=0)).to(I32)
     pk = torch.where(maskv, packed[:, None], -1)
-    (pre,) = _scan((pk,), _max, (-1,))
+    pre = plane_scan.plane_scan(pk, is_min=False, reverse=False)  # lax.cummax
     tots = mesh.all_gather(pre[-1])  # [p, V]
     carry_in = _carry_fold((tots,), (full(-1),), _max)[0][idx]
     pre_g = torch.maximum(pre, carry_in[None, :])
@@ -245,7 +247,7 @@ def _sharded_scans(dlt, gb, mesh: Mesh, p: int, n_sentinel: int):
 
     # ---- nsv: suffix min of packed pos*64+val where val < lane ----
     pk2 = torch.where(maskv, packed[:, None], big)
-    suf = _scan((pk2.flip(0),), _min, (_BIG,))[0].flip(0)
+    suf = plane_scan.plane_scan(pk2, is_min=True, reverse=True)  # lax.cummin, reverse
     tots_r = mesh.all_gather(suf[0])
     carry_in_r = _carry_fold((tots_r,), (full(_BIG),), _min, reverse=True)[0][idx]
     suf_g = torch.minimum(suf, carry_in_r[None, :])

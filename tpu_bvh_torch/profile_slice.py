@@ -7,9 +7,10 @@ On `sponza_like(262_000)` it times `lbvh.build_single_pass`,
 `ray_sweep.shadow_occlusion` on the live hits of the 1080p frame (the JAX
 bench's shadow workload, caps 4096/32768/32), the gather-free topologies
 `radix_tree.apetrei_topology_fast` and `karras_topology_fast` on the
-sorted codes, and the kernels off the main path on sponza's deltas
-(`plane_scan` min forward on the [m, 64] threshold plane,
-`child_positions_auto`, the two `scan32` halves), and the kernels whose
+sorted codes, the kernels off the main path on sponza's deltas
+(`child_positions_auto`, the two `scan32` halves) and `plane_scan` (min
+forward on the [m, 64] threshold plane; on the main path only inside the
+sharded build), and the kernels whose
 CUDA-event times in chip_smoke.py are set by the host's launch path, each
 alone at the main path's shapes: B1 `scan32` (`scan_core`) on sponza's raw
 deltas, B2 `refit_dense` on sponza's `mat`

@@ -51,7 +51,7 @@ _SIGNATURES = {
     "tbvh_psv_nsv_grid": [_I, _P],
     "tbvh_scan32_grid": [_I, _P],
     "tbvh_child_positions": [_P, _I, _P, _P, _P, _P, _P],
-    "tbvh_plane_scan": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "tbvh_plane_scan": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     "tbvh_batched_build": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
     "tbvh_batched_block": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
     "tbvh_traverse_bvh2": [_I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _I,
