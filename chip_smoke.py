@@ -146,9 +146,10 @@ On the way it
    counters and SIMD efficiency (lane steps over 32 x warp steps);
 6. checks, from one torch.profiler trace each, that the dense refit (both
    entries), the collapse kernel, the topology scan (B1), the psv/nsv
-   scans (B12/B13, B14), the child positions (B15), the plane scan (B11)
-   and `build_batched` (the demo and capacity 1024) launch one kernel a
-   call, the last seven with no memset, that each
+   scans (B12/B13, B14), the child positions (B15), the plane scan (B11),
+   the two V=32 scan halves (B16), the emission (B9) and `build_batched`
+   (the demo and capacity 1024) launch one kernel a call, the last ten
+   with no memset, that each
    traversal kernel on the frame's camera rays (a stride-0 origin) is one
    kernel and one memset a call,
    and prints the grid of B1's and B12's launch on sponza and
@@ -420,17 +421,18 @@ def finish_info(stats, sm_mhz):
     return "; ".join(out)
 
 
-def ploc_bounds(nn, nc, radius, shift):
+def ploc_bounds(nn, nc, radius, shift, width):
     """Bounds of B10, B9 and one round (B6) on a state of nc live clusters
-    and its NN output, counting only what each must move. B10 reads the
-    state rows of every live lane (all 8, or 7 at shift 32, where one
-    segment makes the code row unneeded), writes its 8 output rows and
-    computes R pair areas per lane. B9 reads the flag row of every live
-    lane, the 8 state rows of a survivor that did not merge, state rows
-    6-7 and NN rows 0-6 of a merge lane and nothing more of a dropped
-    lane; it writes 8 rows per survivor and per merged node. The round
-    reads the state once (at shift 32 the code row only of survivors) and
-    writes the survivors and the merged nodes."""
+    in `width` columns and its NN output, counting only what each must
+    move. B10 reads the state rows of every live lane (all 8, or 7 at
+    shift 32, where one segment makes the code row unneeded), writes its 8
+    output rows and computes R pair areas per lane. B9 reads the flag row
+    of every live lane, the 8 state rows of a survivor that did not merge,
+    state rows 6-7 and NN rows 0-6 of a merge lane and nothing more of a
+    dropped lane; it writes 8 rows per survivor and per merged node, and 8
+    rows of zeros per column past the survivors (its new state is whole).
+    The round reads the state once (at shift 32 the code row only of
+    survivors) and writes the survivors and the merged nodes."""
     flags = nn[7, :nc]
     nm = int((flags == 1).sum())
     n_keep = nc - int((flags == 2).sum())
@@ -441,7 +443,8 @@ def ploc_bounds(nn, nc, radius, shift):
     round_reads = state_rows * nc + (n_keep if shift >= 32 else 0)
     info = f"{nc} clusters, {nm} merges, {nc - n_keep} dropped, shift {shift}"
     return {"ploc_nn": (bound(4 * (state_rows + 8) * nc, flops), info),
-            "ploc_emit_compact": (bound(4 * (emit_reads + writes), 0), info),
+            "ploc_emit_compact": (bound(4 * (emit_reads + writes + 8 * (width - n_keep)), 0),
+                                  f"{info}, {width} columns"),
             "ploc_round": (bound(4 * (round_reads + writes), flops), info),
             # B8 writes the whole new state, zeros past the survivors
             "ploc_round_fused": (bound(4 * (round_reads + 8 * nc + 8 * nm), flops), info)}
@@ -495,22 +498,28 @@ def traverse_bound(stats, rows, name, n_rays):
     return bound(n_bytes, flops), info
 
 
-def kernels_per_call(torch, fn):
+def kernels_per_call(torch, fn, sessions=3):
     """CUDA kernels and memsets in one torch.profiler trace of one call of
     `fn` (after a warm-up call): the names of its Chrome trace's kernel
-    events, and the count of its memset events."""
+    events, and the count of its memset events. A session that recorded no
+    GPU event at all (a later profiler session in one process sometimes
+    sees none; the launch counters show the call launched) is run again,
+    up to `sessions` sessions."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    events = [e for e in events if e.get("ph") == "X"]
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        events = [e for e in events if e.get("ph") == "X"]
+        if any(e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy") for e in events):
+            break
     return ([e["name"] for e in events if e.get("cat") == "kernel"],
             sum(e.get("cat") == "gpu_memset" for e in events))
 
@@ -1752,7 +1761,7 @@ def main():
         f_lanes, f_rounds = f_lanes + nc, f_rounds + 1
         st, _, nm = ploc_round.ploc_round_reference(st, sink, nc, shift, n_tris - nc, R)
         nc, shift = nc - int(nm), min(shift + step, 32)
-    bounds.update(ploc_bounds(p_nn, n_tris, R, 32))
+    bounds.update(ploc_bounds(p_nn, n_tris, R, 32, p_mat.shape[1]))
     f_rows = 7 if f_shift >= 32 else 8  # the code row is not needed at shift 32
     # the threshold scans and B16 per row of sponza's deltas: B12/B13 read 4 B
     # and write 8, B14 8 and 16, B15 4 and 8, each B16 half 4 and 12; B11
@@ -1914,9 +1923,10 @@ def main():
               f"{k_ms!r} ms; last timed call: "
               f"{finish_info(ploc_round.last_finish_stats, sm_mhz)}", flush=True)
 
-    # one kernel a call: B2, B3, B1, B12/B13, B14 and the batched build from a
-    # profiler trace each (after the timings: a profiler session can slow the
-    # host's later launches); all but B2 and B3 also with no memset
+    # one kernel a call: B2, B3, B1, B12/B13, B14, B15, B11, B16, B9 and the
+    # batched builds from a profiler trace each (after the timings: a
+    # profiler session can slow the host's later launches); all but B2 and
+    # B3 also with no memset
     for name, fn, no_memset in (
             ("refit_dense (column entry)",
              lambda: refit_dense.refit_dense_cols(r_pt, r_first, r_last, n, refit.RADIUS), False),
@@ -1932,6 +1942,10 @@ def main():
              True),
             ("plane_scan (min, reverse)",
              lambda: plane_scan.plane_scan(plane, is_min=True, reverse=True), True),
+            ("scan32_halves (forward)", lambda: scan32.scan_fwd(h32), True),
+            ("scan32_halves (reverse)", lambda: scan32.scan_rev(h32f, h_m), True),
+            ("ploc_emit_compact",
+             lambda: ploc_round.ploc_emit_compact(p_mat, p_nn, p_nodes, n_tris, 0), True),
             ("batched_build (the demo)", lambda: batched.build_batched(demo_t), True),
             ("batched_block ((a) at capacity 1024)", lambda: batched.build_batched(wide_t), True)):
         names, memsets = kernels_per_call(torch, fn)

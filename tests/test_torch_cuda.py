@@ -486,6 +486,60 @@ def test_ploc_round_kernels_match_plain(cuda, k):
     assert int(cases[0][1][2]) > 0
 
 
+@pytest.mark.parametrize("nc", [1, 2, 255, 256, 257, 1023, 1024, 1025, 5000, "all"])
+@pytest.mark.parametrize("merges", [True, False])
+def test_emit_compact_one_launch_matches_plain(cuda, nc, merges):
+    """B9 around its block edges (tiles of 1024 lanes, 512 threads), with
+    nc < S (the zeros past nc, whole blocks past the live lanes) and with
+    no merge (an HPLOC stall), into memory that held junk: one launch a
+    call; the survivors, the zero tail, the node buffer and n_merged equal
+    the plain version, and node columns outside [base, base + n_merged)
+    keep their junk."""
+    mat = _ploc_state(cuda)
+    n = mat.shape[1]
+    nc = n if nc == "all" else nc
+    nn = ploc_nn.ploc_nn_round_raw_reference(mat, nc, 32, R)
+    if not merges:
+        nn[7] = 0
+    base = 7
+    _junk((8 * n + 1,), cuda)  # freed at once: the output's allocation takes this block
+    before = ploc_round.emit_launches
+    got = ploc_round.ploc_emit_compact(mat, nn, _junk((8, n - 1), cuda), nc, base)
+    torch.cuda.synchronize()
+    assert ploc_round.emit_launches == before + 1
+    want = ploc_round.ploc_emit_compact_reference(mat, nn, _junk((8, n - 1), cuda), nc, base)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    nm = int(want[2])
+    assert (nm > 0) == (merges and nc > 1)
+    junk = _junk((8, n - 1), cuda)
+    assert torch.equal(got[1][:, :base], junk[:, :base])
+    assert torch.equal(got[1][:, base + nm:], junk[:, base + nm:])
+
+
+def test_emit_and_round_alternate_on_one_stream(cuda):
+    """B9 and B6 alternate on one stream (each with its own look-back words,
+    one epoch count for both), twelve times over the HPLOC states, the live
+    count falling and then jumping back up: every call equals the plain
+    version in every output."""
+    n, states = _hploc_states(cuda)
+    work = ploc_round.round_work(n, cuda)
+    for k in range(12):
+        mat, nc, shift = states[k % len(states)]
+        base = n - nc
+        nn = ploc_nn.ploc_nn_round_raw_reference(mat, nc, shift, R)
+        cases = [
+            (ploc_round.ploc_emit_compact(mat, nn, _junk((8, n - 1), cuda), nc, base),
+             ploc_round.ploc_emit_compact_reference(mat, nn, _junk((8, n - 1), cuda), nc, base)),
+            (ploc_round.ploc_round_pp(mat, _junk(mat.shape, cuda), _junk((8, n - 1), cuda), nc,
+                                      shift, base, R, work),
+             ploc_round.ploc_round_pp_reference(mat, _junk(mat.shape, cuda),
+                                                _junk((8, n - 1), cuda), nc, shift, base, R))]
+        for got, want in cases:
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), k
+
+
 @pytest.mark.parametrize("nc", [1, 2, 3, 300])
 def test_ploc_round_kernel_few_clusters(cuda, nc):
     mat = _ploc_state(cuda)[:, :1000].contiguous()
@@ -684,18 +738,26 @@ def test_psv_nsv_kernels_past_one_resident_wave(cuda):
 
 
 def test_topology_and_psv_scans_are_one_launch_each(cuda):
-    """B1, B12/B13, B14, B15 and B11 are one CUDA kernel a call, with no
-    memset: one torch.profiler trace of one call each, a synchronize
-    between them (one trace for all: a later trace in the same process can
-    come back empty)."""
+    """B1, B12/B13, B14, B15, B11, B16's two halves and B9 are one CUDA
+    kernel a call, with no memset: one torch.profiler trace of one call
+    each, a synchronize between them (one trace for all: a later trace in
+    the same process can come back empty)."""
     dlt_raw = radix_tree.adjacent_deltas(_codes("random", 262_145).to(cuda))
     dlt = scan32.remap_deltas(dlt_raw)
+    dlt32 = scan32.dlt32_from_raw(dlt_raw)
+    flipped = torch.flip(dlt32, [0])
     plane = torch.where(dlt[:, None] < torch.arange(64, device=cuda)[None, :],
                         dlt[:, None], threshold_core.BIG)
+    mat = _ploc_state(cuda)
+    n = mat.shape[1]
+    nn = ploc_nn.ploc_nn_round_raw_reference(mat, n, 32, R)
+    nodes = _junk((8, n - 1), cuda)
     calls = (lambda: scan32.scan_core(dlt_raw), lambda: threshold_core.psv_nsv_packed(dlt),
              lambda: threshold_core.psv_nsv_payload_auto(dlt, dlt),
              lambda: threshold_core.child_positions_auto(dlt),
-             lambda: plane_scan.plane_scan(plane, is_min=True, reverse=True))
+             lambda: plane_scan.plane_scan(plane, is_min=True, reverse=True),
+             lambda: scan32.scan_fwd(dlt32), lambda: scan32.scan_rev(flipped, dlt32.shape[0]),
+             lambda: ploc_round.ploc_emit_compact(mat, nn, nodes, n, 0))
     for fn in calls:
         fn()
     torch.cuda.synchronize()
@@ -711,9 +773,11 @@ def test_topology_and_psv_scans_are_one_launch_each(cuda):
             events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     names = [e["name"] for e in sorted(events, key=lambda e: e["ts"]) if e.get("cat") == "kernel"]
     assert sum(e.get("cat") == "gpu_memset" for e in events) == 0
-    assert len(names) == 5, names
+    assert len(names) == 8, names
     assert "Topology" in names[0] and all("PsvNsv" in nm for nm in names[1:3]), names
     assert "ChildPositions" in names[3] and "plane_scan_kernel" in names[4], names
+    assert "Scan32Fwd" in names[5] and "Scan32Rev" in names[6], names
+    assert "emit_kernel" in names[7], names
 
 
 def test_psv_nsv_phase_clocks(cuda):

@@ -23,6 +23,8 @@ def _constexpr(source: str, name: str) -> int:
     ("ploc_finish.cu", "kCtas", lambda: ploc_round.FIN_CTAS),
     ("ploc_finish.cu", "kOneCtaAt", lambda: ploc_round.FIN_ONE_CTA),
     ("ploc_finish.cu", "kMaxCap", lambda: ploc_round.FIN_CAP),
+    ("ploc_round.cu", "kTile", lambda: ploc_round._EMIT_TILE),
+    ("ploc_round_fused.cu", "kThreads", lambda: ploc_round._EMIT_BLOCK),
     ("raster.cu", "kChunk", lambda: raster_gpu.CHUNK),
     ("ray_sweep.cu", "kChunk", lambda: ray_sweep.CHUNK),
     ("refit_dense.cu", "kTile", lambda: refit_dense.TILE),

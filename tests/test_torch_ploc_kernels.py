@@ -144,6 +144,168 @@ def test_emit_compact_no_merges(monkeypatch):
     np.testing.assert_array_equal(got_nodes.numpy(), nodes)
 
 
+# csrc/ploc_round.cu's schedule, emulated: one launch over the S columns of
+# the output, blocks of `block` lanes (the kernel's tile of 1024, and 256
+# and 8 here too, so that there are blocks past the live lanes and the
+# look-back walks windows of 32 predecessors several times). A
+# block with live lanes draws a ticket in scan order and publishes its
+# (merges, keeps) status words one at a time (the merge word first), walks
+# back 32 predecessors at a time once all 32 show both words with the
+# launch's epoch and one flag, and publishes its inclusive prefix; any
+# drawn block may take its next step at any time. The words start as those
+# of an earlier launch (another epoch, any flag and count), as B9's and
+# B6's leave them. A block past the live lanes zeroes its columns.
+
+EPOCH = 5
+AGG, INC = 1, 2
+
+
+def _look_back(counts, rng):
+    """Each live block's exclusive (merges, keeps) from the look-back in a
+    shuffled order; counts [nb, 2] in scan order. Returns the prefixes and
+    the ticket after the launch."""
+    nb = counts.shape[0]
+    stale = [(EPOCH - 1, int(rng.integers(0, 4)), int(rng.integers(0, 99))) for _ in range(2 * nb)]
+    status = list(stale)  # per block: its merge word, then its keep word
+    state = {}  # drawn block -> [step, window top, exclusive sums]
+    prefix = [None] * nb
+    ticket = 0
+
+    def ready(p):
+        wm, wk = status[2 * p], status[2 * p + 1]
+        return wm[0] == wk[0] == EPOCH and wm[1] == wk[1] != 0
+
+    while any(x is None for x in prefix):
+        movable = [b for b, st in state.items() if st[0] != "end" and (
+            st[0] != "walk" or all(ready(p) for p in range(max(st[1] - 31, 0), st[1] + 1)))]
+        if ticket < nb and (len(state) < nb):
+            movable.append(-1)
+        assert movable, "the look-back stalled"
+        b = movable[rng.integers(len(movable))]
+        if b < 0:  # the next draw; the last draw resets the ticket
+            b = ticket
+            ticket = 0 if b == nb - 1 else ticket + 1
+            state[b] = ["A0" if b else "P0", b - 1, np.zeros(2, np.int64)]
+            continue
+        st = state[b]
+        if st[0] in ("A0", "A1", "P0", "P1"):  # one word a step, the merge word first
+            k = int(st[0][1])
+            flag = AGG if st[0][0] == "A" else INC
+            value = counts[b, k] + (st[2][k] if flag == INC else 0)
+            status[2 * b + k] = (EPOCH, flag, int(value))
+            if k == 0:
+                st[0] = st[0][0] + "1"
+            elif flag == AGG:
+                st[0] = "walk"
+            else:
+                st[0] = "end"
+                prefix[b] = st[2].copy()
+        else:  # walk one window: sum up to the nearest inclusive word
+            for p in range(st[1], max(st[1] - 31, 0) - 1, -1):
+                st[2] += [status[2 * p][2], status[2 * p + 1][2]]
+                if status[2 * p][1] == INC:
+                    st[0] = "P0"
+                    break
+            else:
+                st[1] -= 32
+    return np.array(prefix), ticket
+
+
+def _emit_by_schedule(mat, nn, nodes, nc, base, block, rng):
+    """B9 by the kernel's schedule: (out, nodes, n_merged) and the writes
+    each output column and each node column took."""
+    S = mat.shape[1]
+    nb = -(-nc // block)
+    lanes = np.arange(S)
+    flags = np.where(lanes < nc, nn[7], 0)
+    merge, keep = (lanes < nc) & (flags == 1), (lanes < nc) & (flags != 2)
+    out = np.full((8, S), -7, np.int32)
+    nodes = nodes.copy()
+    col_writes = np.zeros(S, np.int64)
+    node_writes = np.zeros(nodes.shape[1], np.int64)
+    pad = -(-S // block) * block - S
+    blocks = lambda x: np.concatenate([x, np.zeros(pad, x.dtype)]).reshape(-1, block)
+    counts = np.stack([blocks(merge).sum(1), blocks(keep).sum(1)], 1)[:nb]
+    prefix, ticket = _look_back(counts, rng)
+    assert ticket == 0
+    n_merged = None
+    for b in rng.permutation(-(-S // block)):
+        cols = lanes[b * block:(b + 1) * block]
+        if b >= nb:  # past the live lanes: zero its columns
+            out[:, cols] = 0
+            col_writes[cols] += 1
+            continue
+        ex_m, ex_k = prefix[b]
+        if b == nb - 1:
+            n_merged = ex_m + counts[b, 0]
+        m_b, k_b = merge[cols], keep[cols]
+        m_before = np.cumsum(m_b) - m_b  # the block's exclusive scans
+        k_before = np.cumsum(k_b) - k_b
+        for t, l in enumerate(cols):
+            if l >= nc:
+                out[:, l] = 0
+                col_writes[l] += 1
+                continue
+            new = base + ex_m + m_before[t]
+            if m_b[t]:
+                nodes[:, new] = np.concatenate([mat[7:8, l], nn[6:7, l], nn[0:6, l]])
+                node_writes[new] += 1
+            if k_b[t]:
+                r = ex_k + k_before[t]
+                src = nn[0:6, l] if m_b[t] else mat[0:6, l]
+                out[:, r] = np.concatenate([src, mat[6:7, l], [new if m_b[t] else mat[7, l]]])
+                col_writes[r] += 1
+            else:  # mirrored from the end: the z-th dropped lane zeroes nc - 1 - z
+                z = (cols[0] - ex_k) + (t - k_before[t])
+                out[:, nc - 1 - z] = 0
+                col_writes[nc - 1 - z] += 1
+    return out, nodes, n_merged, col_writes, node_writes
+
+
+_EMIT_JAX = {}
+
+
+@pytest.mark.parametrize("block", [ploc_round._EMIT_TILE, 256, 8])
+@pytest.mark.parametrize("nc,merges", [(1, True), (255, True), (256, True), (257, True),
+                                       (500, True), (500, False)])
+def test_emit_schedule_matches_pallas(monkeypatch, block, nc, merges):
+    """B9's one launch, in shuffled orders, at S = 640 > nc (blocks with no
+    live lane), and with no merge (an HPLOC stall): every output column is
+    written exactly once, the survivors, the mirrored zero tail, the node
+    buffer (columns outside [base, base + n_merged) untouched) and n_merged
+    equal `ploc_emit_compact` (interpret, _BLK 256) and the plain version,
+    exactly; the ticket is back at 0."""
+    S, base = 640, 29
+    rng = np.random.default_rng(nc)
+    mat = make_state(rng, S, codes=morton_like(rng, S))
+    nodes = _nodes(rng, 2 * S + 512)
+    if merges:
+        nn = ploc_nn.ploc_nn_round_raw(torch.from_numpy(mat), nc, 32, R).numpy()
+    else:
+        nn = rng.integers(-2**30, 2**30, (8, S)).astype(np.int32)
+        nn[7] = 0
+    if (nc, merges) not in _EMIT_JAX:
+        monkeypatch.setattr(jploc_round, "_BLK", 256)
+        _EMIT_JAX[nc, merges] = [np.asarray(x) for x in jploc_round.ploc_emit_compact(
+            jnp.asarray(mat), jnp.asarray(nn), jnp.asarray(nodes), nc, base, interpret=True)]
+    want_mat, want_nodes = _EMIT_JAX[nc, merges]
+    plain = ploc_round.ploc_emit_compact_reference(
+        torch.from_numpy(mat), torch.from_numpy(nn), torch.from_numpy(nodes.copy()), nc, base)
+    n_merged = int((nn[7, :nc] == 1).sum())
+    assert (n_merged > 0) == (merges and nc > 1)
+    for seed in range(2):
+        got_mat, got_nodes, nm, col_writes, node_writes = _emit_by_schedule(
+            mat, nn, nodes, nc, base, block, np.random.default_rng(seed))
+        assert bool((col_writes == 1).all())
+        np.testing.assert_array_equal(node_writes[base:base + n_merged], 1)
+        assert int(node_writes.sum()) == n_merged == nm == int(plain[2])
+        for g, w, p in ((got_mat, want_mat, plain[0]), (got_nodes, want_nodes, plain[1])):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(g, p.numpy())
+    n_keep = nc - int((nn[7, :nc] == 2).sum())
+    assert not want_mat[:, n_keep:].any()
+
+
 # ------------------------------------------------------------------ B8 / B6
 
 @pytest.mark.parametrize("size,nc", [(384, 384), (512, 300), (1024, 1000)])

@@ -1,5 +1,5 @@
 // Device helpers shared by the PLOC kernels (ploc_nn.cu, ploc_round.cu,
-// ploc_finish.cu).
+// ploc_round_fused.cu, ploc_finish.cu).
 //
 // Cluster state is i32[8, *] lane-major: rows 0-5 the AABB (min xyz,
 // -max xyz) as f32 bits, row 6 the Morton code (< 2^31), row 7 the node id.
@@ -117,6 +117,73 @@ __device__ __forceinline__ int block_excl_scan(int v, int* warp_sums, int* total
   *total = warp_sums[NT / 32 - 1];
   __syncthreads();  // warp_sums may be reused by the next call
   return before + x - v;
+}
+
+// Decoupled look-back over the blocks of a single-pass scan of two counts
+// (merges, keeps) a block, shared by ploc_round_fused.cu (B6/B8) and
+// ploc_round.cu (B9). A block's status is two 64-bit words, each
+// (epoch << 34 | flag << 32 | count); the epoch is the wrapper's count of
+// launches (30 bits, never 0), so a word of an earlier launch, or of the
+// other kernel, never reads as current and no memset clears them.
+constexpr unsigned kAggregate = 1, kInclusive = 2;
+
+__device__ __forceinline__ unsigned long long status_word(unsigned epoch, unsigned flag,
+                                                          int count) {
+  return ((unsigned long long)epoch << 34) | ((unsigned long long)flag << 32) | (unsigned)count;
+}
+
+__device__ __forceinline__ void publish(unsigned long long* status, int b, unsigned epoch,
+                                        unsigned flag, int merges, int keeps) {
+  volatile unsigned long long* st = status;
+  st[2 * b] = status_word(epoch, flag, merges);
+  __threadfence();  // the keep word never shows a flag before the merge word
+  st[2 * b + 1] = status_word(epoch, flag, keeps);
+}
+
+// Run by all 32 lanes of warp 0 of block b, whose index came from a ticket
+// in scan order (so every predecessor is running): publishes the block's
+// aggregate, walks back over its predecessors' words 32 at a time, summing
+// aggregates until it meets an inclusive prefix, and publishes its own
+// inclusive prefix. Returns the exclusive prefixes in *pm, *pk on every
+// lane.
+__device__ __forceinline__ void look_back(unsigned long long* status, int b, unsigned epoch,
+                                          int agg_m, int agg_k, int* pm, int* pk) {
+  const int lane = threadIdx.x & 31;
+  int em = 0, ek = 0;
+  if (b == 0) {
+    if (lane == 0) publish(status, 0, epoch, kInclusive, agg_m, agg_k);
+  } else {
+    if (lane == 0) publish(status, b, epoch, kAggregate, agg_m, agg_k);
+    const volatile unsigned long long* st = status;
+    for (int j = b - 1;; j -= 32) {
+      const int p = j - lane;  // lane 0 is the nearest predecessor
+      unsigned long long wm = 0, wk = 0;
+      bool ready;
+      do {
+        if (p >= 0) {
+          wm = st[2 * p];
+          wk = st[2 * p + 1];
+        }
+        ready = p < 0 || ((wm >> 32) == (wk >> 32) && (unsigned)(wm >> 34) == epoch &&
+                          ((wm >> 32) & 3) != 0);
+      } while (!__all_sync(0xffffffffu, ready));
+      const bool inc = p >= 0 && ((wm >> 32) & 3) == kInclusive;
+      const unsigned incs = __ballot_sync(0xffffffffu, inc);
+      const int stop = incs ? __ffs(incs) - 1 : 31;  // the nearest inclusive prefix
+      int cm = (p >= 0 && lane <= stop) ? (int)(unsigned)wm : 0;
+      int ck = (p >= 0 && lane <= stop) ? (int)(unsigned)wk : 0;
+      for (int o = 16; o > 0; o >>= 1) {
+        cm += __shfl_xor_sync(0xffffffffu, cm, o);
+        ck += __shfl_xor_sync(0xffffffffu, ck, o);
+      }
+      em += cm;
+      ek += ck;
+      if (incs) break;  // block 0 is inclusive, so the walk ends
+    }
+    if (lane == 0) publish(status, b, epoch, kInclusive, em + agg_m, ek + agg_k);
+  }
+  *pm = em;
+  *pk = ek;
 }
 
 }  // namespace ploc

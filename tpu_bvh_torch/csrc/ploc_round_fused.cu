@@ -31,10 +31,9 @@
 //   3. it counts its merges and keeps and publishes them as its aggregate,
 //      then warp 0 walks back over its predecessors' status words, 32 at a
 //      time, summing aggregates until it meets an inclusive prefix, and
-//      publishes its own inclusive prefix. A block's status is two 64-bit
-//      words (merges, keeps), each (epoch << 34 | flag << 32 | count); the
-//      epoch is the wrapper's count of launches, so a word of an earlier
-//      round never reads as current and no memset runs between rounds;
+//      publishes its own inclusive prefix (ploc::look_back, shared with
+//      B9: two 64-bit status words a block tagged with the launch's epoch,
+//      so no memset runs between rounds);
 //   4. it writes its merged nodes and survivors at their final places;
 //   5. the last block writes (n_merged, n_keep) to ctl[1], ctl[2].
 // Ranks fix every position, and the arithmetic is ploc_common.cuh's, so
@@ -56,18 +55,6 @@ constexpr int kHalo = 2 * ploc::kMaxR;
 constexpr int kTile = kThreads + 2 * kHalo;        // lanes held in shared memory
 constexpr int kRelW = kThreads + 2 * ploc::kMaxR;  // lanes whose best_rel is computed
 constexpr int kAreaW = kRelW + ploc::kMaxR;       // lanes whose forward pair areas are kept
-constexpr unsigned kAggregate = 1, kInclusive = 2;
-
-__device__ __forceinline__ unsigned long long word(unsigned epoch, unsigned flag, int count) {
-  return ((unsigned long long)epoch << 34) | ((unsigned long long)flag << 32) | (unsigned)count;
-}
-__device__ __forceinline__ void publish(unsigned long long* status, int b, unsigned epoch,
-                                        unsigned flag, int merges, int keeps) {
-  volatile unsigned long long* st = status;
-  st[2 * b] = word(epoch, flag, merges);
-  __threadfence();  // the keep word never shows a flag before the merge word
-  st[2 * b + 1] = word(epoch, flag, keeps);
-}
 
 __global__ void __launch_bounds__(kThreads)
     ploc_round_kernel(const int* __restrict__ mat, int stride, int nc, int shift, int R, int base,
@@ -166,41 +153,9 @@ __global__ void __launch_bounds__(kThreads)
   const int ex = ploc::block_excl_scan<kThreads>(((int)merge << 16) | (int)keep, ws, &total);
   const int agg_m = total >> 16, agg_k = total & 0xffff;
   if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    int pm = 0, pk = 0;
-    if (b == 0) {
-      if (lane == 0) publish(status, 0, epoch, kInclusive, agg_m, agg_k);
-    } else {
-      if (lane == 0) publish(status, b, epoch, kAggregate, agg_m, agg_k);
-      const volatile unsigned long long* st = status;
-      for (int j = b - 1;; j -= 32) {
-        const int p = j - lane;  // lane 0 is the nearest predecessor
-        unsigned long long wm = 0, wk = 0;
-        bool ready;
-        do {
-          if (p >= 0) {
-            wm = st[2 * p];
-            wk = st[2 * p + 1];
-          }
-          ready = p < 0 || ((wm >> 32) == (wk >> 32) && (unsigned)(wm >> 34) == epoch &&
-                            ((wm >> 32) & 3) != 0);
-        } while (!__all_sync(0xffffffffu, ready));
-        const bool inc = p >= 0 && ((wm >> 32) & 3) == kInclusive;
-        const unsigned incs = __ballot_sync(0xffffffffu, inc);
-        const int stop = incs ? __ffs(incs) - 1 : 31;  // the nearest inclusive prefix
-        int cm = (p >= 0 && lane <= stop) ? (int)(unsigned)wm : 0;
-        int ck = (p >= 0 && lane <= stop) ? (int)(unsigned)wk : 0;
-        for (int o = 16; o > 0; o >>= 1) {
-          cm += __shfl_xor_sync(0xffffffffu, cm, o);
-          ck += __shfl_xor_sync(0xffffffffu, ck, o);
-        }
-        pm += cm;
-        pk += ck;
-        if (incs) break;  // block 0 is inclusive, so the walk ends
-      }
-      if (lane == 0) publish(status, b, epoch, kInclusive, pm + agg_m, pk + agg_k);
-    }
-    if (lane == 0) {
+    int pm, pk;
+    ploc::look_back(status, b, epoch, agg_m, agg_k, &pm, &pk);
+    if (threadIdx.x == 0) {
       s_ex_m = pm;
       s_ex_k = pk;
       if (b == nb - 1) {

@@ -1,8 +1,8 @@
 // The one-launch psv/nsv scan shared by threshold_scan.cu (B12/B13, B14),
-// scan32.cu (B1) and child_scan.cu (B15). They differ only in how a row's
-// delta is read, in what each row writes (the `Op` of `launch`) and, for
-// B15 (an Op with kLe), in the <= answers and a scatter after a second
-// grid sync.
+// scan32.cu (B1, B16's two halves) and child_scan.cu (B15). They differ
+// only in how a row's delta is read, in what each row writes (the `Op` of
+// `launch`) and, for B15 (an Op with kLe), in the <= answers and a scatter
+// after a second grid sync.
 //
 // Input: deltas d[m] with values in [0, 63]. For every row i and q = d[i]:
 //   psv(i) = 64 j + d[j] for the last j < i with d[j] < q, -1 if none;

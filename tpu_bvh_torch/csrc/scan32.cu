@@ -27,14 +27,25 @@
 // B16: tpu_bvh/ops/pallas/scan32.py:_run launches _fwd_kernel on the V=32
 // deltas (distinct codes raw - 2, every tie on lane 30) for (psv_pos,
 // psv_val, lc), and _rev_kernel on their flip for (nsv_pos, nsv_val, rc)
-// in flipped order and true coordinates. tbvh_scan32_fwd / tbvh_scan32_rev
-// rebuild the raw delta exactly (a lane-30 tie at true position j is the
-// ruler value 32 + clz(j ^ (j + 1)); in the flipped array true position j
-// sits at m - 1 - j) and run the climb itself: one thread per leaf walks
-// up, each child publishes its outer bound with one atomicExch on its
-// parent's slot, the second arrival learns the parent's range and goes
-// on. Each half must read 4 B and write 12 B per row; it is bound by the
-// climb's dependent loads (no caller on the main path).
+// in flipped order and true coordinates. Each half is one cooperative
+// launch of the same scan with its own Op (Scan32Fwd, Scan32Rev), bound by
+// bytes: 4 B read and 12 B written per row. The Op rebuilds the remapped
+// delta exactly (a lane-30 tie at true position j is the ruler value
+// 32 + clz(j ^ (j + 1)), remapped to 21 + clz(...), in [30, 52] for
+// m < 2^22) and writes only its half's three outputs, by B1's rules:
+//   forward: psv_pos, psv_val at row i, lc[nsv i] = i where
+//     d(psv i) <= d(nsv i), lc[i] = -1 where d(i - 1) <= d(i);
+//   reverse: the scan runs over the flipped array itself, so row g (true
+//     position j = m - 1 - g) finds the true nsv as its psv and the true
+//     psv as its nsv, and every output it owns lies at its own index g:
+//     nsv_pos, nsv_val at g; rc at the flipped index of the true psv, with
+//     B1's strict rule mirrored (true d(psv) > d(nsv), i.e. the flipped
+//     nsv's value > the flipped psv's); rc[g] = -1 (leaf j + 1) where
+//     g = 0 or the flipped d(g - 1) < d(g).
+// The scan parks a row's within-tile answers in the two outputs the row
+// itself writes at its own index (pos and val), so no row's write reaches
+// another row's parked answer. No atomics, no memset, no scratch but the
+// scan's tile aggregates.
 
 #include "psv_scan.cuh"
 namespace {
@@ -76,69 +87,51 @@ struct Topology {
   }
 };
 
-// The raw delta rebuilt from the V=32 deltas of B16 (distinct codes raw - 2
-// in [0, 29], every tie on lane 30), in true order or flipped (true
-// position j at index m - 1 - j): a tie at true position j has the ruler
-// value 32 + clz(j ^ (j + 1)), as radix_tree.adjacent_deltas computes it.
-struct Dlt32Deltas {
+// The remapped delta of B16's V=32 form at true position j: distinct codes
+// keep raw - 2 in [0, 29]; a tie (lane 30) has the raw ruler value
+// 32 + clz(j ^ (j + 1)), as radix_tree.adjacent_deltas computes it, which
+// remaps to raw - 11.
+__device__ __forceinline__ int delta32(int v, int j) {
+  return v == 30 ? 21 + __clz(j ^ (j + 1)) : v;
+}
+
+// B16, forward half: (psv_pos, psv_val, lc) from the V=32 deltas
+struct Scan32Fwd {
+  static constexpr bool kLe = false;
   const int* d;
-  int m;
-  bool flipped;
-  __device__ int operator()(int j) const {
-    const int v = d[flipped ? m - 1 - j : j];
-    return v == 30 ? 32 + __clz(j ^ (j + 1)) : v + 2;
+  int* psv_pos;
+  int* psv_val;
+  int* lc;
+  __device__ int delta(int i) const { return delta32(d[i], i); }
+  __device__ void write(int i, int di, int p, int n) const {
+    const bool hp = p >= 0, hn = n != psv::kBig;
+    const int dp = hp ? p & 63 : -1, dn = hn ? n & 63 : -1;
+    psv_pos[i] = hp ? p >> 6 : -1;
+    psv_val[i] = dp;
+    if (hn && dp <= dn) lc[n >> 6] = i;  // boundary i is the left child of nsv i
+    if (!(i > 0 && delta(i - 1) > di)) lc[i] = -1;  // leaf i
   }
 };
 
-// B16's climb. The forward half writes psv_pos, psv_val, lc at p; the
-// reverse half nsv_pos, nsv_val, rc at m - 1 - p (flipped order, true
-// coordinates).
-template <bool kRev>
-__global__ void climb_kernel(Dlt32Deltas dlt, int m, int* __restrict__ other, int* __restrict__ pos,
-                             int* __restrict__ val, int* __restrict__ child) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i > m) return;  // n = m + 1 leaves
-  int l = i, r = i, node = -1;  // start at leaf i; -1 marks a leaf child
-  while (true) {
-    int dl = l > 0 ? dlt(l - 1) : -1;
-    int dr = r < m ? dlt(r) : -1;
-    if (dl < 0 && dr < 0) return;  // the root: done
-    int p;
-    if (dl > dr) {  // right child of boundary l-1
-      p = l - 1;
-      if (kRev) child[m - 1 - p] = node;
-      int got = atomicExch(&other[p], r);
-      if (got < 0) return;  // first arrival
-      l = got;
-    } else {  // left child of boundary r
-      p = r;
-      if (!kRev) child[p] = node;
-      int got = atomicExch(&other[p], l);
-      if (got < 0) return;
-      r = got;
-    }
-    node = p;  // second arrival: node p covers [l, r]
-    if (kRev) {
-      pos[m - 1 - p] = r;
-      val[m - 1 - p] = r < m ? remap(dlt(r)) : -1;
-    } else {
-      pos[p] = l - 1;
-      val[p] = l > 0 ? remap(dlt(l - 1)) : -1;
-    }
+// B16, reverse half: (nsv_pos, nsv_val, rc) in flipped order from the
+// flipped V=32 deltas; row g is true position m - 1 - g
+struct Scan32Rev {
+  static constexpr bool kLe = false;
+  const int* d;
+  int m;
+  int* nsv_pos;
+  int* nsv_val;
+  int* rc;
+  __device__ int delta(int g) const { return delta32(d[g], m - 1 - g); }
+  __device__ void write(int g, int dg, int p, int n) const {
+    const bool hn = p >= 0, hp = n != psv::kBig;  // the true nsv and psv
+    const int dn = hn ? p & 63 : -1, dp = hp ? n & 63 : -1;
+    nsv_pos[g] = hn ? m - 1 - (p >> 6) : m;
+    nsv_val[g] = dn;
+    if (dp > dn) rc[n >> 6] = m - 1 - g;  // the right child of the true psv (dp >= 0: hp)
+    if (g == 0 || delta(g - 1) < dg) rc[g] = -1;  // leaf m - g
   }
-}
-
-// every slot of `other` starts at -1 (all bits set): no child has arrived yet
-template <bool kRev>
-int climb(const int* dlt32, int m, int* other, int* pos, int* val, int* child,
-          cudaStream_t stream) {
-  const int threads = 256;
-  cudaError_t err = cudaMemsetAsync(other, 0xFF, (size_t)m * sizeof(int), stream);
-  if (err != cudaSuccess) return (int)err;
-  climb_kernel<kRev><<<(m + 1 + threads - 1) / threads, threads, 0, stream>>>(
-      Dlt32Deltas{dlt32, m, kRev}, m, other, pos, val, child);
-  return (int)cudaGetLastError();
-}
+};
 
 }  // namespace
 
@@ -153,15 +146,18 @@ extern "C" int tbvh_scan32(const int* dlt_raw, int m, int* agg, int* psv_pos, in
 // an SM, SMs}
 extern "C" int tbvh_scan32_grid(int m, int* out) { return (int)psv::grid_of<Topology>(m, out); }
 
-// B16, forward half: (psv_pos, psv_val, lc) from the V=32 deltas
-extern "C" int tbvh_scan32_fwd(const int* dlt32, int m, int* other, int* psv_pos, int* psv_val,
+// B16, forward half: (psv_pos, psv_val, lc) from the V=32 deltas; agg as
+// tbvh_scan32's
+extern "C" int tbvh_scan32_fwd(const int* dlt32, int m, int* agg, int* psv_pos, int* psv_val,
                                int* lc, cudaStream_t stream) {
-  return climb<false>(dlt32, m, other, psv_pos, psv_val, lc, stream);
+  return (int)psv::launch(Scan32Fwd{dlt32, psv_pos, psv_val, lc}, m, agg, psv_pos, psv_val,
+                          nullptr, stream);
 }
 
 // B16, reverse half: (nsv_pos, nsv_val, rc) from the flipped V=32 deltas,
 // written in flipped order
-extern "C" int tbvh_scan32_rev(const int* dlt32_flipped, int m, int* other, int* nsv_pos,
+extern "C" int tbvh_scan32_rev(const int* dlt32_flipped, int m, int* agg, int* nsv_pos,
                                int* nsv_val, int* rc, cudaStream_t stream) {
-  return climb<true>(dlt32_flipped, m, other, nsv_pos, nsv_val, rc, stream);
+  return (int)psv::launch(Scan32Rev{dlt32_flipped, m, nsv_pos, nsv_val, rc}, m, agg, nsv_pos,
+                          nsv_val, nullptr, stream);
 }

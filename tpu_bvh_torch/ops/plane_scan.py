@@ -50,23 +50,6 @@ def plane_scan_reference(x, *, is_min: bool, reverse: bool):
     return x
 
 
-def _scratch(x):
-    """The look-back status words (one a column of every tile's strip) and
-    the ticket of x's device and stream, grown to x's plane. Both start as
-    zeros; a launch leaves the ticket at 0 and its words tagged with its
-    epoch, so no call clears them."""
-    m, v = x.shape
-    words = -(-m // TILE_ROWS) * -(-v // COLS) * COLS
-    key = (x.device, kernels.stream_of(x))
-    status, ticket = _work.get(key, (None, None))
-    if ticket is None:
-        ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
-    if status is None or status.numel() < words:
-        status = torch.zeros(words, dtype=torch.int64, device=x.device)
-    _work[key] = (status, ticket)
-    return status, ticket
-
-
 def _plane_scan_cuda(x, is_min: bool, reverse: bool):
     global launches, _epoch
     if x.dim() != 2:
@@ -75,12 +58,14 @@ def _plane_scan_cuda(x, is_min: bool, reverse: bool):
     kernels.require(x, "x", torch.int32, (m, v))
     if m < 1 or v < 1:
         raise ValueError(f"plane_scan needs a non-empty plane, got shape {(m, v)}")
-    status, ticket = _scratch(x)
+    stream = kernels.stream_of(x)
+    words = -(-m // TILE_ROWS) * -(-v // COLS) * COLS  # one a column of every tile's strip
+    status, ticket = kernels.look_back_work(_work, x.device, stream, words)
     out = torch.empty_like(x)
     _epoch = _epoch % ((1 << 31) - 2) + 1  # in [1, 2^31), never 0 (a zeroed word)
     err = kernels.lib().tbvh_plane_scan(x.data_ptr(), m, v, int(is_min), int(reverse),
                                         out.data_ptr(), status.data_ptr(), ticket.data_ptr(),
-                                        _epoch, kernels.stream_of(x))
+                                        _epoch, stream)
     kernels.check("tbvh_plane_scan", err)
     launches += 1
     return out

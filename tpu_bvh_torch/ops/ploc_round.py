@@ -12,7 +12,10 @@ cluster order (the round loop flips them to root-at-0 once at the end).
 * `ploc_emit_compact` (B9): given the NN output, write each merge's node
   column and front-compact the kept clusters (merged ones carry the union
   and their new id, and keep their own code). Node columns outside
-  [base, base + n_merged) are not touched.
+  [base, base + n_merged) are not touched. On the card one launch of
+  `csrc/ploc_round.cu` (a single-pass scan with decoupled look-back, which
+  also writes the zeros past the survivors); its status words and ticket
+  are kept per device and stream, so a call allocates only its output.
 * `ploc_round_fused` (B8) and `ploc_round_pp` (B6): one round = the NN
   stage on the live lanes, then the emission. On the card both are one
   launch of `csrc/ploc_round_fused.cu`. B8 allocates its outputs; B6
@@ -60,14 +63,16 @@ MAX_FIN_WIDTH = FIN_CTAS * FIN_CAP
 # clock64 cycles of the round, NN stage, flags and scans, emission,
 # compaction and barrier waits
 FIN_STATS = (3, 7)
-_EMIT_BLOCK = 256  # lanes per block of csrc/ploc_round.cu and csrc/ploc_round_fused.cu
+_EMIT_BLOCK = 256  # lanes per block of csrc/ploc_round_fused.cu (kThreads)
+_EMIT_TILE = 1024  # lanes per block of csrc/ploc_round.cu (kTile)
 rounds = 0  # B6/B8 rounds on the card (one launch each) since the last reset
 fused_rounds = 0  # of those, B8 rounds (`ploc_round_fused`)
 emit_launches = 0  # B9 launches (`ploc_emit_compact`)
 finish_launches = 0  # B7 launches
 last_finish_stats = None  # the last B7 launch's counters, i64[FIN_STATS]
 _cluster_checked = False  # whether the card can schedule the finisher's cluster (checked once)
-_epoch = 0  # rounds launched in this process: tags the look-back status words
+_epoch = 0  # B6/B8 and B9 launches in this process: tags the look-back status words
+_emit_work = {}  # (device, stream) -> B9's (status i64, ticket i32[1]), reused by every call
 
 
 class RoundWork(NamedTuple):
@@ -99,9 +104,7 @@ def ploc_emit_compact(mat, nn, nodes, n_clusters: int, base: int):
     """Returns (new_mat i32[8, S] with zeros past the survivors, nodes,
     n_merged i32[] on mat's device); dispatch by device."""
     if on_cuda(mat):
-        out = torch.zeros_like(mat)
-        nm = _emit_compact_cuda(mat, nn, nodes, int(n_clusters), int(base), out, None)
-        return out, nodes, nm
+        return _emit_compact_cuda(mat, nn, nodes, int(n_clusters), int(base))
     return ploc_emit_compact_reference(mat, nn, nodes, n_clusters, base)
 
 
@@ -126,27 +129,36 @@ def ploc_emit_compact_reference(mat, nn, nodes, n_clusters: int, base: int, out=
     return out, nodes, mi.sum(dtype=I32)
 
 
-def _emit_compact_cuda(mat, nn, nodes, nc: int, base: int, out, scan):
+def _next_epoch() -> int:
+    """The next launch's tag for the look-back words of B6/B8 and B9: 30
+    bits, never 0 (a zeroed word), one count for both kernels."""
+    global _epoch
+    _epoch = _epoch % ((1 << 30) - 1) + 1
+    return _epoch
+
+
+def _emit_compact_cuda(mat, nn, nodes, nc: int, base: int):
     global emit_launches
-    _require_states("ploc_emit_compact", mat=mat, nn=nn, out=out, nodes=nodes)
-    if not 1 <= nc <= min(mat.shape[1], nn.shape[1], out.shape[1]):
+    _require_states("ploc_emit_compact", mat=mat, nn=nn, nodes=nodes)
+    S = mat.shape[1]
+    if not 1 <= nc <= min(S, nn.shape[1]):
         raise ValueError(f"ploc_emit_compact needs 1 <= n_clusters <= width, got {nc}")
     if base < 0 or base + nc // 2 > nodes.shape[1]:
         raise ValueError(f"ploc_emit_compact: ids [{base}, {base + nc // 2}) exceed the "
                          f"{nodes.shape[1]} node columns")
-    nb = -(-nc // _EMIT_BLOCK)
-    if scan is None:
-        scan = torch.empty((2 * nb + 2,), dtype=I32, device=mat.device)
-    elif scan.numel() < 2 * nb + 2:
-        raise ValueError("ploc_emit_compact: scan scratch too small")
+    stream = kernels.stream_of(mat)
+    status, ticket = kernels.look_back_work(_emit_work, mat.device, stream,
+                                            2 * -(-nc // _EMIT_TILE))  # two a tile
+    # one allocation: the new state, then the word that receives n_merged
+    buf = torch.empty(8 * S + 1, dtype=I32, device=mat.device)
     err = kernels.lib().tbvh_ploc_emit_compact(
-        mat.data_ptr(), mat.shape[1], nn.data_ptr(), nn.shape[1], nc, base,
-        out.data_ptr(), out.shape[1], nodes.data_ptr(), nodes.shape[1], scan.data_ptr(),
-        kernels.stream_of(mat),
+        mat.data_ptr(), S, nn.data_ptr(), nn.shape[1], nc, base, buf.data_ptr(), S,
+        nodes.data_ptr(), nodes.shape[1], status.data_ptr(), ticket.data_ptr(),
+        buf.data_ptr() + 4 * 8 * S, _next_epoch(), stream,
     )
     kernels.check("tbvh_ploc_emit_compact", err)
     emit_launches += 1
-    return scan[2 * nb]  # n_merged, as the kernel left it
+    return buf[:8 * S].view(8, S), nodes, buf[8 * S]
 
 
 # ---------------------------------------------------------------- B8 / B6
@@ -199,7 +211,7 @@ def ploc_round_pp_reference(matA, matB, nodes, n_clusters: int, shift_bits: int,
 
 def _round_cuda(mat, out, nodes, nc: int, shift_bits: int, base: int, radius: int,
                 work: RoundWork):
-    global rounds, _epoch
+    global rounds
     ploc_nn._check(radius)
     _require_states("a PLOC round", mat=mat, out=out, nodes=nodes)
     if not 1 <= nc <= min(mat.shape[1], out.shape[1]):
@@ -212,11 +224,10 @@ def _round_cuda(mat, out, nodes, nc: int, shift_bits: int, base: int, radius: in
     kernels.require(work.ctl, "RoundWork.ctl", I32, (4,))
     if work.status.numel() < 2 * nb:
         raise ValueError(f"a PLOC round of {nc} clusters needs RoundWork.status i64[>= {2 * nb}]")
-    _epoch = _epoch % ((1 << 30) - 1) + 1  # 30 bits, never 0 (a zeroed word)
     err = kernels.lib().tbvh_ploc_round(
         mat.data_ptr(), mat.shape[1], nc, shift_bits, radius, base, out.data_ptr(),
         out.shape[1], nodes.data_ptr(), nodes.shape[1], work.status.data_ptr(),
-        work.ctl.data_ptr(), _epoch, kernels.stream_of(mat),
+        work.ctl.data_ptr(), _next_epoch(), kernels.stream_of(mat),
     )
     kernels.check("tbvh_ploc_round", err)
     rounds += 1

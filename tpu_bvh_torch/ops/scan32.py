@@ -16,8 +16,11 @@ scatters the children by the Apetrei climb's rule. A CPU tensor takes
 (`scan32._run` with `_fwd_kernel` / `_rev_kernel`): from the V=32 deltas
 of sorted codes (distinct codes raw - 2, every tie on lane 30) the first
 three outputs, and from their flip the last three in flipped order. On the
-card each rebuilds the raw deltas (a tie at position j is the ruler value
-32 + clz(j ^ (j + 1))) and runs a bottom-up Apetrei climb.
+card each is one cooperative launch of the same scan with its own
+epilogue, which rebuilds the remapped deltas (a tie at true position j is
+the ruler value 32 + clz(j ^ (j + 1))) and writes only its half; the
+reverse half scans the flipped array itself, so its psv is the true nsv
+and every row writes its own slot.
 """
 from __future__ import annotations
 
@@ -127,9 +130,9 @@ def _scan_half_cuda(dlt32, m: int, flipped: bool):
     if not 1 <= m < (1 << 22):
         raise ValueError(f"scan_fwd / scan_rev need 1 <= m < 2^22, got {m}")
     outs = [torch.empty(m, dtype=torch.int32, device=dlt32.device) for _ in range(3)]
-    other = torch.empty(m, dtype=torch.int32, device=dlt32.device)  # scratch
+    agg = threshold_core.scan_scratch(m, dlt32.device)
     fn = kernels.lib().tbvh_scan32_rev if flipped else kernels.lib().tbvh_scan32_fwd
-    err = fn(dlt32.data_ptr(), m, other.data_ptr(), *(o.data_ptr() for o in outs),
+    err = fn(dlt32.data_ptr(), m, agg.data_ptr(), *(o.data_ptr() for o in outs),
              kernels.stream_of(dlt32))
     kernels.check("tbvh_scan32_rev" if flipped else "tbvh_scan32_fwd", err)
     half_launches += 1

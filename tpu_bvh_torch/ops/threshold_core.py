@@ -109,8 +109,8 @@ def psv_nsv_payload_reference(dlt, pay):
 
 def scan_scratch(m: int, device):
     """The tile totals, block totals and block masks of one
-    `csrc/psv_scan.cuh` launch over m rows (B1, B12/B13, B14, B15); no
-    value needs clearing."""
+    `csrc/psv_scan.cuh` launch over m rows (B1, B12/B13, B14, B15, B16's
+    halves); no value needs clearing."""
     nt = -(-m // TILE)
     return torch.empty((4 * V + 32) * nt, dtype=torch.int32, device=device)
 

@@ -41,7 +41,7 @@ _SIGNATURES = {
                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "tbvh_ploc_round": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P],
     "tbvh_ploc_nn": [_P, _I, _I, _I, _I, _I, _P, _I, _P],
-    "tbvh_ploc_emit_compact": [_P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P],
+    "tbvh_ploc_emit_compact": [_P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P],
     "tbvh_ploc_finish": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P],
     "tbvh_ploc_finish_clusters": [_P],
     "tbvh_scan32_fwd": [_P, _I, _P, _P, _P, _P, _P],
@@ -133,6 +133,22 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib
+
+
+def look_back_work(store: dict, device, stream: int, words: int):
+    """The status words (i64, at least `words`) and the ticket (i32[1]) of a
+    single-pass scan with decoupled look-back, kept in `store` per device
+    and stream and grown as needed. Both start as zeros; a launch leaves
+    the ticket at 0 and its words tagged with its epoch, so no call clears
+    them."""
+    key = (device, stream)
+    status, ticket = store.get(key, (None, None))
+    if ticket is None:
+        ticket = torch.zeros(1, dtype=torch.int32, device=device)
+    if status is None or status.numel() < words:
+        status = torch.zeros(words, dtype=torch.int64, device=device)
+    store[key] = (status, ticket)
+    return status, ticket
 
 
 def stream_of(x) -> int:
