@@ -35,7 +35,10 @@ On the way it
    cannot overflow), where most rays hit, printing for each the ray-prim
    tests the split sweep ran beside the ones the serial rule counts, and
    its pair sweeps on the busiest SM; the PLOC nearest-neighbour
-   stage on sponza's first-round state at shift 32 and 9, the emission
+   stage on sponza's first-round state at shift 32 and 9 (printing its
+   SM cycles per phase: tile load, pair areas, best_rel, mutual check
+   and writes), at its tiles' edges and on boxes with NaN and +-0
+   faces, the emission
    and the whole round (ping-pong and allocating) on three states along
    the sponza HPLOC build, and the finisher on the HPLOC states where the
    round loop hands over at 4096 (its width before the cluster design)
@@ -143,7 +146,10 @@ On the way it
    shadow slice (events and host clock, Mrays/s, the plain version on the
    slice), with bounds and their shares from the rows their steps stood on
    (counted by a launch that marks them; pinned on the frame), their step
-   counters and SIMD efficiency (lane steps over 32 x warp steps);
+   counters and SIMD efficiency (lane steps over 32 x warp steps); every
+   bound from the kernel's count in `tpu_bvh_torch/utils/work.py`, and
+   `introspect.cost_analysis` of one call of each hand kernel, whose
+   bytes, flops and optimal_seconds must equal that count and bound;
 6. checks, from one torch.profiler trace each, that the dense refit (both
    entries), the collapse kernel, the topology scan (B1), the psv/nsv
    scans (B12/B13, B14), the child positions (B15), the plane scan (B11),
@@ -195,14 +201,6 @@ SHADOW_CAPS = (4096, 32768, 32)  # shadow_occlusion on every live ray
 TRACE_CAPS = (4096, 24576, 32)  # trace_rays on the 64K slice
 CLOSEST_CAPS = (4096, 1 << 21, 32)  # the slice's rays out to the scene's edge
 PRIMARY_CAPS = (4096, 1 << 21, 32)  # 1080p primary rays: 507 groups x 4096 pairs fit
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
-# flops per ray-prim test, as counted in the kernels' notes
-FLOPS_PER_TEST = {"raster_sweep": 26, "ray_sweep": 50}
-# flops per PLOC pair area: 6 mins for the union, 6 for the extents
-# (negate, subtract), 5 for the products and their sums, 1 doubling; a
-# lane needs R pair areas (each pair serves both its lanes)
-FLOPS_PER_PAIR = 18
 ROUND_SOURCE = "tpu_bvh_torch/csrc/ploc_round_fused.cu"
 THR_SOURCE = "tpu_bvh_torch/csrc/threshold_scan.cu"
 THR_TPU = "tpu_bvh/ops/pallas/threshold_core.py"
@@ -244,19 +242,6 @@ KERNELS = {  # name: (TPU kernel, source, the TPU kernel it replaces), B1 to B16
 }
 TRAVERSALS = ("packed", "if_if", "while_while", "speculative", "restart_trail")
 WAVEFRONT = (512, 512)  # the JAX bench's wavefront row: sponza 262K, 512^2 primary rays
-# bytes a row stood on must give once (internal, leaf), on either layout:
-# two child boxes, left and right; or the triangle and its prim. A ray
-# reads 24 B and writes 20 B
-TRAVERSE_ROW_BYTES = (56, 40)
-TRAVERSE_RAY_BYTES = 44
-# bytes each step loads (node step, leaf step), most of them from the
-# caches: four or three 16-byte words of a packed row; on the Bvh2 layout
-# left, right and two child boxes, or left and the triangle
-TRAVERSE_STEP_BYTES = {"packed": (64, 48), "bvh2": (56, 40)}
-# flops a node step (two slabs), a leaf step (three vertex transforms and the
-# triangle test) and a ray (two inverse transforms, three reciprocals)
-TRAVERSE_STEP_FLOPS = (48, 203)
-TRAVERSE_RAY_FLOPS = 81
 # the traversal's inputs: the 512^2 frame (mostly misses) and the reversed
 # shadow slice (from the light toward the 1080p frame's hit points)
 TRAVERSE_INPUTS = {"frame": f"sponza {WAVEFRONT[0]}x{WAVEFRONT[1]}",
@@ -341,55 +326,22 @@ def max_err(got, want):
     return max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
 
 
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
+def bound(count):
+    """(bound ms, what sets it) of a kernel call's (bytes, flops, info)
+    count (`tpu_bvh_torch/utils/work.py`): the larger of the bytes over the
+    memory rate and the f32 operations over the f32 peak
+    (`introspect.optimal_seconds`)."""
+    from tpu_bvh_torch.utils import introspect
+
+    n_bytes, flops = count[:2]
+    by_bytes = n_bytes / introspect.HBM_BYTES_PER_S >= flops / introspect.F32_FLOPS
+    return (introspect.optimal_seconds(n_bytes, flops) * 1e3,
+            "bytes" if by_bytes else "operations")
 
 
-def batched_bytes(tris_b):
-    """What a batched build must move: 36 B a prim read; per mesh 32 B a
-    node (6 box rows, left, right) and 4 B of root written."""
-    B, M = tris_b.shape[:2]
-    return B * M * 36 + B * (32 * (2 * M - 1) + 4)
-
-
-def bound(n_bytes, flops):
-    """(bound ms, what sets it): the larger of bytes over the memory rate
-    and f32 operations over the f32 peak."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def collapse_bound(torch, meta, carr, outm, outa, m):
-    """Bound of the collapse kernel: it needs the 8 meta rows and carr row
-    5 at every lane, carr's other 29 used rows (slots, count, slot AABBs)
-    only at the coarse wide lanes, and the 6 AABB rows of node8 or leaf8
-    only at the slots of the short wide lanes; it writes outm and the four
-    outa once."""
-    W = meta.shape[1]
-    n_cw = int((carr[5] == 1).sum())
-    short_wide = (outm[5] == 0) & (meta[5] == 1) & (torch.arange(W, device=meta.device) < m)
-    n_slots = int((outm[0:4][:, short_wide] >= 0).sum())
-    n_bytes = 4 * (9 * W + 29 * n_cw + 6 * n_slots) + nbytes(outm, *outa)
-    info = f"W {W}, {n_cw} coarse wide lanes, {n_slots} slots of short wide lanes"
-    return bound(n_bytes, 0), info
-
-
-def sweep_bound(torch, name, args, out):
-    """Bound of a sweep kernel on its inputs: every input read once (of the
-    slabs only the treelets that live pairs touch), every output written
-    once; flops = the ray-prim tests this run made (the sum of the count
-    output) times the flops per test."""
-    rays_in, slabs, p_tid, p_tlb, p_bits, t_start, t_end = args[:7]
-    touched = int(torch.unique(p_tid[p_bits != 0]).numel())
-    slab_bytes = touched * slabs.shape[1] * slabs.shape[2] * slabs.element_size()
-    n_bytes = nbytes(rays_in, p_tid, p_tlb, p_bits, t_start, t_end, *out) + slab_bytes
-    tests = int(out[4].sum(dtype=torch.int64))
-    # a subgroup's rays share their count: its sweeps = count / L
-    sweeps = out[4].reshape(-1, 256)[:, 0].double() / slabs.shape[1]
-    info = (f"{tests} ray-prim tests; sweeps per 256-ray block: mean {float(sweeps.mean())!r}, "
-            f"max {int(sweeps.max())}")
-    return bound(n_bytes, tests * FLOPS_PER_TEST[name]), info
+def bounded(count):
+    """((bound ms, what sets it), what the count found)."""
+    return bound(count), count[2]
 
 
 def split_info(torch, stats, out, L, unit="subgroups"):
@@ -421,35 +373,6 @@ def finish_info(stats, sm_mhz):
     return "; ".join(out)
 
 
-def ploc_bounds(nn, nc, radius, shift, width):
-    """Bounds of B10, B9 and one round (B6) on a state of nc live clusters
-    in `width` columns and its NN output, counting only what each must
-    move. B10 reads the state rows of every live lane (all 8, or 7 at
-    shift 32, where one segment makes the code row unneeded), writes its 8
-    output rows and computes R pair areas per lane. B9 reads the flag row
-    of every live lane, the 8 state rows of a survivor that did not merge,
-    state rows 6-7 and NN rows 0-6 of a merge lane and nothing more of a
-    dropped lane; it writes 8 rows per survivor and per merged node, and 8
-    rows of zeros per column past the survivors (its new state is whole).
-    The round reads the state once (at shift 32 the code row only of
-    survivors) and writes the survivors and the merged nodes."""
-    flags = nn[7, :nc]
-    nm = int((flags == 1).sum())
-    n_keep = nc - int((flags == 2).sum())
-    flops = nc * radius * FLOPS_PER_PAIR
-    state_rows = 7 if shift >= 32 else 8
-    writes = 8 * n_keep + 8 * nm
-    emit_reads = nc + 8 * (n_keep - nm) + 9 * nm
-    round_reads = state_rows * nc + (n_keep if shift >= 32 else 0)
-    info = f"{nc} clusters, {nm} merges, {nc - n_keep} dropped, shift {shift}"
-    return {"ploc_nn": (bound(4 * (state_rows + 8) * nc, flops), info),
-            "ploc_emit_compact": (bound(4 * (emit_reads + writes + 8 * (width - n_keep)), 0),
-                                  f"{info}, {width} columns"),
-            "ploc_round": (bound(4 * (round_reads + writes), flops), info),
-            # B8 writes the whole new state, zeros past the survivors
-            "ploc_round_fused": (bound(4 * (round_reads + 8 * nc + 8 * nm), flops), info)}
-
-
 def batched_valid(torch, trees, M):
     """Every tree of a batch-stacked Bvh2 of M leaves, checked on the card:
     its leaves hold a permutation of the prims; a walk from the root meets
@@ -479,25 +402,6 @@ def batched_valid(torch, trees, M):
     return perm and walk and root_ok and nest
 
 
-def traverse_bound(stats, rows, name, n_rays):
-    """Bound of a traversal kernel: every row its steps stood on read once
-    (`rows`: internal, leaf; counted on the card) and the rays' bytes,
-    against the slab and triangle flops of its steps (`stats`, its device
-    counters: node steps, leaf steps, overflowed rays). The steps' own
-    loads, mostly served by the caches, are reported beside it."""
-    node_steps, leaf_steps = (int(x) for x in stats[:2])
-    n_int, n_leaf = (int(x) for x in rows)
-    n_bytes = (n_int * TRAVERSE_ROW_BYTES[0] + n_leaf * TRAVERSE_ROW_BYTES[1]
-               + n_rays * TRAVERSE_RAY_BYTES)
-    f_node, f_leaf = TRAVERSE_STEP_FLOPS
-    flops = node_steps * f_node + leaf_steps * f_leaf + n_rays * TRAVERSE_RAY_FLOPS
-    s_node, s_leaf = TRAVERSE_STEP_BYTES["packed" if name == "packed" else "bvh2"]
-    info = (f"{n_int} internal and {n_leaf} leaf rows stood on; {node_steps} node steps, "
-            f"{leaf_steps} leaf steps ({node_steps * s_node + leaf_steps * s_leaf} B loaded by "
-            f"the steps), {int(stats[2])} overflowed rays over {n_rays} rays")
-    return bound(n_bytes, flops), info
-
-
 def kernels_per_call(torch, fn, sessions=3):
     """CUDA kernels and memsets in one torch.profiler trace of one call of
     `fn` (after a warm-up call): the names of its Chrome trace's kernel
@@ -522,6 +426,35 @@ def kernels_per_call(torch, fn, sessions=3):
             break
     return ([e["name"] for e in events if e.get("cat") == "kernel"],
             sum(e.get("cat") == "gpu_memset" for e in events))
+
+
+def nn_edge_cases(T):
+    """(width, live lanes, shift, radius, state) of B10's edge inputs for a
+    tile of T lanes: widths of one tile, one lane past it and part of a
+    third; live lanes ending just before, at and just past a tile's end;
+    radius 1, 3 and 8; segments at shifts 0 and 9; the sponza state and
+    boxes with NaN and +-0 faces (`nn_special_state`)."""
+    cases = [(T, T, 32, 8, "sponza"), (T + 1, T + 1, 9, 8, "sponza"),
+             (2 * T + 17, T - 1, 0, 3, "sponza"), (2 * T + 17, 2 * T, 32, 1, "sponza")]
+    cases += [(3 * T + 5, nc, shift, r, "NaN and +-0")
+              for nc, shift, r in ((3 * T + 5, 32, 8), (2 * T + 1, 9, 3), (T - 7, 0, 1))]
+    return cases
+
+
+def nn_special_state(torch, np, width, dev, seed=7):
+    """A PLOC state of `width` lanes whose box faces take -1, -0.0, +0.0
+    and 0.5, one face in 40 a NaN, with many equal areas; sorted codes in
+    runs of about 8 equal values above bit 9 (segments of several lanes at
+    shifts 0 and 9) and random node ids."""
+    rng = np.random.default_rng(seed)
+    mn = rng.choice(np.array([-1.0, -0.0, 0.0, 0.5], np.float32), (3, width))
+    mx = mn + rng.choice(np.array([0.0, 0.5], np.float32), (3, width))
+    cols = np.concatenate([mn, -mx]).astype(np.float32)
+    cols[rng.random(cols.shape) < 1 / 40] = np.nan
+    codes = np.sort(rng.integers(0, max(width // 8, 1), width)) << 9
+    node = rng.integers(0, 2 * width, width)
+    mat = np.concatenate([cols.view(np.int32), codes[None], node[None]]).astype(np.int32)
+    return torch.from_numpy(mat).to(dev)
 
 
 def launch_counters():
@@ -652,7 +585,7 @@ def main():
     from tpu_bvh_torch.ops import ploc as ploc_ops
     from tpu_bvh_torch.ops.aabb import triangle_aabbs
     from tpu_bvh_torch.types import PLOC_RADIUS, Bvh2, Bvh4, Rays, identity_transform
-    from tpu_bvh_torch.utils import camera, image, kernels, scenes, validate
+    from tpu_bvh_torch.utils import camera, image, introspect, kernels, scenes, validate, work
     from tpu_bvh_torch.utils.cost import sah_cost_bvh2, sah_cost_bvh4
     from tpu_bvh_torch.utils.cpu_reference import collapse_cpu
     from tpu_bvh_torch.utils.timer import Timer
@@ -902,6 +835,21 @@ def main():
         same_outputs([got], [want], "ploc_nn", f"sponza first round, n={n}, shift {shift}")
         if shift == 32:
             inputs["ploc"] = (mat0, got)
+        print(f"  ploc_nn phase clocks, sponza first round, shift {shift} (SM cycles: median and "
+              f"most over the {-(-n // ploc_nn.TILE)} blocks; at most {sm_mhz} MHz): "
+              f"{ploc_nn.phase_cycles(mat0, n, shift, R)}", flush=True)
+    # B10 at its tiles' edges (widths and live counts on either side of a
+    # tile's end) and on boxes with NaN and +-0 faces, where the areas'
+    # hardware min must make jnp.minimum's choices
+    T = ploc_nn.TILE
+    for s_w, nc, shift, radius, what in nn_edge_cases(T):
+        st = (mat0[:, :s_w].contiguous() if what == "sponza"
+              else nn_special_state(torch, np, s_w, dev))
+        got = ploc_nn.ploc_nn_round_raw(st, nc, shift, radius)
+        want = ploc_nn.ploc_nn_round_raw_reference(st, nc, shift, radius)
+        torch.cuda.synchronize()
+        same_outputs([got], [want], "ploc_nn",
+                     f"{what} state, width {s_w}, nc {nc}, shift {shift}, radius {radius}")
     # the HPLOC state where the round loop hands over at each width in
     # HAND_OVERS (the finisher's width before this design, the TPU kernel's,
     # the port's)
@@ -1125,13 +1073,14 @@ def main():
 
     def shadow():
         rr, (hit, _, _) = renders[(1920, 1080)]
-        work = scenes.shadow_workload(tris, rr, hit)
-        pts, lv, lt, ep, fw, vs, _ = work
+        shadow_work = scenes.shadow_workload(tris, rr, hit)
+        pts, lv, lt, ep, fw, vs, _ = shadow_work
         occ = ray_sweep.shadow_occlusion(packed, pts, lv, lt, tr, ep, *SHADOW_CAPS)
         trace = ray_sweep.trace_rays(packed, Rays(*(x[vs] for x in fw)), tr, *TRACE_CAPS)
-        return work, occ, trace
+        return shadow_work, occ, trace
 
-    (work, (occ, _, ovf_occ), (hit_v, _, ovf_v)), _ = run_path("shadow", ["ray_sweep"], shadow)
+    (shadow_work, (occ, _, ovf_occ), (hit_v, _, ovf_v)), _ = run_path("shadow", ["ray_sweep"],
+                                                                      shadow)
 
     def ploc_builds():
         out = {}
@@ -1283,7 +1232,7 @@ def main():
     # answer, outside the boundary strips (a blocker within 10 eps of either
     # end of a segment may flip either way); the forward trace reaches 20
     # eps past each segment so every hit within 10 eps of its end is seen
-    points, live, light, eps, fwd, vsel, n_shadow = work
+    points, live, light, eps, fwd, vsel, n_shadow = shadow_work
     require(not bool(ovf_occ) and not bool(ovf_v), "shadow_occlusion and trace_rays: no overflow")
     tmax = fwd[3][vsel]
     ext = Rays(fwd[0][vsel], fwd[1][vsel], fwd[2][vsel],
@@ -1663,7 +1612,7 @@ def main():
         k_ev = time_ms(torch, lambda: kernel(t), reps=20)[0]
         p_ev = time_ms(torch, lambda: plain(t), reps=3, warmup=1)[0]
         host = time_ms(torch, lambda: batched.build_batched(t), reps=20)[1]
-        b_ms = bound(batched_bytes(t), 0)[0]
+        b_ms = bound(work.batched(t))[0]
         print(f"  {kname}, {what} ({B} x {M}), {smi}: kernel {k_ev!r} ms (events), plain "
               f"{p_ev!r} ms; build_batched {host!r} ms (host clock) = {B / host * 1e3!r} "
               f"meshes/s; bound {b_ms!r} ms (bytes), {b_ms / k_ev!r} of it reached", flush=True)
@@ -1715,7 +1664,8 @@ def main():
             ev, wall = time_ms(torch, lambda: traversal(v, rays), reps=20)
             p_ms = (time_ms(torch, lambda: traversal(v, rays, plain=True), 1, warmup=0)[0]
                     if what != "frame" else None)  # the frame's plain time: the kernels line
-            (b_ms, b_by), info = traverse_bound(t_stats[(what, v)], t_rows[(what, v)], v, n_r)
+            (b_ms, b_by), info = bounded(work.traverse(t_stats[(what, v)], t_rows[(what, v)], v,
+                                                       n_r))
             t_times[(what, v)] = {"rays": n_r, "ms": ev, "host_ms": wall, "plain_ms": p_ms,
                                   "bound_ms": b_ms, "bound_by": b_by,
                                   "simd_efficiency": t_simd[(what, v)]}
@@ -1734,50 +1684,47 @@ def main():
     refit_out = refit_dense.refit_dense(mat, n, refit.RADIUS)
     demo_t = b_inputs[demo_what]
     wide_t = k_inputs["1024x1024"]
-    bounds = {  # kernel: ((bound ms, what sets it), what the sweep did)
-        "scan32": (bound(nbytes(inputs["scan"], *scan_out), 0), ""),
-        "refit_dense": (bound(nbytes(mat, *refit_out), 0), ""),
-        "collapse_block": collapse_bound(torch, rows[0], rows[3], c_out[0], c_out[1:], m_c),
-        "raster_sweep": sweep_bound(torch, "raster_sweep", r_args, r_out),
-        "ray_sweep": sweep_bound(torch, "ray_sweep", so_args, so_out),
-        "batched_build": (bound(batched_bytes(demo_t), 0),
-                          f"{demo_what}, {demo_t.shape[0]} x {demo_t.shape[1]}"),
-        "batched_block": (bound(batched_bytes(wide_t), 0),
-                          f"{k_what['1024x1024']}, {wide_t.shape[0]} x {wide_t.shape[1]}"),
-        # the traversal kernels: the steps of the main path's run, the rows
-        # stood on counted by the same kernel on the same rays
-        **{f"traverse_{v}": traverse_bound(waves[v][1].cpu(), t_rows[("frame", v)], v, n_wave)
-           for v in TRAVERSALS},
-    }
-    # PLOC's first round (all clusters, shift 32) for B10, B9 and the round;
-    # the HPLOC hand-over state for B7, whose work is the clusters of each
-    # of its rounds
+    # each kernel's count (bytes, flops, what it found; utils/work.py) at
+    # the main path's shapes: the traversal kernels from the steps of the
+    # main path's run and the rows stood on counted by the same kernel on
+    # the same rays; PLOC's first round (all clusters, shift 32) for B10, B9
+    # and the round; the HPLOC hand-over state for B7, whose work is the
+    # clusters of each of its rounds; the threshold scans and B16 per row of
+    # sponza's deltas
     p_mat, p_nn = inputs["ploc"]
     p_nodes, p_spare = junk((8, n_tris - 1)), junk(p_mat.shape)
     p_work = ploc_round.round_work(n_tris, dev)
+    p_merged, p_dropped = (int((p_nn[7, :n_tris] == k).sum()) for k in (1, 2))
     f_mat, f_nc, f_shift, f_base = inputs["finish"]
-    f_lanes, f_rounds, st, nc, shift = 0, 0, f_mat, f_nc, f_shift
-    while nc > 1:
-        f_lanes, f_rounds = f_lanes + nc, f_rounds + 1
-        st, _, nm = ploc_round.ploc_round_reference(st, sink, nc, shift, n_tris - nc, R)
-        nc, shift = nc - int(nm), min(shift + step, 32)
-    bounds.update(ploc_bounds(p_nn, n_tris, R, 32, p_mat.shape[1]))
-    f_rows = 7 if f_shift >= 32 else 8  # the code row is not needed at shift 32
-    # the threshold scans and B16 per row of sponza's deltas: B12/B13 read 4 B
-    # and write 8, B14 8 and 16, B15 4 and 8, each B16 half 4 and 12; B11
-    # reads and writes its plane once
     t_dlt, t_pay = inputs["threshold"]
     h32, h32f, h_m = inputs["halves"]
     plane = inputs["planes"][True]
     m_t = t_dlt.shape[0]
-    per_row = {"psv_nsv_packed": 12, "psv_nsv_packed_lanes": 12, "psv_nsv_payload": 24,
-               "child_positions": 12, "scan32_halves": 32}
-    bounds.update({nm: (bound(b * m_t, 0), f"m {m_t}") for nm, b in per_row.items()})
-    bounds["plane_scan"] = (bound(2 * nbytes(plane), 0), f"plane {tuple(plane.shape)}, min, forward")
-    bounds["ploc_finish"] = (bound(4 * (f_rows * f_nc + 8 * (f_nc - 1)),
-                                   f_lanes * R * FLOPS_PER_PAIR),
-                             f"{f_nc} clusters, {f_rounds} rounds, {f_lanes} cluster-rounds, "
-                             f"a cluster of {ploc_round.FIN_CTAS} CTAs")
+    half = work.per_row("scan32_half", m_t)
+    counts = {
+        "scan32": work.scan32(inputs["scan"], scan_out),
+        "refit_dense": work.refit_dense(mat[0:6], mat[6], mat[7], refit_out),
+        "collapse_block": work.collapse_block(rows[0], rows[3], c_out[0], c_out[1:], m_c),
+        "raster_sweep": work.sweep("raster_sweep", r_args, r_out),
+        "ray_sweep": work.sweep("ray_sweep", so_args, so_out),
+        "ploc_round": work.ploc_round(n_tris, p_merged, p_dropped, R, 32),
+        "ploc_finish": work.ploc_finish(f_mat, f_nc, f_shift, R, step, ploc_round.FIN_CTAS),
+        "ploc_round_fused": work.ploc_round_fused(n_tris, p_merged, p_dropped, R, 32),
+        "ploc_emit_compact": work.ploc_emit_compact(n_tris, p_merged, p_dropped,
+                                                    p_mat.shape[1]),
+        "ploc_nn": work.ploc_nn(n_tris, R, 32),
+        "plane_scan": work.plane_scan(plane),
+        "psv_nsv_packed": work.per_row("psv_nsv_packed", m_t),
+        "psv_nsv_packed_lanes": work.per_row("psv_nsv_packed", m_t),
+        "psv_nsv_payload": work.per_row("psv_nsv_payload", m_t),
+        "child_positions": work.per_row("child_positions", m_t),
+        "scan32_halves": (2 * half[0], 2 * half[1], f"{half[2]}, both halves"),
+        "batched_build": work.batched(demo_t),
+        "batched_block": work.batched(wide_t),
+        **{f"traverse_{v}": work.traverse(waves[v][1].cpu(), t_rows[("frame", v)], v, n_wave)
+           for v in TRAVERSALS},
+    }
+    bounds = {name: bounded(c) for name, c in counts.items()}
     timed = {  # kernel, plain, kernel reps, plain reps, plain warm-up
         "scan32": (lambda: scan32.scan_core(inputs["scan"]),
                    lambda: scan32.scan_core_reference(inputs["scan"]), 20, 5, 1),
@@ -1880,6 +1827,21 @@ def main():
             row.update(host_ms=k_wall, simd_efficiency=t_simd[("frame", v)],
                        shadow_rev=t_times[("shadow_rev", v)])
         rows_json.append(row)
+    # one call of each hand kernel at the main path's shapes through
+    # introspect.cost_analysis, whose counts the wrappers report from the
+    # same functions as the bounds above
+    rec_names = {"psv_nsv_packed_lanes": "psv_nsv_packed"}  # B12 and B13 share a kernel
+    costs = {}
+    for name, (kfn, *_) in timed.items():
+        op = introspect.cost_analysis(kfn)["ops"][rec_names.get(name, name)]
+        costs[name] = {"bytes": op["bytes accessed"], "flops": op["flops"],
+                       "optimal_seconds": op["optimal_seconds"], "calls": op["calls"]}
+    print(f"  cost_analysis, one call of each hand kernel (bytes, flops, optimal_seconds, calls): "
+          f"{json.dumps(costs)}", flush=True)
+    require(all(c["bytes"] == counts[name][0] and c["flops"] == counts[name][1]
+                and c["optimal_seconds"] * 1e3 == bounds[name][0][0] for name, c in costs.items()),
+            f"cost_analysis: every hand kernel's bytes, flops and optimal_seconds equal the "
+            f"count and bound printed for it ({len(costs)} kernels)")
     k_ms, _ = time_ms(torch, lambda: refit_dense.refit_dense_cols(r_pt, r_first, r_last, n,
                                                                   refit.RADIUS), 20)
     print(f"  refit_dense_cols (the main path's entry, same kernel): kernel {k_ms!r} ms", flush=True)
@@ -1900,7 +1862,7 @@ def main():
                             ("closest", "the slice, closest-hit", False),
                             ("primary", "the 1080p primary rays, closest-hit", False)):
         c_args, c_out = inputs[f"ray_sweep_{key}"]
-        (b_c, _), info_c = sweep_bound(torch, "ray_sweep", c_args, c_out)
+        (b_c, _), info_c = bounded(work.sweep("ray_sweep", c_args, c_out))
         k_ms, _ = time_ms(torch, lambda: ray_sweep.ray_sweep_kernel(*c_args, occl), 20)
         split = split_info(torch, ray_sweep.last_stats, c_out, c_args[1].shape[1])
         p_ms = (time_ms(torch, lambda: ray_sweep.ray_sweep_reference(*c_args, occl), 3,
@@ -1910,7 +1872,7 @@ def main():
               + f", bound {b_c!r} ms; {info_c}; last timed call: {split}", flush=True)
     for (rw, rh) in RENDERS:
         c_args, c_out = inputs[f"raster_{rw}x{rh}"]
-        (b_c, _), info_c = sweep_bound(torch, "raster_sweep", c_args, c_out)
+        (b_c, _), info_c = bounded(work.sweep("raster_sweep", c_args, c_out))
         k_ms, _ = time_ms(torch, lambda: raster_gpu.raster_sweep(*c_args), 20)
         split = split_info(torch, raster_gpu.last_stats, c_out, c_args[1].shape[1], "subtiles")
         print(f"  raster_sweep at {rw}x{rh}: kernel {k_ms!r} ms, bound {b_c!r} ms; {info_c}; "

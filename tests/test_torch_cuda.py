@@ -22,7 +22,7 @@ from tpu_bvh_torch.ops import (batched_block, batched_build, collapse_block, col
                                ray_sweep, refit_dense, scan32, threshold_core, traverse)
 from tpu_bvh_torch.ops import ploc as ploc_ops
 from tpu_bvh_torch.types import PLOC_RADIUS, Bvh2, Bvh4, Rays, Transformation, identity_transform
-from tpu_bvh_torch.utils import camera, scenes, validate
+from tpu_bvh_torch.utils import camera, introspect, scenes, validate, work
 
 pytestmark = pytest.mark.cuda
 
@@ -456,6 +456,63 @@ def test_ploc_nn_kernel_matches_plain(cuda, state, nc, shift, radius):
     assert ploc_nn.launches == before + 1
     assert torch.equal(got, ploc_nn.ploc_nn_round_raw_reference(mat, nc, shift, radius))
     assert bool((got[7] == 1).any())
+
+
+def _nn_special_state(cuda, size, seed=0):
+    """Boxes with -0.0 and +0.0 faces, many equal areas and one face in 40
+    a NaN; codes in runs of about 8 equal values above bit 9, so shifts 0
+    and 9 make segments of several lanes."""
+    mat = _signed_zero_state(cuda, size, seed)
+    cols = mat[0:6].view(torch.float32)
+    rng = np.random.default_rng(seed + 1)
+    cols[torch.from_numpy(rng.random(cols.shape) < 1 / 40).to(cuda)] = float("nan")
+    codes = np.sort(rng.integers(0, max(size // 8, 1), size)) << 9
+    mat[6] = torch.from_numpy(codes.astype(np.int32)).to(cuda)
+    return mat
+
+
+T = ploc_nn.TILE
+
+
+@pytest.mark.parametrize("width,nc,shift,radius,state", [
+    (T, T, 32, 8, "sponza"), (T + 1, T + 1, 9, 8, "sponza"), (2 * T + 17, T - 1, 0, 3, "sponza"),
+    (2 * T + 17, 2 * T, 32, 1, "sponza"), (3 * T + 5, 3 * T + 5, 32, 8, "special"),
+    (3 * T + 5, 2 * T + 1, 9, 3, "special"), (3 * T + 5, T - 7, 0, 1, "special"),
+    (16_384, 16_384, 32, 8, "special"), (16_384, 9_999, 24, 8, "special")])
+def test_ploc_nn_kernel_at_tile_edges(cuda, width, nc, shift, radius, state):
+    """B10 at its tiles' edges (widths of one tile and one lane past it,
+    live lanes ending on either side of a tile's end), radius 1, 3 and 8,
+    shifts 0, 9, 24 and 32, and on boxes with NaN and +-0 faces, where the
+    areas' hardware min must make jnp.minimum's choices: every row equal,
+    one launch a call."""
+    if state == "sponza":
+        mat = _ploc_state(cuda)[:, :width].contiguous()
+    else:
+        mat = _nn_special_state(cuda, width)
+    before = ploc_nn.launches
+    got = ploc_nn.ploc_nn_round_raw(mat, nc, shift, radius)
+    torch.cuda.synchronize()
+    assert ploc_nn.launches == before + 1
+    assert torch.equal(got, ploc_nn.ploc_nn_round_raw_reference(mat, nc, shift, radius))
+    assert bool((got[7] == 1).any())
+
+
+@pytest.mark.parametrize("shift", [32, ploc.HPLOC_SHIFT0])
+def test_ploc_nn_phase_clocks_change_no_output(cuda, shift):
+    """With the clock record the launch writes the same rows, and every
+    phase of every block took cycles."""
+    mat = _ploc_state(cuda)
+    n = mat.shape[1]
+    want = ploc_nn.ploc_nn_round_raw(mat, n, shift, R)
+    got = torch.empty_like(mat)
+    clk = torch.zeros((-(-n // T), 5), dtype=torch.int64, device=cuda)
+    ploc_nn.launch(mat, n, shift, R, got, n, clk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((torch.diff(clk, dim=1) > 0).all())
+    cyc = ploc_nn.phase_cycles(mat, n, shift, R)
+    assert set(cyc) == {*ploc_nn.PHASES, "total"}
+    assert all(cyc[k][0] > 0 and cyc[k][1] >= cyc[k][0] for k in ploc_nn.PHASES)
 
 
 @pytest.mark.parametrize("k", [0, 2, 5])
@@ -1182,6 +1239,74 @@ def test_traverse_kernel_counts_rows(cuda):
     finally:
         traverse.count_rows = False
     assert rows["while_while"] == rows["speculative"] == rows["packed"] == rows["if_if"]
+
+
+def test_cost_analysis_counts_each_hand_kernel(cuda):
+    """cost_analysis of one call of a hand kernel: its row holds the count
+    its bound is made of (utils/work.py), as chip_smoke.py prints it; and
+    kernel_report(fn) names the kernels the call launched."""
+    mat = _ploc_state(cuda)
+    n = mat.shape[1]
+    nn = ploc_nn.ploc_nn_round_raw_reference(mat, n, 32, R)
+    merged, dropped = (int((nn[7] == k).sum()) for k in (1, 2))
+    nodes = _junk((8, n - 1), cuda)
+    dlt_raw = radix_tree.adjacent_deltas(_codes("random", 65_537).to(cuda))
+    dlt = scan32.remap_deltas(dlt_raw)
+    m = dlt.shape[0]
+    plane = torch.where(dlt[:, None] < torch.arange(64, device=cuda)[None, :],
+                        dlt[:, None], threshold_core.BIG)
+    bvh, tris, rays, tr = _traverse_case("sponza", cuda)
+    meshes = batched.pad_meshes(scenes.random_meshes(256, 32, 2), 32, device=cuda)[0]
+    cases = [
+        ("ploc_nn", lambda: ploc_nn.ploc_nn_round_raw(mat, n, 32, R), work.ploc_nn(n, R, 32),
+         "ploc_nn_kernel"),
+        ("ploc_emit_compact", lambda: ploc_round.ploc_emit_compact(mat, nn, nodes, n, 0),
+         work.ploc_emit_compact(n, merged, dropped, n), "emit_kernel"),
+        ("ploc_round", lambda: ploc_round.ploc_round_pp(mat, _junk(mat.shape, cuda), nodes, n, 32,
+                                                        0, R),
+         work.ploc_round(n, merged, dropped, R, 32), "ploc_round_kernel"),
+        ("ploc_round_fused", lambda: ploc_round.ploc_round_fused(mat, nodes, n, 32, 0, R),
+         work.ploc_round_fused(n, merged, dropped, R, 32), "ploc_round_kernel"),
+        ("ploc_finish", lambda: ploc_round.ploc_finish(mat[:, :4096].contiguous(), nodes, 4096,
+                                                       32, 0, R, 3),
+         work.ploc_finish(mat[:, :4096], 4096, 32, R, 3, ploc_round.FIN_CTAS),
+         "ploc_finish_kernel"),
+        ("scan32", lambda: scan32.scan_core(dlt_raw),
+         work.scan32(dlt_raw, scan32.scan_core_reference(dlt_raw)), "Topology"),
+        ("psv_nsv_packed", lambda: threshold_core.psv_nsv_packed(dlt),
+         work.per_row("psv_nsv_packed", m), "PsvNsv"),
+        ("child_positions", lambda: threshold_core.child_positions_auto(dlt),
+         work.per_row("child_positions", m), "ChildPositions"),
+        ("plane_scan", lambda: plane_scan.plane_scan(plane, is_min=True, reverse=False),
+         work.plane_scan(plane), "plane_scan_kernel"),
+        ("batched_build", lambda: batched_build.batched_build(meshes), work.batched(meshes),
+         "batched_build_warp"),
+        ("traverse_packed", lambda: traverse.traverse_by_name("packed", bvh, tris, rays, tr),
+         None, "PackedNodes"),
+    ]
+    for name, fn, want, kernel in cases:
+        got = introspect.cost_analysis(fn)
+        row = got["ops"][name]
+        assert row["hand_kernel"] and row["calls"] == 1, name
+        if want is not None:
+            assert (row["bytes accessed"], row["flops"]) == want[:2], name
+        assert row["optimal_seconds"] == introspect.optimal_seconds(row["bytes accessed"],
+                                                                    row["flops"])
+        assert got["flops"] >= row["flops"] and got["bytes accessed"] >= row["bytes accessed"]
+        names = [r["name"] for r in introspect.kernel_report(fn)]
+        assert names and all(kernel in nm for nm in names), (name, names)
+    # the traversal's rows from the same launch as the count, marked because
+    # a cost_analysis is counting
+    try:
+        traverse.count_rows = True
+        traverse.traverse_by_name("packed", bvh, tris, rays, tr)
+        rows, stats = traverse.last_rows.cpu().tolist(), traverse.last_stats.cpu().tolist()
+    finally:
+        traverse.count_rows = False
+    row = introspect.cost_analysis(
+        lambda: traverse.traverse_by_name("packed", bvh, tris, rays, tr))["ops"]["traverse_packed"]
+    assert (row["bytes accessed"], row["flops"]) == work.traverse(stats, rows, "packed",
+                                                                  rays.origin.shape[0])[:2]
 
 
 def _caterpillar(cuda):

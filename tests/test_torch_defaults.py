@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from tpu_bvh_torch.models import batched
+from tpu_bvh_torch.ops import aabb
 from tpu_bvh_torch.types import Rays
 from tpu_bvh_torch.utils import convert, scenes
 
@@ -26,8 +27,12 @@ def _pad_meshes(**kw):
     return list(batched.pad_meshes([np.zeros((2, 3, 3), np.float32)], **kw))
 
 
-@pytest.mark.parametrize("entry", [_preset, _to_torch, _pad_meshes],
-                         ids=["preset", "to_torch", "pad_meshes"])
+def _empty_aabb(**kw):
+    return list(aabb.empty_aabb((2,), **kw))
+
+
+@pytest.mark.parametrize("entry", [_preset, _to_torch, _pad_meshes, _empty_aabb],
+                         ids=["preset", "to_torch", "pad_meshes", "empty_aabb"])
 def test_entry_point_defaults_to_the_gpu(entry):
     if torch.cuda.is_available():
         assert all(t.device.type == "cuda" for t in entry())

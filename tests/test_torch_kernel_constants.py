@@ -7,8 +7,8 @@ import re
 import pytest
 
 from tpu_bvh_torch.ops import (batched_block, batched_build, collapse_block, plane_scan,
-                               ploc_round, raster_gpu, ray_sweep, refit_dense, threshold_core,
-                               traverse)
+                               ploc_nn, ploc_round, raster_gpu, ray_sweep, refit_dense,
+                               threshold_core, traverse)
 from tpu_bvh_torch.utils import kernels
 
 
@@ -24,6 +24,9 @@ def _constexpr(source: str, name: str) -> int:
     ("ploc_finish.cu", "kOneCtaAt", lambda: ploc_round.FIN_ONE_CTA),
     ("ploc_finish.cu", "kMaxCap", lambda: ploc_round.FIN_CAP),
     ("ploc_round.cu", "kTile", lambda: ploc_round._EMIT_TILE),
+    ("ploc_nn.cu", "kThreads", lambda: ploc_nn.THREADS),
+    ("ploc_nn.cu", "kLanes", lambda: ploc_nn.LANES),
+    ("ploc_common.cuh", "kMaxR", lambda: ploc_nn.MAX_RADIUS),
     ("ploc_round_fused.cu", "kThreads", lambda: ploc_round._EMIT_BLOCK),
     ("raster.cu", "kChunk", lambda: raster_gpu.CHUNK),
     ("ray_sweep.cu", "kChunk", lambda: ray_sweep.CHUNK),
@@ -61,3 +64,14 @@ def test_finisher_width_is_its_slices():
 def test_traversal_block_is_whole_warps():
     """The traversal sums its counters over whole warps, then the block."""
     assert traverse.BLOCK % 32 == 0 and traverse.SMALL_BLOCK % 32 == 0 and traverse.FETCH >= 1
+
+
+def test_ploc_nn_tile_is_its_columns_less_three_halos():
+    """B10's block holds COLS = THREADS x LANES table columns and writes
+    TILE = COLS - 3 kMaxR lanes, as the source derives kCols and kTile."""
+    with open(os.path.join(kernels.CSRC, "ploc_nn.cu")) as f:
+        src = f.read()
+    assert "constexpr int kCols = kThreads * kLanes;" in src
+    assert "constexpr int kTile = kCols - 3 * ploc::kMaxR;" in src
+    assert ploc_nn.COLS == ploc_nn.THREADS * ploc_nn.LANES
+    assert ploc_nn.TILE == ploc_nn.COLS - 3 * ploc_nn.MAX_RADIUS

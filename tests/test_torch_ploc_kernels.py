@@ -5,7 +5,9 @@ B10 (`ploc_nn_round_raw`), B9 (`ploc_emit_compact`), B8/B6 (one round,
 Pallas kernels in interpret mode on the CPU; the port's CPU tensors take
 the plain versions, which the CUDA kernels equal bit for bit on the card
 (tests/test_torch_cuda.py). Every output is compared in full: raw rows at
-every lane, the whole new state, every column of the node buffer.
+every lane, the whole new state, every column of the node buffer. The
+one-launch schedules of B10 and B9 are emulated in numpy at the kernels'
+indexing and held against the same references.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -97,6 +99,155 @@ def test_nn_unpacked():
     got = ploc_nn.ploc_nn_round(torch.from_numpy(mat), 250, R, shift_bits=0)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# B10's one launch (csrc/ploc_nn.cu), emulated in numpy at the kernel's
+# indexing: blocks of `threads` x `lanes` table columns over the lanes
+# [lo - 2R, lo + tile + R), tile = columns - 3R output lanes; the tile of
+# boxes zero outside [0, S), its codes zero at shift 32; each thread's
+# forward pair areas (the union's min NaN-propagating, its zero signs as
+# numpy's, not jnp.minimum's) kept for its own search and written to the
+# area table, whose earlier columns its backward search reads through the
+# two float4 words before its own; best_rel packed with the forward offset
+# and has_nn; the mutual check and the rows lane by lane.
+
+KR = ploc_nn.MAX_RADIUS
+
+
+def _nn_by_schedule(mat, nc, shift, radius, threads=ploc_nn.THREADS, lanes=ploc_nn.LANES):
+    S = mat.shape[1]
+    cols_n = threads * lanes
+    tile = cols_n - 3 * KR
+    box_w = cols_n + KR
+    out = np.full((8, S), -7, np.int32)
+    writes = np.zeros(S, np.int64)
+    best_rel = np.zeros(S, np.int64)
+    for b in range(-(-S // tile)):
+        lo = b * tile
+        t0 = lo - 2 * KR
+        lane = t0 + np.arange(box_w)
+        inside = (lane >= 0) & (lane < S)
+        src = np.clip(lane, 0, S - 1)
+        box = np.where(inside, mat[0:6, src], 0).astype(np.int32).view(np.float32)
+        code = np.where(inside & (shift < 32), mat[6, src], 0)
+        node = np.where(inside, mat[7, src], 0)
+        seg = code >> shift if shift < 32 else np.zeros_like(code)
+        area = np.empty((KR, cols_n), np.float32)
+        own = {}
+        with np.errstate(invalid="ignore", over="ignore"):
+            for t in range(threads):
+                c0 = lanes * t
+                a = np.full((lanes, KR), 3.0e38, np.float32)
+                for j in range(lanes):
+                    c, l = c0 + j, t0 + c0 + j
+                    for d in range(1, min(radius, KR) + 1):
+                        if 0 <= l < nc and l + d < nc and seg[c + d] == seg[c]:
+                            u = np.minimum(box[:, c], box[:, c + d])
+                            ex, ey, ez = -u[3] - u[0], -u[4] - u[1], -u[5] - u[2]
+                            a[j, d - 1] = np.float32(2) * ((ex * ey + ex * ez) + ey * ez)
+                own[t] = a
+                area[:, c0:c0 + lanes] = a.T
+        info = np.zeros(cols_n, np.int64)
+        for t in range(KR // lanes, threads):  # the first kMaxR columns' are not needed
+            c0, a = lanes * t, own[t]
+            best = np.full(lanes, 3.0e38, np.float32)
+            rel = np.zeros(lanes, np.int64)
+            for d in range(1, radius + 1):
+                for j in range(lanes):
+                    if a[j, d - 1] < best[j]:
+                        best[j], rel[j] = a[j, d - 1], d
+            fwd = rel.copy()
+            for d in range(1, radius + 1):
+                back = area[d - 1, c0 - 2 * lanes:c0]  # the words at c0 - 8 and c0 - 4
+                for j in range(lanes):
+                    q = j - d
+                    v = a[q, d - 1] if q >= 0 else back[q + 2 * lanes]
+                    if v < best[j] or (v == best[j] and -d < rel[j]):
+                        best[j], rel[j] = v, -d
+            info[c0:c0 + lanes] = (rel & 0xFF) | (fwd << 8) | ((best < 3.0e38) << 16)
+        for i in range(tile):
+            l = lo + i
+            if l >= S:
+                break
+            c = i + 2 * KR
+            br = (info[c] & 0xFF) - 256 * ((info[c] & 0xFF) > 127)
+            f = (info[c] >> 8) & 0xFF
+            partner = (info[c + br] & 0xFF) - 256 * ((info[c + br] & 0xFF) > 127)
+            live = (info[c] >> 16) != 0 and l < nc
+            flag = (br > 0) + 2 * (br < 0) if (br != 0 and partner == -br and live) else 0
+            p = box[:, c + f] if f > 0 else np.zeros(6, np.float32)
+            out[0:6, l] = ploc_nn.fmin(torch.from_numpy(box[:, c].copy()),
+                                       torch.from_numpy(p.copy())).view(torch.int32).numpy()
+            out[6, l] = node[c + f] if f > 0 else 0
+            out[7, l] = flag
+            writes[l] += 1
+            best_rel[l] = br
+    return out, writes, best_rel
+
+
+_NN_JAX = {}
+
+
+@pytest.mark.parametrize("threads", [ploc_nn.THREADS, 16])
+@pytest.mark.parametrize("size,nc,shift,radius,segs", [
+    (2 * ploc_nn.TILE + 77, 2 * ploc_nn.TILE + 77, 32, 8, None),
+    (2 * ploc_nn.TILE + 77, ploc_nn.TILE + 3, 9, 3, "morton"),
+    (ploc_nn.TILE + 1, ploc_nn.TILE - 2, 0, 1, 40),
+    (3 * 40 + 5, 3 * 40, 0, 8, 9),
+    (300, 211, 9, 3, "morton"),
+])
+def test_nn_schedule_matches_pallas(threads, size, nc, shift, radius, segs):
+    """B10's one launch by its schedule, at the kernel's 256 threads
+    (1000-lane tiles) and at 16 (40-lane tiles, many tile edges): widths
+    that are no multiple of a tile, nc < S, radius 1, 3 and 8, shifts 0,
+    9 and 32 with segments; every lane written once and every row equal to
+    JAX's `ploc_nn_round_raw` (interpret) and the plain version bit for
+    bit, with mutual pairs and segment starts across tile edges."""
+    rng = np.random.default_rng(size + nc + radius)
+    if segs == "morton":
+        mat = make_state(rng, size, codes=morton_like(rng, size))
+    else:
+        mat = make_state(rng, size, n_segs=segs or 1)
+    tile = threads * ploc_nn.LANES - 3 * KR
+    edges = np.arange(tile, nc, tile)
+    # the two lanes at each tile edge below nc hold one point: their union
+    # has area 0, so they pair across the edge where one segment holds both
+    mat[0:6, edges - 1] = mat[0:6, edges] = np.float32(0.25).view(np.int32)
+    mat[3:6, edges - 1] = mat[3:6, edges] = np.float32(-0.25).view(np.int32)
+    key = (size, nc, shift, radius, segs, threads)
+    if key not in _NN_JAX:
+        _NN_JAX[key] = np.asarray(jploc_nn.ploc_nn_round_raw(jnp.asarray(mat), nc, shift, radius,
+                                                             interpret=True))
+    want = _NN_JAX[key]
+    got, writes, best_rel = _nn_by_schedule(mat, nc, shift, radius, threads=threads)
+    assert bool((writes == 1).all())
+    np.testing.assert_array_equal(got, want)
+    plain = ploc_nn.ploc_nn_round_raw_reference(torch.from_numpy(mat), nc, shift, radius)
+    np.testing.assert_array_equal(got, plain.numpy())
+    lanes = np.arange(size)
+    seg_ids = mat[6] >> shift if shift < 32 else np.zeros(size, np.int64)
+    if bool((seg_ids[edges - 1] == seg_ids[edges]).any()):  # a segment across a tile edge
+        merge = want[7] == 1
+        assert bool((merge & (lanes // tile != (lanes + best_rel) // tile)).any())
+
+
+def test_nn_schedule_with_nan_and_signed_zeros():
+    """The schedule's areas with a NaN-propagating min that keeps numpy's
+    zero signs, on boxes with NaN and +-0 faces and many equal areas: flags,
+    best offsets and rows equal JAX's and the plain version's."""
+    rng = np.random.default_rng(3)
+    size, nc = 2 * ploc_nn.TILE + 13, 2 * ploc_nn.TILE
+    mat = make_state(rng, size, codes=morton_like(rng, size), signed_zeros=True)
+    cols = mat[0:6].view(np.float32)
+    cols[rng.random(cols.shape) < 1 / 40] = np.nan
+    want = np.asarray(jploc_nn.ploc_nn_round_raw(jnp.asarray(mat), nc, 24, R, interpret=True))
+    got, writes, _ = _nn_by_schedule(mat, nc, 24, R)
+    assert bool((writes == 1).all())
+    np.testing.assert_array_equal(got, want)
+    plain = ploc_nn.ploc_nn_round_raw_reference(torch.from_numpy(mat), nc, 24, R)
+    np.testing.assert_array_equal(got, plain.numpy())
+    assert (want[7] == 1).sum() == (want[7] == 2).sum() > 0
+    assert np.isnan(got[0:6].view(np.float32)).any()
 
 
 # ------------------------------------------------------------------ B9

@@ -329,14 +329,14 @@ ptxas info    : Used 56 registers, 400 bytes cmem[0]
 
 
 def test_kernel_report_parses_ptxas():
-    got = introspect.kernel_report(PTXAS)
+    got = introspect.kernel_report(report=PTXAS)
     assert got == [
         {"name": "_Z11scan_kernelPKii", "stack_frame_bytes": 0, "spill_store_bytes": 0,
          "spill_load_bytes": 0, "registers": 40, "smem_bytes": 4096},
         {"name": "_Z8traverseILi2EEvPf", "stack_frame_bytes": 192, "spill_store_bytes": 8,
          "spill_load_bytes": 12, "registers": 56, "smem_bytes": 0},
     ]
-    assert introspect.kernel_report("") == []
+    assert introspect.kernel_report(report="") == []
 
 
 def test_memory_analysis_and_profiler_trace_on_the_cpu(tmp_path):

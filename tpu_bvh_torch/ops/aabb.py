@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from ..types import FLT_MAX
+
 I32 = torch.int32
 F32 = torch.float32
 
@@ -81,8 +83,42 @@ def triangle_aabbs(tris):
     return packed[..., :3], -packed[..., 3:]
 
 
+def empty_aabb(shape=(), device="cuda"):
+    """An inverted box, the identity of `union`: min +FLT_MAX and max
+    -FLT_MAX, f32[*shape, 3] each, on `device` (the GPU unless the caller
+    names another)."""
+    mn = torch.full((*shape, 3), FLT_MAX, dtype=F32, device=device)
+    return mn, torch.full((*shape, 3), -FLT_MAX, dtype=F32, device=device)
+
+
+def union(amin, amax, bmin, bmax):
+    """The box holding both boxes, with `jnp.minimum` / `jnp.maximum`'s
+    signed zeros and NaNs (`fmin`, `fmax`)."""
+    return fmin(amin, bmin), fmax(amax, bmax)
+
+
 def center(amin, amax):
     return (amin + amax) * 0.5
+
+
+def extent(amin, amax):
+    return amax - amin
+
+
+def max_extent_dim(amin, amax):
+    """The widest axis as int32: 0 if x is strictly wider than y and z,
+    else 1 if y is strictly wider than z, else 2."""
+    d = amax - amin
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    return torch.where((x > y) & (x > z), 0, torch.where(y > z, 1, 2)).to(I32)
+
+
+def offset(amin, amax, p):
+    """The position of p in the box, 0 to 1 along each axis; an axis of no
+    extent passes the raw offset p - amin through."""
+    o = p - amin
+    e = amax - amin
+    return torch.where(e > 0, o / torch.where(e > 0, e, 1.0), o)
 
 
 def area(amin, amax):
@@ -97,6 +133,15 @@ def qt_rotate(q, p):
     qw = q[..., 3:4]
     t = 2.0 * _cross(qv.expand_as(p), p)
     return p + qw * t + _cross(qv.expand_as(t), t)
+
+
+def qt_rotation(axis_angle):
+    """Axis-angle (x, y, z, angle) -> quaternion (x, y, z, w): the unit axis
+    times sin(angle / 2), then cos(angle / 2)."""
+    axis = axis_angle[..., :3]
+    axis = axis / torch.sqrt(_dot(axis, axis))[..., None]
+    half = axis_angle[..., 3:] / 2.0
+    return torch.cat([axis * torch.sin(half), torch.cos(half)], dim=-1)
 
 
 def transform_point(p, scale, quat, translation):

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import kernels
+from ..utils import introspect, kernels, work
 from ..utils.platform import on_cuda
 from . import batched_build, morton, radix_tree, refit, scan32, threshold_core
 from .aabb import fmax, fmin, from_min_key, min_key
@@ -180,6 +180,7 @@ def _launch(tris_b, clk=None):
         0 if clk is None else clk.data_ptr(), kernels.stream_of(tris_b))
     kernels.check("tbvh_batched_block", err)
     launches += 1
+    introspect.record("batched_block", lambda: work.batched(tris_b), "batched_block")
     return out
 
 

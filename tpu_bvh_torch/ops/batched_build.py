@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import kernels
+from ..utils import introspect, kernels, work
 from ..utils.platform import on_cuda
 from . import morton, radix_tree, scan32
 from .aabb import fmax, fmin, from_min_key, min_key
@@ -130,6 +130,7 @@ def _launch(tris_b, clk=None):
         root.data_ptr(), 0 if clk is None else clk.data_ptr(), kernels.stream_of(tris_b))
     kernels.check("tbvh_batched_build", err)
     launches += 1
+    introspect.record("batched_build", lambda: work.batched(tris_b), "batched_build_warp")
     return packed_t, left, right, root
 
 

@@ -40,7 +40,7 @@ import threading
 
 import torch
 
-from ..utils import kernels
+from ..utils import introspect, kernels, work
 from ..utils.platform import on_cuda
 
 I32 = torch.int32
@@ -247,6 +247,8 @@ def _collapse_block_cuda(meta, node8, leaf8, carr, m: int):
     )
     kernels.check("tbvh_collapse_block", code)
     launches += 1
+    introspect.record("collapse_block", lambda: work.collapse_block(meta, carr, outm, outa, m),
+                      "collapse_block_kernel")
     flag = int(err)  # one host sync
     if flag:
         err.zero_()

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import kernels
+from ..utils import introspect, kernels, work
 from ..utils.platform import on_cuda
 
 TILE_ROWS = 128  # rows per tile of csrc/plane_scan.cu (kRows)
@@ -68,4 +68,5 @@ def _plane_scan_cuda(x, is_min: bool, reverse: bool):
                                         _epoch, stream)
     kernels.check("tbvh_plane_scan", err)
     launches += 1
+    introspect.record("plane_scan", lambda: work.plane_scan(x), "plane_scan_kernel")
     return out

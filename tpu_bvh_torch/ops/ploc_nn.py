@@ -27,13 +27,18 @@ from __future__ import annotations
 import torch
 
 from ..types import PLOC_RADIUS
-from ..utils import kernels
+from ..utils import introspect, kernels, work
 from ..utils.platform import on_cuda
 from .aabb import fmin
 
 I32 = torch.int32
 BIG = 3.0e38  # "no candidate" area
 MAX_RADIUS = PLOC_RADIUS  # the kernel's halo is 2 * MAX_RADIUS lanes (kMaxR in the .cuh)
+LANES = 4  # adjacent table columns a thread owns (kLanes in csrc/ploc_nn.cu)
+THREADS = 256  # threads a block (kThreads)
+COLS = THREADS * LANES  # table columns a block (kCols): its lanes and 3 * MAX_RADIUS more
+TILE = COLS - 3 * MAX_RADIUS  # output lanes a block (kTile)
+PHASES = ("load", "areas", "best_rel", "mutual_writes")  # the kernel's clock64 stamps
 launches = 0  # kernel launches of the NN stage since the last reset
 
 
@@ -129,9 +134,25 @@ def ploc_nn_round_raw_reference(mat, n_clusters: int, shift_bits: int, radius: i
     return torch.cat([ucols, p_node[None], flags[None]])
 
 
-def launch(mat, nc: int, shift_bits: int, radius: int, out, s: int):
+def phase_cycles(mat, n_clusters: int, shift_bits: int, radius: int) -> dict:
+    """One launch on the CUDA tensor `mat` with its phase clocks on: per
+    phase of `PHASES` (`csrc/ploc_nn.cu`) the median and the largest of
+    the blocks' SM clock cycles, and the median of their totals. The
+    output equals the launch's without clocks."""
+    s = mat.shape[1]
+    clk = torch.zeros((-(-s // TILE), len(PHASES) + 1), dtype=torch.int64, device=mat.device)
+    launch(mat, int(n_clusters), int(shift_bits), radius, torch.empty_like(mat), s, clk)
+    d = torch.diff(clk.cpu(), dim=1)
+    out = {name: (d[:, k].median().item(), d[:, k].max().item())
+           for k, name in enumerate(PHASES)}
+    out["total"] = d.sum(1).median().item()
+    return out
+
+
+def launch(mat, nc: int, shift_bits: int, radius: int, out, s: int, clk=None):
     """Launch the kernel on lanes [0, s) of `mat` (i32[8, C], s <= C, live
-    clusters nc <= s), writing lanes [0, s) of `out` (i32[8, C'])."""
+    clusters nc <= s), writing lanes [0, s) of `out` (i32[8, C']); `clk`
+    i64[ceil(s / TILE), 5] takes each block's phase clocks."""
     global launches
     _check(radius)
     kernels.require(mat, "mat", I32)
@@ -140,9 +161,13 @@ def launch(mat, nc: int, shift_bits: int, radius: int, out, s: int):
         raise ValueError("ploc_nn: mat and out must be i32[8, *]")
     if not 0 <= nc <= s <= min(mat.shape[1], out.shape[1]) or s < 1:
         raise ValueError(f"ploc_nn needs 0 <= nc <= s <= width, s >= 1; got nc={nc}, s={s}")
+    if clk is not None:
+        kernels.require(clk, "clk", torch.int64, (-(-s // TILE), len(PHASES) + 1))
     err = kernels.lib().tbvh_ploc_nn(
         mat.data_ptr(), mat.shape[1], s, nc, shift_bits, radius,
-        out.data_ptr(), out.shape[1], kernels.stream_of(mat),
+        out.data_ptr(), out.shape[1], 0 if clk is None else clk.data_ptr(),
+        kernels.stream_of(mat),
     )
     kernels.check("tbvh_ploc_nn", err)
     launches += 1
+    introspect.record("ploc_nn", lambda: work.ploc_nn(nc, radius, shift_bits), "ploc_nn_kernel")

@@ -42,7 +42,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils import kernels
+from ..utils import introspect, kernels
+from ..utils import work as counts
 from ..utils.platform import on_cuda
 from . import ploc_nn
 
@@ -158,6 +159,8 @@ def _emit_compact_cuda(mat, nn, nodes, nc: int, base: int):
     )
     kernels.check("tbvh_ploc_emit_compact", err)
     emit_launches += 1
+    introspect.record("ploc_emit_compact", lambda: counts.ploc_emit_compact(
+        nc, int((nn[7, :nc] == 1).sum()), int((nn[7, :nc] == 2).sum()), S), "emit_kernel")
     return buf[:8 * S].view(8, S), nodes, buf[8 * S]
 
 
@@ -169,9 +172,12 @@ def ploc_round_fused(mat, nodes, n_clusters: int, shift_bits: int, base: int, ra
     global fused_rounds
     if on_cuda(mat):
         out = torch.zeros_like(mat)
+        work = round_work(int(n_clusters), mat.device)
         nm = _round_cuda(mat, out, nodes, int(n_clusters), int(shift_bits), int(base), radius,
-                         round_work(int(n_clusters), mat.device))
+                         work)
         fused_rounds += 1
+        _record_round("ploc_round_fused", counts.ploc_round_fused, work, n_clusters, shift_bits,
+                      radius)
         return out, nodes, nm
     return ploc_round_reference(mat, nodes, n_clusters, shift_bits, base, radius)
 
@@ -199,6 +205,7 @@ def ploc_round_pp(matA, matB, nodes, n_clusters: int, shift_bits: int, base: int
             work = round_work(matA.shape[1], matA.device)
         nm = _round_cuda(matA, matB, nodes, int(n_clusters), int(shift_bits), int(base), radius,
                          work)
+        _record_round("ploc_round", counts.ploc_round, work, n_clusters, shift_bits, radius)
         return matB, nodes, nm
     return ploc_round_pp_reference(matA, matB, nodes, n_clusters, shift_bits, base, radius)
 
@@ -207,6 +214,16 @@ def ploc_round_pp_reference(matA, matB, nodes, n_clusters: int, shift_bits: int,
                             radius: int, work=None):
     """Plain version of `ploc_round_pp` (any device; `work` is not used)."""
     return ploc_round_reference(matA, nodes, n_clusters, shift_bits, base, radius, out=matB)
+
+
+def _record_round(name, count, work: RoundWork, nc, shift_bits, radius):
+    """Report a round to `introspect.record`: its counts from the
+    (n_merged, n_keep) the kernel left in work.ctl."""
+    def round_counts():
+        nm, n_keep = work.ctl[1:3].tolist()
+        return count(int(nc), nm, int(nc) - n_keep, radius, int(shift_bits))
+
+    introspect.record(name, round_counts, "ploc_round_kernel")
 
 
 def _round_cuda(mat, out, nodes, nc: int, shift_bits: int, base: int, radius: int,
@@ -306,4 +323,6 @@ def _finish_cuda(mat, nodes, nc: int, shift_bits: int, base: int, radius: int, s
     if int(err) != 0:  # one host sync
         raise RuntimeError(f"ploc_finish: clusters left after {nc + 16} rounds "
                            "(non-finite boxes?)")
+    introspect.record("ploc_finish", lambda: counts.ploc_finish(mat, nc, shift_bits, radius, step,
+                                                                FIN_CTAS), "ploc_finish_kernel")
     return nodes

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..types import FLT_MAX, HitInfo, Rays
-from ..utils import kernels
+from ..utils import introspect, kernels, work
 from ..utils.platform import on_cuda
 from . import raster as R
 from .aabb import transform_point
@@ -256,6 +256,9 @@ def _raster_sweep_cuda(dirs_ct, slabs, p_tid, p_tlb, p_bits, t_start, t_end):
     kernels.check("tbvh_raster_sweep", err)
     launches += 1
     last_stats = stats
+    introspect.record("raster_sweep", lambda: work.sweep(
+        "raster_sweep", (dirs_ct, slabs, p_tid, p_tlb, p_bits, t_start, t_end), out),
+        "rt_init", "rt_sweep", "rt_finish")
     return tuple(out)
 
 

@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from ..types import FLT_MAX, HitInfo, Rays
-from ..utils import kernels
+from ..utils import introspect, kernels, work
 from ..utils.platform import on_cuda
 from . import raster as R
 from .aabb import _cross, transform_point
@@ -218,6 +218,9 @@ def _ray_sweep_cuda(feats, slabs, p_tid, p_tlb, p_bits, t_start, t_end, occlusio
     kernels.check("tbvh_ray_sweep", err)
     launches += 1
     last_stats = stats
+    introspect.record("ray_sweep", lambda: work.sweep(
+        "ray_sweep", (feats, slabs, p_tid, p_tlb, p_bits, t_start, t_end), out),
+        "rs_init", "rs_sweep", "rs_finish")
     return tuple(out)
 
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import kernels
+from ..utils import introspect, kernels, work
 from ..utils.platform import on_cuda
 from .aabb import fmin
 
@@ -121,4 +121,7 @@ def _launch(cols, first, last, m_fl: int, n: int, radius: int):
     )
     kernels.check("tbvh_refit_dense", err)
     launches += 1
+    introspect.record("refit_dense", lambda: work.refit_dense(cols[0:6], first, last,
+                                                               (acc, short, t4)),
+                      "refit_dense_tile")
     return acc, short, t4

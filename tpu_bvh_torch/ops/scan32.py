@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import kernels
+from ..utils import introspect, kernels, work
 from ..utils.platform import on_cuda
 from . import threshold_core
 
@@ -92,6 +92,7 @@ def _scan_core_cuda(dlt_raw):
     )
     kernels.check("tbvh_scan32", err)
     launches += 1
+    introspect.record("scan32", lambda: work.scan32(dlt_raw, outs), "scan_kernel<Topology")
     return tuple(outs)
 
 
@@ -136,4 +137,6 @@ def _scan_half_cuda(dlt32, m: int, flipped: bool):
              kernels.stream_of(dlt32))
     kernels.check("tbvh_scan32_rev" if flipped else "tbvh_scan32_fwd", err)
     half_launches += 1
+    introspect.record("scan32_halves", lambda: work.per_row("scan32_half", m),
+                      "scan_kernel<Scan32Rev" if flipped else "scan_kernel<Scan32Fwd")
     return tuple(outs)

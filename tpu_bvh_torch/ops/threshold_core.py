@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from ..utils import kernels
+from ..utils import introspect, kernels, work
 from ..utils.platform import on_cuda
 
 V = 64
@@ -158,6 +158,8 @@ def _threshold_cuda(dlt, pay, clk=None):
                                          kernels.stream_of(dlt))
         kernels.check("tbvh_psv_nsv", err)
         launches += 1
+        introspect.record("psv_nsv_packed", lambda: work.per_row("psv_nsv_packed", m),
+                          "scan_kernel<PsvNsv")
         return psv, nsv
     pp = torch.empty(m, dtype=torch.int32, device=dev)
     np_ = torch.empty(m, dtype=torch.int32, device=dev)
@@ -166,6 +168,8 @@ def _threshold_cuda(dlt, pay, clk=None):
                                              np_.data_ptr(), kernels.stream_of(dlt))
     kernels.check("tbvh_psv_nsv_payload", err)
     payload_launches += 1
+    introspect.record("psv_nsv_payload", lambda: work.per_row("psv_nsv_payload", m),
+                      "scan_kernel<PsvNsv")
     return psv, pp, nsv, np_
 
 
@@ -271,4 +275,6 @@ def _child_cuda(dlt):
                                              right.data_ptr(), kernels.stream_of(dlt))
     kernels.check("tbvh_child_positions", err)
     child_launches += 1
+    introspect.record("child_positions", lambda: work.per_row("child_positions", m),
+                      "scan_kernel<ChildPositions")
     return left, right

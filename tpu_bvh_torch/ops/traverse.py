@@ -44,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from ..types import FLT_MAX, Bvh2, HitInfo, Rays, Transformation
-from ..utils import kernels
+from ..utils import introspect, kernels, work
 from ..utils.platform import on_cuda
 from . import aabb as A
 
@@ -509,8 +509,13 @@ def _outputs(n, mm, dev):
             torch.empty(n, dtype=F32, device=dev), torch.empty(n, dtype=F32, device=dev),
             torch.empty(n, dtype=I32, device=dev))
     stats = torch.empty(STATS, dtype=I64, device=dev)
-    touched = torch.empty(mm, dtype=torch.uint8, device=dev) if count_rows else None
+    marks = count_rows or introspect.recording()  # a cost_analysis counts the rows too
+    touched = torch.empty(mm, dtype=torch.uint8, device=dev) if marks else None
     return outs, stats, touched
+
+
+def _rows_of(touched, n_internal):
+    return torch.stack([touched[:n_internal].sum(), touched[n_internal:].sum()])
 
 
 def _finish(key, name, err, outs, stats, touched, n_internal):
@@ -519,8 +524,11 @@ def _finish(key, name, err, outs, stats, touched, n_internal):
     launches[key] += 1
     last_stats = stats[:3]
     last_warp_steps = stats[3]
-    if touched is not None:
-        last_rows = torch.stack([touched[:n_internal].sum(), touched[n_internal:].sum()])
+    if count_rows:
+        last_rows = _rows_of(touched, n_internal)
+    introspect.record(f"traverse_{key}", lambda: work.traverse(
+        stats[:3].tolist(), _rows_of(touched, n_internal).tolist(), key, outs[0].shape[0]),
+        "traverse_kernel<PackedNodes" if key == "packed" else "traverse_kernel<Bvh2Nodes")
     return HitInfo(*outs[:4]), outs[4]
 
 

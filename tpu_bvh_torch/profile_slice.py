@@ -16,7 +16,9 @@ alone at the main path's shapes: B1 `scan32` (`scan_core`) on sponza's raw
 deltas, B2 `refit_dense` on sponza's `mat`
 (radius 24), B3 `collapse_block` on sponza's rows, one PLOC round (B6
 `ploc_round_pp` and B8 `ploc_round_fused` on PLOC's first-round state,
-B10 `ploc_nn_round_raw` and B9 `ploc_emit_compact` on it), B12
+B10 `ploc_nn_round_raw` at shift 32 and, as `ploc_nn_hploc`, at HPLOC's
+first shift, with its SM cycles per phase, and B9 `ploc_emit_compact` on
+it), B12
 `psv_nsv_packed` and B14
 `psv_nsv_payload_auto` on sponza's deltas, B5 `ray_sweep_kernel` on
 the shadow rays (occlusion), B4 `raster_sweep` at both render sizes and
@@ -246,6 +248,9 @@ def main():
     calls["ploc_round_fused"] = lambda: ploc_round.ploc_round_fused(mat0, nodes, n, 32, 0,
                                                                     PLOC_RADIUS)
     calls["ploc_nn"] = lambda: ploc_nn.ploc_nn_round_raw(mat0, n, 32, PLOC_RADIUS)
+    calls["ploc_nn_hploc"] = lambda: ploc_nn.ploc_nn_round_raw(mat0, n, ploc.HPLOC_SHIFT0,
+                                                               PLOC_RADIUS)
+    nn_shifts = {"ploc_nn": 32, "ploc_nn_hploc": ploc.HPLOC_SHIFT0}
     calls["ploc_emit_compact"] = lambda: ploc_round.ploc_emit_compact(mat0, nn, nodes, n, 0)
     sweep = ray_sweep.prepare_trace(packed, ray_sweep.shadow_rays(points, live, light, eps), tr,
                                     *SHADOW_CAPS)[0]
@@ -304,6 +309,10 @@ def main():
               f"{row['kernels_per_call']!r}, memsets/call {row['memsets_per_call']!r}", flush=True)
         for k, us in row["top_kernels_us_per_call"]:
             print(f"    {us:10.3f} us  {k}", flush=True)
+        if name in nn_shifts:  # B10's SM cycles per phase, from one more call
+            row["phase_cycles"] = ploc_nn.phase_cycles(mat0, n, nn_shifts[name], PLOC_RADIUS)
+            print(f"    phase clocks (SM cycles, median and most over the blocks): "
+                  f"{row['phase_cycles']}", flush=True)
     print(json.dumps({"card": smi, "calls": rows}), flush=True)
 
 

@@ -10,6 +10,7 @@ from typing import NamedTuple
 
 import torch
 
+INVALID_IDX = -1  # an absent child or node id
 FLT_MAX = 3.402823466e38
 PLOC_RADIUS = 8  # PLOC nearest-neighbour search radius in Morton order
 MAX_BATCHED_PRIMS = 32  # default mesh capacity of the batched builder (the reference's block)

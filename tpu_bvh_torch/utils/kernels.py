@@ -40,7 +40,7 @@ _SIGNATURES = {
     "tbvh_ray_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "tbvh_ploc_round": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P],
-    "tbvh_ploc_nn": [_P, _I, _I, _I, _I, _I, _P, _I, _P],
+    "tbvh_ploc_nn": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     "tbvh_ploc_emit_compact": [_P, _I, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P],
     "tbvh_ploc_finish": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P],
     "tbvh_ploc_finish_clusters": [_P],
@@ -62,7 +62,7 @@ _SIGNATURES = {
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process
-build_report = ""  # nvcc and ptxas output of that build
+build_report = ""  # nvcc and ptxas output of the library's build
 
 
 def _sources(suffixes=(".cu",)):
@@ -84,7 +84,8 @@ def build() -> str:
     """Compile `csrc/*.cu` into the shared library unless an identical
     build exists; returns its path. A build sets `build_seconds` and keeps
     the compiler's report (registers, shared memory, spills) in
-    `build_report`."""
+    `build_report` and in a file beside the library, which a process that
+    finds the library built reads."""
     global build_seconds, build_report
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -93,6 +94,9 @@ def build() -> str:
             h.update(f.read())
     path = os.path.join(BUILD_DIR, f"libtbvh_{h.hexdigest()[:16]}.so")
     if os.path.exists(path):
+        if not build_report and os.path.exists(path + ".ptxas"):
+            with open(path + ".ptxas") as f:
+                build_report = f.read()
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -118,6 +122,8 @@ def build() -> str:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
     build_report = report + res.stdout + res.stderr
+    with open(path + ".ptxas", "w") as f:  # kept beside the library for later processes
+        f.write(build_report)
     os.replace(tmp, path)
     return path
 
