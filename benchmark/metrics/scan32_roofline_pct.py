@@ -1,0 +1,7 @@
+"""B1's share of its roofline: the least time its bytes (benchmark/kernels/
+scan32.json) take at the card's peak rate over its device time a build, in
+per cent."""
+
+
+def read(ctx):
+    return ctx.roofline_pct("scan32")
