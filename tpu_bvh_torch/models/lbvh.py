@@ -4,15 +4,37 @@ layout): the port of `tpu_bvh.models.lbvh`.
 Front half (column AABBs, scene extents, extended Morton codes, the
 (code, prim_idx) sort) is plain PyTorch on either device; the topology
 scan and the dense refit run hand-written kernels on CUDA tensors.
+
+Under a running profiler each build marks its front half (`bvh.front_half`,
+with the sort and its gathers as `bvh.sort`), its topology and refit
+(`bvh.topology`, `bvh.refit`) and its output assembly (`bvh.finalize`).
+`last_build["host_syncs"]` holds the last build's device-to-host reads
+(the extent copy, the refit's long-node count and its `nonzero`), counted
+where they happen.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..ops import aabb, morton, radix_tree
 from ..types import Bvh2, PrimRefs
+from ..utils import timer
 
 I32 = torch.int32
+last_build = {"host_syncs": 0}
+
+
+def _counts_host_syncs(build):
+    """Keep the build's device-to-host reads in `last_build`."""
+    @functools.wraps(build)
+    def counted(*args, **kwargs):
+        start = timer.host_syncs
+        out = build(*args, **kwargs)
+        last_build["host_syncs"] = timer.host_syncs - start
+        return out
+    return counted
 
 
 def prim_refs_from_triangles(tris) -> PrimRefs:
@@ -41,33 +63,41 @@ def _sorted_leaves_cols(packed, prim_idx, use_extended):
     # canonical order; the code is biased by -2^31 so the int64 key keeps
     # the unsigned order of the u32 code
     key = (codes - (1 << 31)) * (1 << 32) + prim_idx.to(torch.int64)
-    skey, pos = torch.sort(key)
-    sorted_codes = (skey >> 32) + (1 << 31)
-    return sorted_codes, packed[:, pos], prim_idx[pos]
+    with timer.span("bvh.sort"):
+        skey, pos = torch.sort(key)
+        sorted_codes = (skey >> 32) + (1 << 31)
+        return sorted_codes, packed[:, pos], prim_idx[pos]
 
 
 def _sorted_leaves_packed(refs: PrimRefs, use_extended: bool):
     """The contract of `_sorted_leaves_cols`, from PrimRefs."""
-    packed = torch.cat([refs.aabb_min.T, -refs.aabb_max.T])
-    return _sorted_leaves_cols(packed, refs.prim_idx, use_extended)
+    with timer.span("bvh.front_half"):
+        return _sorted_leaves_cols(packed_rows(refs), refs.prim_idx, use_extended)
+
+
+def packed_rows(refs: PrimRefs):
+    """The references' boxes as rows f32[6, n]: min xyz, -max xyz."""
+    return torch.cat([refs.aabb_min.T, -refs.aabb_max.T])
 
 
 def _sorted_leaves_from_tris(tris, use_extended: bool):
     """Triangle-soup front end in column form; the contract of
     `_sorted_leaves_cols`."""
     n = tris.shape[0]
-    packed = aabb.packed_bounds(tris.permute(1, 2, 0), 0, 1)  # [6, n]: min xyz, -max xyz
-    idx = torch.arange(n, dtype=I32, device=tris.device)
-    return _sorted_leaves_cols(packed, idx, use_extended)
+    with timer.span("bvh.front_half"):
+        packed = aabb.packed_bounds(tris.permute(1, 2, 0), 0, 1)  # [6, n]: min xyz, -max xyz
+        idx = torch.arange(n, dtype=I32, device=tris.device)
+        return _sorted_leaves_cols(packed, idx, use_extended)
 
 
 def _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root):
     """Internal rows then leaf rows; a leaf's `left` is its primitive."""
     n = leaf_prim.shape[0]
-    node_packed = torch.cat([int_packed_t, leaf_packed_t], dim=1)
-    left = left.clone()
-    left[n - 1:] = leaf_prim
-    return Bvh2(packed_t=node_packed, left=left, right=right, root=root)
+    with timer.span("bvh.finalize"):
+        node_packed = torch.cat([int_packed_t, leaf_packed_t], dim=1)
+        left = left.clone()
+        left[n - 1:] = leaf_prim
+        return Bvh2(packed_t=node_packed, left=left, right=right, root=root)
 
 
 def _two_pass(codes, leaf_packed_t, leaf_prim) -> Bvh2:
@@ -76,12 +106,14 @@ def _two_pass(codes, leaf_packed_t, leaf_prim) -> Bvh2:
     return _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root)
 
 
+@_counts_host_syncs
 def build_two_pass(tris, use_extended: bool = True) -> Bvh2:
     """Two-pass (Karras-layout) LBVH: the single-pass scans and refit, then
     one relabel sort; the root is node 0. tris: f32[N, 3, 3]."""
     return _two_pass(*_sorted_leaves_from_tris(tris, use_extended))
 
 
+@_counts_host_syncs
 def build_two_pass_refs(refs: PrimRefs, use_extended: bool = True) -> Bvh2:
     """`build_two_pass` from PrimRefs."""
     return _two_pass(*_sorted_leaves_packed(refs, use_extended))
@@ -93,6 +125,7 @@ def build_single_pass(tris, use_extended: bool = True) -> Bvh2:
     return build_single_pass_aux(tris, use_extended)[0]
 
 
+@_counts_host_syncs
 def build_single_pass_refs(refs: PrimRefs, use_extended: bool = True) -> Bvh2:
     """`build_single_pass` from PrimRefs."""
     codes, leaf_packed_t, leaf_prim = _sorted_leaves_packed(refs, use_extended)
@@ -101,6 +134,7 @@ def build_single_pass_refs(refs: PrimRefs, use_extended: bool = True) -> Bvh2:
     return _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root)
 
 
+@_counts_host_syncs
 def build_single_pass_aux(tris, use_extended: bool = True):
     """`build_single_pass` plus parent i32[2n-1] and the per-node leaf
     ranges first/last i32[n-1]."""

@@ -1,10 +1,11 @@
 """PLOC++ and HPLOC builders (the port of `tpu_bvh.models.ploc`).
 
 Triangle soup -> PrimRefs -> extents, Morton codes and the sorted leaves
-(`lbvh._sorted_leaves_packed`) -> agglomerative clustering
-(`ops.ploc.ploc_build_topology_packed`, the PLOC kernels on CUDA tensors).
-The clustering emits the internal boxes itself, so no refit follows. The
-root is node 0.
+(`lbvh._sorted_leaves_cols` of `lbvh.packed_rows`) -> agglomerative
+clustering (`ops.ploc.ploc_build_topology_packed`, the PLOC kernels on CUDA
+tensors). The clustering emits the internal boxes itself, so no refit
+follows. The root is node 0. Under a running profiler the front half is
+the span `bvh.front_half` and the output's assembly `bvh.finalize`.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 
 from ..ops import ploc as ploc_ops
 from ..types import Bvh2
+from ..utils import timer
 from . import lbvh
 
 I32 = torch.int32
@@ -23,18 +25,21 @@ def _build(tris, use_extended: bool, hploc: bool, shift0: int = HPLOC_SHIFT0,
            shift_step: int = HPLOC_SHIFT_STEP) -> Bvh2:
     """HPLOC's segment schedule starts at prefix shift `shift0` and grows by
     `shift_step` per round; plain PLOC ignores both (one segment)."""
-    refs = lbvh.prim_refs_from_triangles(tris)
-    codes, leaf_packed_t, leaf_prim = lbvh._sorted_leaves_packed(refs, use_extended)
+    with timer.span("bvh.front_half"):
+        refs = lbvh.prim_refs_from_triangles(tris)
+        codes, leaf_packed_t, leaf_prim = lbvh._sorted_leaves_cols(
+            lbvh.packed_rows(refs), refs.prim_idx, use_extended)
     n = leaf_prim.shape[0]
     left, right, int_packed_t = ploc_ops.ploc_build_topology_packed(
         leaf_packed_t, codes, hploc=hploc, shift0=shift0, shift_step=shift_step)
     dev = leaf_prim.device
-    return Bvh2(
-        packed_t=torch.cat([int_packed_t, leaf_packed_t], dim=1),
-        left=torch.cat([left, leaf_prim]),
-        right=torch.cat([right, torch.full((n,), -1, dtype=I32, device=dev)]),
-        root=torch.zeros((), dtype=I32, device=dev),
-    )
+    with timer.span("bvh.finalize"):
+        return Bvh2(
+            packed_t=torch.cat([int_packed_t, leaf_packed_t], dim=1),
+            left=torch.cat([left, leaf_prim]),
+            right=torch.cat([right, torch.full((n,), -1, dtype=I32, device=dev)]),
+            root=torch.zeros((), dtype=I32, device=dev),
+        )
 
 
 def build_ploc(tris, use_extended: bool = True) -> Bvh2:

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import timer
+
 M32 = 0xFFFFFFFF
 
 
@@ -114,6 +116,7 @@ def extended_morton30_cols(px, py, pz, scene_extent):
     extent ratio) before the 2D/3D interleave. Returns int64 of u32 values."""
     nmb = 30
     ext = scene_extent.detach().to("cpu", torch.float32)  # the one host sync
+    timer.count_host_sync()
     start_axis, pre = _axis_order(ext)
     swap = pre[2] - (pre[0] + pre[1])
 

@@ -16,6 +16,14 @@ tail is B7; on the CPU, and in `ploc_build_topology_packed_reference` on
 any device, both are their plain versions. The rounds do not depend on
 where the hand-over falls, so every path builds the same tree.
 
+`last_build` keeps the last build's round loop: its rounds, the finisher
+call, the host syncs of the kernel path, and per round the live clusters
+at its start (`clusters`) and the merges its readback returned
+(`merged`), so round k + 1 starts with clusters[k] - merged[k]. Under a
+running profiler the state's set-up is the span `bvh.ploc_init`, each
+round `bvh.ploc_round`, the finisher `bvh.ploc_finish` and the flip
+`bvh.finalize`.
+
 Node ids are allocated bottom-up (a round's merges take the next ids in
 cluster order) and flipped once at the end to the reference's root-at-0
 numbering: column c -> n_int-1-c, internal child v -> n_int-1-v, leaves
@@ -26,13 +34,15 @@ from __future__ import annotations
 import torch
 
 from ..types import PLOC_RADIUS
+from ..utils import timer
 from ..utils.platform import on_cuda
 from . import ploc_round
 
 I32 = torch.int32
 # the last build's round-loop counts: rounds before the finisher, finisher
-# calls, host syncs (kernel path only)
-last_build = {"rounds": 0, "finish": 0, "host_syncs": 0}
+# calls, host syncs (kernel path only), and each round's live clusters and
+# merges
+last_build = {"rounds": 0, "finish": 0, "host_syncs": 0, "clusters": [], "merged": []}
 
 
 def ploc_build_topology(leaf_min, leaf_max, codes, hploc: bool = False,
@@ -80,32 +90,39 @@ def _agglomerate(leaf_packed_t, codes, hploc, radius, shift0, shift_step, use_ke
     n = leaf_packed_t.shape[1]
     n_int = n - 1
     dev = leaf_packed_t.device
-    mat = initial_state(leaf_packed_t, codes)
-    nodes = torch.zeros((8, max(n_int, 0)), dtype=I32, device=dev)
-    if use_kernels:
-        round_fn, finish_fn = ploc_round.ploc_round_pp, ploc_round.ploc_finish
-        work = ploc_round.round_work(n, dev)
-    else:
-        round_fn, finish_fn = ploc_round.ploc_round_pp_reference, ploc_round.ploc_finish_reference
-        work = None
-    spare = torch.empty_like(mat)
+    with timer.span("bvh.ploc_init"):
+        mat = initial_state(leaf_packed_t, codes)
+        nodes = torch.zeros((8, max(n_int, 0)), dtype=I32, device=dev)
+        if use_kernels:
+            round_fn, finish_fn = ploc_round.ploc_round_pp, ploc_round.ploc_finish
+            work = ploc_round.round_work(n, dev)
+        else:
+            round_fn = ploc_round.ploc_round_pp_reference
+            finish_fn = ploc_round.ploc_finish_reference
+            work = None
+        spare = torch.empty_like(mat)
     nc, shift = n, (shift0 if hploc else 32)
-    rounds = 0
+    clusters, merged = [], []
     while nc > ploc_round.FIN_WIDTH:
-        if rounds >= n + 16:  # only non-finite boxes stall every round
-            raise RuntimeError(f"PLOC: {nc} clusters left after {rounds} rounds")
-        _, _, nm = round_fn(mat, spare, nodes, nc, shift, n - nc, radius, work)
-        nc -= int(nm)  # the loop test: one host sync per round
-        mat, spare = spare, mat
-        shift = min(shift + shift_step, 32)
-        rounds += 1
-    finish_fn(mat, nodes, nc, shift, n - nc, radius, shift_step)
-    finished = int(nc > 1)
+        if len(clusters) >= n + 16:  # only non-finite boxes stall every round
+            raise RuntimeError(f"PLOC: {nc} clusters left after {len(clusters)} rounds")
+        with timer.span("bvh.ploc_round"):
+            _, _, nm = round_fn(mat, spare, nodes, nc, shift, n - nc, radius, work)
+            clusters.append(nc)
+            merged.append(int(nm))  # the loop test: one host sync per round
+            nc -= merged[-1]
+            mat, spare = spare, mat
+            shift = min(shift + shift_step, 32)
+    with timer.span("bvh.ploc_finish"):
+        finish_fn(mat, nodes, nc, shift, n - nc, radius, shift_step)
+    rounds, finished = len(clusters), int(nc > 1)
     # the kernel path syncs once per round and once for the finisher's
     # error flag; the plain finisher also syncs once per round
     last_build.update(rounds=rounds, finish=finished,
-                      host_syncs=rounds + finished if use_kernels else None)
+                      host_syncs=rounds + finished if use_kernels else None,
+                      clusters=clusters, merged=merged)
 
-    nodes = nodes.flip(1)
-    remap = lambda v: torch.where(v < n_int, n_int - 1 - v, v)
-    return remap(nodes[0]), remap(nodes[1]), nodes[2:8].contiguous().view(torch.float32)
+    with timer.span("bvh.finalize"):
+        nodes = nodes.flip(1)
+        remap = lambda v: torch.where(v < n_int, n_int - 1 - v, v)
+        return remap(nodes[0]), remap(nodes[1]), nodes[2:8].contiguous().view(torch.float32)

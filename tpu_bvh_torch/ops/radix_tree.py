@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from ..utils import timer
 from . import refit as _refit
 from . import threshold_core
 from .scan32 import remap_deltas, scan_core
@@ -75,6 +76,11 @@ def karras_build_packed(codes, leaf_packed_t):
     or leaf i + 1. Node i moves to Karras slot pi = (right child ? first :
     last), the root to 0; pi is unique, so any sort on it gives the same
     order. Returns (left, right, int_packed_t f32[6, m]); root is node 0."""
+    with timer.span("bvh.topology"):
+        return _karras_build_packed(codes, leaf_packed_t)
+
+
+def _karras_build_packed(codes, leaf_packed_t):
     n = codes.shape[0]
     m = n - 1
     dev = codes.device
@@ -119,6 +125,11 @@ def apetrei_build(codes, leaf_min, leaf_max):
 
 def apetrei_build_packed_full(codes, leaf_packed_t):
     """`apetrei_build_packed` plus the per-node leaf ranges (first, last)."""
+    with timer.span("bvh.topology"):
+        return _apetrei_build_packed_full(codes, leaf_packed_t)
+
+
+def _apetrei_build_packed_full(codes, leaf_packed_t):
     n = codes.shape[0]
     m = n - 1
     dev = codes.device

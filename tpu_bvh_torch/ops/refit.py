@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from ..utils import timer
 from .aabb import from_min_key, min_key
 from .refit_dense import BIG, refit_dense_cols
 
@@ -65,6 +66,11 @@ def refit_anchored(leaf_min, leaf_max, first, last, radius: int = 16):
 def refit_anchored_packed(packed_t, first, last, radius: int = RADIUS):
     """packed_t: f32[6, n] sorted leaf columns; first/last: i32[n-1].
     Returns packed f32[6, n-1] (min xyz, -max xyz) of every internal node."""
+    with timer.span("bvh.refit"):
+        return _refit_anchored_packed(packed_t, first, last, radius)
+
+
+def _refit_anchored_packed(packed_t, first, last, radius: int):
     n = packed_t.shape[1]
     m = first.shape[0]
     if m != n - 1:
@@ -79,6 +85,7 @@ def refit_anchored_packed(packed_t, first, last, radius: int = RADIUS):
     short0 = (i - first < radius) & (last - i <= radius)
     # the reference's lax.cond becomes a Python branch: one host sync
     n_long = m - int(short0.sum())
+    timer.count_host_sync()
     if n_long <= cap:
         return _refit_anchored_fast(packed_t, first, last, radius)
     return _refit_full_table(packed_t, first, last)
@@ -112,6 +119,7 @@ def _refit_anchored_fast(packed_t, first, last, radius: int):
     # the long nodes' positions: one nonzero (a host sync) replaces the
     # reference's payload sort and place-back sort
     long_idx = torch.nonzero(~short[:m]).squeeze(1)
+    timer.count_host_sync()
     if long_idx.numel():
         cf = first[long_idx]
         cl = last[long_idx]

@@ -44,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from ..types import FLT_MAX, Bvh2, HitInfo, Rays, Transformation
-from ..utils import introspect, kernels, work
+from ..utils import introspect, kernels, timer, work
 from ..utils.platform import on_cuda
 from . import aabb as A
 
@@ -563,18 +563,21 @@ def _launch_bvh2(bvh: Bvh2, tris, rays: Rays, tr: Transformation, variant):
 
 
 def _launch_packed(packed, n_internal, root, rays: Rays, tr: Transformation):
-    """One launch of the packed kernel (none for no rays)."""
-    ray_args = _ray_args(rays, tr)
-    n = ray_args[4]
-    dev = ray_args[0].device
-    mm = packed.shape[0]
-    kernels.require(packed, "packed", I32, (mm, 16))
-    if mm < 1:
-        raise ValueError("traverse_packed: the tree must not be empty")
-    if packed.data_ptr() % 16:
-        raise ValueError("packed: rows are read as 16-byte words; expected a 16-byte aligned base")
-    root_t = _root_arg(root, dev)
-    outs, stats, touched = _outputs(n, mm, dev)
+    """One launch of the packed kernel (none for no rays); what precedes the
+    launch is the span `bvh.traverse_prep` under a running profiler."""
+    with timer.span("bvh.traverse_prep"):
+        ray_args = _ray_args(rays, tr)
+        n = ray_args[4]
+        dev = ray_args[0].device
+        mm = packed.shape[0]
+        kernels.require(packed, "packed", I32, (mm, 16))
+        if mm < 1:
+            raise ValueError("traverse_packed: the tree must not be empty")
+        if packed.data_ptr() % 16:
+            raise ValueError("packed: rows are read as 16-byte words; "
+                             "expected a 16-byte aligned base")
+        root_t = _root_arg(root, dev)
+        outs, stats, touched = _outputs(n, mm, dev)
     if n == 0:
         return HitInfo(*outs[:4]), outs[4]
     err = kernels.lib().tbvh_traverse_packed(

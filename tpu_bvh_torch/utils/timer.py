@@ -10,6 +10,13 @@ clock (where JAX calls `block_until_ready`), so each token has a host
 time (`ms`) and a device time (`device_ms`). The port is bound by the
 host's launch rate: a phase's host time is mostly launch overhead, its
 event time what the stream spent between the two events.
+
+`span(name)` marks a stretch of the build and traversal paths in a
+`torch.profiler` trace, as a `cpu_op` event on the trace's own clock. It
+records only while a profiler runs and costs one attribute check
+otherwise; `Timer.span` enters it under `bvh.<token value>`. The
+`host_syncs` counter counts the device-to-host reads of the build paths,
+each at its site (`count_host_sync`).
 """
 from __future__ import annotations
 
@@ -19,6 +26,26 @@ import time
 from collections import defaultdict
 
 import torch
+
+# device-to-host reads counted at their sites since the process started
+host_syncs = 0
+_NO_SPAN = contextlib.nullcontext()  # what `span` gives while no profiler runs
+
+
+def span(name: str):
+    """A context manager that marks its block as `name` in a running
+    profiler's trace (a `cpu_op` event: `record_function`'s events land as
+    `user_annotation`, which trace readers that keep host operations do not
+    see). With no profiler running it does nothing: no event, no sync."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
+
+
+def count_host_sync() -> None:
+    """Count one device-to-host read (a host sync on the card) at its site."""
+    global host_syncs
+    host_syncs += 1
 
 
 class TimerCodes(enum.Enum):
@@ -53,16 +80,18 @@ class Timer:
         """Time the block's work under `token` (on the card: to a
         synchronize, with a pair of events)."""
         cuda = self.device.type == "cuda"
-        if cuda:
-            pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            pair[0].record()
-        t0 = time.perf_counter()
-        yield
-        if cuda:
-            pair[1].record()
-            torch.cuda.synchronize(self.device)
-            self._events[token].append(pair)
-        self._ms[token] += (time.perf_counter() - t0) * 1e3
+        with span(f"bvh.{token.value}"):
+            if cuda:
+                pair = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                pair[0].record()
+            t0 = time.perf_counter()
+            yield
+            if cuda:
+                pair[1].record()
+                torch.cuda.synchronize(self.device)
+                self._events[token].append(pair)
+            self._ms[token] += (time.perf_counter() - t0) * 1e3
 
     def measure(self, token: TimerCodes, fn, *args, **kwargs):
         """Run fn, wait for its work, accumulate its time under token."""
