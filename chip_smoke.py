@@ -55,7 +55,13 @@ On the way it
    and dup's deltas, forward and flipped, also against B1's outputs; B1
    on the deltas of 2^22 sorted random codes and B12/B13, B14 on 2^23
    random deltas in [0, 63], where each block walks many tiles (printing
-   the grid the occupancy query gave); the batched build (one warp a mesh)
+   the grid the occupancy query gave); the front half's three kernels (A
+   `tri_rows`, B `keys`, C `gather`: `ops/front_half.py`) on sponza, on the
+   +-0 soup and on a 4M-triangle frame of the benchmark's scene
+   (`benchmark/scene.py`, frame 0), every output bit for bit (the scene
+   minimum by value: the plain amin keeps either zero), B with the extended
+   and the plain code, B and C from triangles and from shuffled PrimRefs;
+   the batched build (one warp a mesh)
    on the demo, on 65,536 random meshes of 2-32 prims at capacity 32, on
    4096 of 2-64 at capacity 64 and on the +-0 soup in meshes of 32, with
    every tree of each checked valid, and its refusal of capacity 65 before
@@ -74,7 +80,8 @@ On the way it
 4. runs the main path path by path (build, topology, collapse, render,
    shadow, ploc, batched, batched block, wavefront, app), every launch counter set to 0 just
    before each and read
-   just after, and checks: every kernel of each path launched (on the
+   just after, and checks: every kernel of each path launched (the front
+   half's three once a build on the build and ploc paths; on the
    ploc path one fused-round launch per round and none of B9's or B10's,
    host syncs = rounds + 1 per build); the fast
    topologies equal B1's route (`apetrei_build_packed_full`,
@@ -149,24 +156,30 @@ On the way it
    counters and SIMD efficiency (lane steps over 32 x warp steps); every
    bound from the kernel's count in `tpu_bvh_torch/utils/work.py`, and
    `introspect.cost_analysis` of one call of each hand kernel, whose
-   bytes, flops and optimal_seconds must equal that count and bound;
+   bytes, flops and optimal_seconds must equal that count and bound; the
+   front half's kernels also at 4M (events, device us from a profiler
+   trace, plain ms and its kernel count, bound);
 6. checks, from one torch.profiler trace each, that the dense refit (both
    entries), the collapse kernel, the topology scan (B1), the psv/nsv
    scans (B12/B13, B14), the child positions (B15), the plane scan (B11),
-   the two V=32 scan halves (B16), the emission (B9) and `build_batched`
-   (the demo and capacity 1024) launch one kernel a call, the last ten
-   with no memset, that each
+   the two V=32 scan halves (B16), the emission (B9), `build_batched`
+   (the demo and capacity 1024) and the front half's three kernels launch
+   one kernel a call, all but the refit and the collapse with no memset,
+   that each
    traversal kernel on the frame's camera rays (a stride-0 origin) is one
    kernel and one memset a call,
    and prints the grid of B1's and B12's launch on sponza and
    B12's SM cycles per phase (its clock64 stamps).
 
 Any failure raises. The last three lines are the kernels JSON line (B1 to
-B16, then the two batched builds and the five traversal kernels, which replace
-no TPU kernel; each row's `launches` counts every path in this process,
+B16, then the two batched builds, the five traversal kernels and the front
+half's three, which replace no TPU kernel; each row's `launches` counts every
+path in this process,
 `app_launches` the app path alone, `sharded_launches` the sharded path
 summed over its ranks; a traversal row also holds its host ms, SIMD
-efficiency and, under `shadow_rev`, its numbers on the reversed slice), the
+efficiency and, under `shadow_rev`, its numbers on the reversed slice; a
+front-half row its device us and plain kernels, and under `at_4m` its
+numbers on the 4M frame), the
 nvidia-smi line and {"ok": true, "device": {...}}. Needs one CUDA device
 and nvcc; it imports no JAX.
 
@@ -205,6 +218,7 @@ ROUND_SOURCE = "tpu_bvh_torch/csrc/ploc_round_fused.cu"
 THR_SOURCE = "tpu_bvh_torch/csrc/threshold_scan.cu"
 THR_TPU = "tpu_bvh/ops/pallas/threshold_core.py"
 TRAVERSE_SOURCE = "tpu_bvh_torch/csrc/traverse.cu"
+FRONT_SOURCE = "tpu_bvh_torch/csrc/front_half.cu"
 KERNELS = {  # name: (TPU kernel, source, the TPU kernel it replaces), B1 to B16
     "scan32": ("B1", "tpu_bvh_torch/csrc/scan32.cu", "tpu_bvh/ops/pallas/scan32.py:280"),
     "refit_dense": ("B2", "tpu_bvh_torch/csrc/refit_dense.cu",
@@ -239,7 +253,15 @@ KERNELS = {  # name: (TPU kernel, source, the TPU kernel it replaces), B1 to B16
     "traverse_while_while": (None, TRAVERSE_SOURCE, "tpu_bvh/ops/traverse.py:134"),
     "traverse_speculative": (None, TRAVERSE_SOURCE, "tpu_bvh/ops/traverse.py:134"),
     "traverse_restart_trail": (None, TRAVERSE_SOURCE, "tpu_bvh/ops/traverse.py:437"),
+    # no TPU kernel: JAX's front half is XLA ops, which XLA fuses (A: the boxes and the
+    # scene box, B: the codes and the key, C: the sort's payload)
+    "front_tri_box": (None, FRONT_SOURCE, "tpu_bvh/models/lbvh.py:124"),
+    "front_keys": (None, FRONT_SOURCE, "tpu_bvh/models/lbvh.py:76"),
+    "front_gather": (None, FRONT_SOURCE, "tpu_bvh/models/lbvh.py:98"),
 }
+FRONT_WORK = {"front_tri_box": "tri_box", "front_keys": "keys", "front_gather": "gather"}
+FRONT_KERNELS = tuple(FRONT_WORK)
+FRONT_FRAME = {"n_tris": 4_000_000, "occupancy_tris": 262_000, "seed": 22}  # benchmark/scene.py
 TRAVERSALS = ("packed", "if_if", "while_while", "speculative", "restart_trail")
 WAVEFRONT = (512, 512)  # the JAX bench's wavefront row: sponza 262K, 512^2 primary rays
 # the traversal's inputs: the 512^2 frame (mostly misses) and the reversed
@@ -402,11 +424,10 @@ def batched_valid(torch, trees, M):
     return perm and walk and root_ok and nest
 
 
-def kernels_per_call(torch, fn, sessions=3):
-    """CUDA kernels and memsets in one torch.profiler trace of one call of
-    `fn` (after a warm-up call): the names of its Chrome trace's kernel
-    events, and the count of its memset events. A session that recorded no
-    GPU event at all (a later profiler session in one process sometimes
+def traced_events(torch, fn, calls=1, sessions=3):
+    """The complete events of one torch.profiler trace (its Chrome trace)
+    of `calls` calls of `fn`, after a warm-up call. A session that recorded
+    no GPU event at all (a later profiler session in one process sometimes
     sees none; the launch counters show the call launched) is run again,
     up to `sessions` sessions."""
     fn()
@@ -414,7 +435,8 @@ def kernels_per_call(torch, fn, sessions=3):
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(sessions):
         with torch.profiler.profile(activities=acts) as prof:
-            fn()
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "trace.json")
@@ -424,8 +446,24 @@ def kernels_per_call(torch, fn, sessions=3):
         events = [e for e in events if e.get("ph") == "X"]
         if any(e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy") for e in events):
             break
+    return events
+
+
+def kernels_per_call(torch, fn, sessions=3):
+    """CUDA kernels and memsets in one torch.profiler trace of one call of
+    `fn`: the names of its kernel events, and the count of its memset
+    events (`traced_events`)."""
+    events = traced_events(torch, fn, 1, sessions)
     return ([e["name"] for e in events if e.get("cat") == "kernel"],
             sum(e.get("cat") == "gpu_memset" for e in events))
+
+
+def device_us(torch, fn, symbol, calls=5):
+    """Device microseconds a call of `fn` spends in the kernels whose names
+    hold `symbol`, from one torch.profiler trace of `calls` calls."""
+    events = traced_events(torch, fn, calls)
+    return sum(e["dur"] for e in events
+               if e.get("cat") == "kernel" and symbol in e["name"]) / calls
 
 
 def nn_edge_cases(T):
@@ -457,12 +495,30 @@ def nn_special_state(torch, np, width, dev, seed=7):
     return torch.from_numpy(mat).to(dev)
 
 
+KERNEL_SYMBOLS = {"front_tri_box": "front_box_kernel", "front_keys": "front_keys_kernel",
+                  "front_gather": "front_gather_kernel"}
+
+
+def front_calls(inputs):
+    """kernel -> (kernel call, plain call) of the front half's three on one
+    scene's `(tris, rows, scene_min, extent, sorted keys, pos)` from
+    triangles, B with the extended code as the builds run it."""
+    from tpu_bvh_torch.ops import front_half as fh
+
+    tris, rows, lo, ext, skey, pos = inputs
+    return {"front_tri_box": (lambda: fh.tri_rows(tris), lambda: fh.tri_rows_reference(tris)),
+            "front_keys": (lambda: fh.keys(rows, None, lo, ext, True),
+                           lambda: fh.keys_reference(rows, None, lo, ext, True)),
+            "front_gather": (lambda: fh.gather(skey, pos, rows, None),
+                             lambda: fh.gather_reference(skey, pos, rows, None))}
+
+
 def launch_counters():
     """The port's launch counters: kernel -> (module, counter attribute[,
     key of a counter dict])."""
-    from tpu_bvh_torch.ops import (batched_block, batched_build, collapse_block, plane_scan,
-                                   ploc_nn, ploc_round, raster_gpu, ray_sweep, refit_dense, scan32,
-                                   threshold_core, traverse)
+    from tpu_bvh_torch.ops import (batched_block, batched_build, collapse_block, front_half,
+                                   plane_scan, ploc_nn, ploc_round, raster_gpu, ray_sweep,
+                                   refit_dense, scan32, threshold_core, traverse)
     return {
         "scan32": (scan32, "launches"), "refit_dense": (refit_dense, "launches"),
         "collapse_block": (collapse_block, "launches"), "raster_sweep": (raster_gpu, "launches"),
@@ -479,6 +535,8 @@ def launch_counters():
         "batched_block": (batched_block, "launches"),
         # the traversal kernels count by kernel in one dict
         **{f"traverse_{v}": (traverse, "launches", v) for v in TRAVERSALS},
+        # and the front half's by kernel in one dict
+        **{k: (front_half, "kernel_launches", k) for k in FRONT_KERNELS},
     }
 
 
@@ -578,7 +636,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_bvh_torch.models import batched, lbvh, ploc
     from tpu_bvh_torch.ops import (aabb, batched_block, batched_build, collapse, collapse_block,
-                                   collapse_fast,
+                                   collapse_fast, front_half,
                                    plane_scan, ploc_nn, ploc_round, radix_tree, raster, raster_gpu,
                                    ray_sweep, refit, refit_dense, scan32, threshold_core,
                                    traverse)
@@ -716,6 +774,51 @@ def main():
             inputs["planes"] = planes
             inputs["refit"] = (mat, n, leaf_packed_t, first, last)
             inputs["collapse"] = (rows, aux[0].n_internal, [got_m, *got_a])
+
+    # the front half's kernels against their plain steps on the same card
+    # inputs: A's rows and extent bit for bit, its scene minimum by value
+    # (the plain amin keeps either zero); B from triangles (prim_idx arange)
+    # and from shuffled PrimRefs, plain and extended code; C on B's sorted
+    # extended keys (from triangles it reads no pos); and the whole front half
+    from benchmark.scene import Scene
+
+    frame_4m = Scene(FRONT_FRAME["n_tris"], FRONT_FRAME["occupancy_tris"], 1, 0.0,
+                     FRONT_FRAME["seed"], dev).frames[0]
+    perm_gen = torch.Generator(device=dev).manual_seed(FRONT_FRAME["seed"])
+    front_inputs = {}  # scene: (tris, rows, scene_min, extent, sorted keys, pos) from triangles
+    for name, t in (("sponza", torch.from_numpy(sponza).to(dev)),
+                    ("+-0 soup", torch.from_numpy(sz).to(dev)), ("4M frame", frame_4m)):
+        n_f = t.shape[0]
+        what = f"{name} n={n_f}"
+        got = front_half.tri_rows(t)
+        want = front_half.tri_rows_reference(t)
+        torch.cuda.synchronize()
+        same_outputs([got[0], got[2]], [want[0], want[2]], "front_tri_box",
+                     f"{what}: rows and extent")
+        require(torch.equal(got[1], want[1]), f"front_tri_box scene minimum == plain by value, "
+                                              f"{what}")
+        f_rows, f_min, f_ext = want
+        prim = torch.randperm(n_f, generator=perm_gen, device=dev).to(torch.int32)
+        for p_idx, route in ((None, "from triangles"), (prim, "from shuffled PrimRefs")):
+            for extended in (False, True):
+                key = front_half.keys(f_rows, p_idx, f_min, f_ext, extended)
+                want = front_half.keys_reference(f_rows, p_idx, f_min, f_ext, extended)
+                torch.cuda.synchronize()
+                same_outputs([key], [want], "front_keys",
+                             f"{what}, {route}, {'extended' if extended else 'plain'} code")
+            skey, pos = torch.sort(key)
+            got = front_half.gather(skey, pos, f_rows, p_idx)
+            want = front_half.gather_reference(skey, pos, f_rows, p_idx)
+            torch.cuda.synchronize()
+            same_outputs(got, want, "front_gather", f"{what}, {route}")
+            if p_idx is None:
+                front_inputs[name] = (t, f_rows, f_min, f_ext, skey, pos)
+        got = lbvh._sorted_leaves_from_tris(t, True)
+        want = front_half.from_tris_reference(t, True)
+        torch.cuda.synchronize()
+        require(all(g.dtype == w.dtype and torch.equal(bits(g), bits(w)) for g, w in zip(got, want)),
+                f"the front half's sorted leaves (codes, rows, prims) == plain, bit for bit, {what}")
+    del prim, key, skey, pos, got, want
 
     draws = torch.from_numpy(rng.integers(0, 53, 262_144).astype(np.int32)).to(dev)
     check_threshold(draws, "262,144 random deltas in [0, 53)")
@@ -1051,9 +1154,11 @@ def main():
             launches[nm] = launches.get(nm, 0) + c
         return out, counts
 
-    ((bvh, parent, first, last), bvh_two), _ = run_path(
-        "build", ["scan32", "refit_dense"],
+    ((bvh, parent, first, last), bvh_two), l_counts = run_path(
+        "build", ["scan32", "refit_dense", *FRONT_KERNELS],
         lambda: (lbvh.build_single_pass_aux(tris), lbvh.build_two_pass(tris)))
+    require(all(l_counts[k] == 2 for k in FRONT_KERNELS),
+            "build path: each front-half kernel launched once a build (2 builds)")
     t_codes = topo_inputs["sponza"][0]
     topo, _ = run_path("topology", ["psv_nsv_packed", "psv_nsv_packed_lanes", "psv_nsv_payload"],
                        lambda: (radix_tree.apetrei_topology_fast(t_codes),
@@ -1088,7 +1193,9 @@ def main():
             out[name] = (build(tris), dict(ploc_ops.last_build))
         return out
 
-    plocs, p_counts = run_path("ploc", ["ploc_round", "ploc_finish"], ploc_builds)
+    plocs, p_counts = run_path("ploc", ["ploc_round", "ploc_finish", *FRONT_KERNELS], ploc_builds)
+    require(all(p_counts[k] == 2 for k in FRONT_KERNELS),
+            "ploc path: each front-half kernel launched once a build (2 builds)")
     n_rounds = sum(info["rounds"] for _, info in plocs.values())
     require(p_counts["ploc_round"] == n_rounds and p_counts["ploc_nn"] == 0
             and p_counts["ploc_emit_compact"] == 0,
@@ -1723,6 +1830,8 @@ def main():
         "batched_block": work.batched(wide_t),
         **{f"traverse_{v}": work.traverse(waves[v][1].cpu(), t_rows[("frame", v)], v, n_wave)
            for v in TRAVERSALS},
+        **{k: work.front_half(kind, front_inputs["sponza"][0].shape[0])
+           for k, kind in FRONT_WORK.items()},
     }
     bounds = {name: bounded(c) for name, c in counts.items()}
     timed = {  # kernel, plain, kernel reps, plain reps, plain warm-up
@@ -1775,6 +1884,7 @@ def main():
         **{f"traverse_{v}": (lambda v=v: traversal(v, t_rays),
                              lambda v=v: traversal(v, t_rays, plain=True), 20, 1, 0)
            for v in TRAVERSALS},
+        **{k: (*front_calls(front_inputs["sponza"])[k], 20, 5, 1) for k in FRONT_KERNELS},
     }
     timed = {nm: timed[nm] for nm in KERNELS}  # rows in the order B1 to B16, then the rest
     # one PyTorch call that computes the same function, timed as a yardstick
@@ -1793,9 +1903,25 @@ def main():
         "batched_build": "calls of batched_build (one CUDA launch each)",
         "batched_block": "calls of batched_block (one CUDA launch each)",
         "traverse_packed": "calls of traverse_packed (one CUDA launch each)",
+        "front_keys": "calls of keys (one CUDA launch each; its events include the extended "
+                      "code's extent copy to the host)",
         **{f"traverse_{v}": f"calls of traverse_bvh2(variant={v!r}) (one CUDA launch each)"
            for v in TRAVERSALS[1:]},
     }
+    # the front half's kernels on the 4M frame, as the benchmark's rebuild
+    # cells run them (the main path's 262K are the rows' own)
+    front_4m = {}
+    f_calls = front_calls(front_inputs["4M frame"])
+    n_4m = front_inputs["4M frame"][0].shape[0]
+    for name in FRONT_KERNELS:
+        kfn, pfn = f_calls[name]
+        k_ms = time_ms(torch, kfn, 20)[0]
+        p_ms = time_ms(torch, pfn, 5, warmup=1)[0]
+        b_ms, b_by = bound(work.front_half(FRONT_WORK[name], n_4m))
+        front_4m[name] = {"n": n_4m, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                          "bound_by": b_by}
+        print(f"  {name} on the 4M frame (n={n_4m}), {smi}: kernel {k_ms!r} ms (events), plain "
+              f"{p_ms!r} ms, bound {b_ms!r} ms ({b_by})", flush=True)
     rows_json = []
     for name, (kfn, pfn, kreps, preps, pwarm) in timed.items():
         k_ms, k_wall = time_ms(torch, kfn, kreps)
@@ -1826,6 +1952,8 @@ def main():
             v = name[len("traverse_"):]
             row.update(host_ms=k_wall, simd_efficiency=t_simd[("frame", v)],
                        shadow_rev=t_times[("shadow_rev", v)])
+        if name in FRONT_KERNELS:  # and on the 4M frame; device us after the timings
+            row["at_4m"] = front_4m[name]
         rows_json.append(row)
     # one call of each hand kernel at the main path's shapes through
     # introspect.cost_analysis, whose counts the wrappers report from the
@@ -1909,7 +2037,9 @@ def main():
             ("ploc_emit_compact",
              lambda: ploc_round.ploc_emit_compact(p_mat, p_nn, p_nodes, n_tris, 0), True),
             ("batched_build (the demo)", lambda: batched.build_batched(demo_t), True),
-            ("batched_block ((a) at capacity 1024)", lambda: batched.build_batched(wide_t), True)):
+            ("batched_block ((a) at capacity 1024)", lambda: batched.build_batched(wide_t), True),
+            *((f"{k} (sponza)", front_calls(front_inputs["sponza"])[k][0], True)
+              for k in FRONT_KERNELS)):
         names, memsets = kernels_per_call(torch, fn)
         require(len(names) == 1 and (memsets == 0 or not no_memset),
                 f"{name}: one kernel a call in a torch.profiler trace {names}"
@@ -1919,6 +2049,22 @@ def main():
         require(len(names) == 1 and memsets == 1,
                 f"traverse_{v} (the {WAVEFRONT[0]}x{WAVEFRONT[1]} frame, a stride-0 origin): one "
                 f"kernel and one memset (the counters) a call in a torch.profiler trace {names}")
+    # the front half's kernels' device time from a profiler trace, and the
+    # kernels their plain steps launch, at 262K and on the 4M frame
+    rows_by_name = {row["name"]: row for row in rows_json}
+    for what, inp, into in (("sponza", front_inputs["sponza"], rows_by_name),
+                            ("the 4M frame", front_inputs["4M frame"], front_4m)):
+        calls = front_calls(inp)
+        for name in FRONT_KERNELS:
+            kfn, pfn = calls[name]
+            dev_us = device_us(torch, kfn, KERNEL_SYMBOLS[name])
+            n_plain = len(kernels_per_call(torch, pfn)[0])
+            row = into[name]
+            row.update(device_us=dev_us, plain_kernels=n_plain)
+            print(f"  {name} on {what} (n={inp[0].shape[0]}), {smi}: device {dev_us!r} us a call "
+                  f"(torch.profiler, 5 calls), bound {row['bound_ms'] * 1e3!r} us "
+                  f"({row['bound_ms'] * 1e3 / dev_us!r} of it reached); the plain steps launch "
+                  f"{n_plain} kernels", flush=True)
     for name, topo_grid in (("scan32", True), ("psv_nsv_packed", False)):
         print(f"  {name} on sponza's deltas (m={m_t}): grid "
               f"{threshold_core.launch_grid(m_t, dev, topology=topo_grid)}", flush=True)

@@ -16,12 +16,15 @@ import numpy as np
 import pytest
 import torch
 
+from front_half_scenes import SCENES as FRONT_SCENES
 from tpu_bvh_torch.models import batched, lbvh, ploc
 from tpu_bvh_torch.ops import (batched_block, batched_build, collapse_block, collapse_fast,
+                               front_half,
                                plane_scan, ploc_nn, ploc_round, radix_tree, raster, raster_gpu,
                                ray_sweep, refit_dense, scan32, threshold_core, traverse)
 from tpu_bvh_torch.ops import ploc as ploc_ops
-from tpu_bvh_torch.types import PLOC_RADIUS, Bvh2, Bvh4, Rays, Transformation, identity_transform
+from tpu_bvh_torch.types import (PLOC_RADIUS, Bvh2, Bvh4, PrimRefs, Rays, Transformation,
+                                 identity_transform)
 from tpu_bvh_torch.utils import camera, introspect, scenes, validate, work
 
 pytestmark = pytest.mark.cuda
@@ -391,6 +394,128 @@ def test_ray_sweep_refuses_2_pow_23_pairs(cuda):
     torch.cuda.synchronize()  # one pair less launches
     for g, x in zip(got, ray_sweep.ray_sweep_reference(*args)):
         assert torch.equal(g, x)
+
+
+# ------------------------------------------------------------ front half
+
+
+def _same_or_nan(got, want, signed_zeros):
+    """f32[3] of the scene box: NaN where the other is NaN, equal bits
+    elsewhere, or equal values where the sign of a zero may differ."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    g, w = got[~nan], want[~nan]
+    assert torch.equal(g, w) if signed_zeros else torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("name", list(FRONT_SCENES))
+@pytest.mark.parametrize("extended", [True, False])
+def test_front_half_kernels_match_plain(cuda, name, extended):
+    """The three front-half kernels (A, B, C around torch.sort) against
+    the plain steps on the same CUDA triangles: the sorted codes, leaf
+    rows and leaf prims bit for bit; the packed rows bit for bit; the
+    extent's bits (a NaN by place); the scene minimum's values (the plain
+    amin may keep either zero)."""
+    tris = torch.from_numpy(FRONT_SCENES[name]()).to(cuda)
+    before = front_half.launches
+    got = lbvh._sorted_leaves_from_tris(tris, extended)
+    torch.cuda.synchronize()
+    assert front_half.launches == before + 3 and front_half.last_build == {"launches": 3}
+    assert _same_bits(got, front_half.from_tris_reference(tris, extended))
+    rows, scene_min, ext = front_half.tri_rows(tris)
+    want_rows, want_min, want_ext = front_half.tri_rows_reference(tris)
+    assert _same_bits([rows], [want_rows])
+    _same_or_nan(ext, want_ext, signed_zeros=False)
+    _same_or_nan(scene_min, want_min, signed_zeros=True)
+    assert _same_bits([front_half.keys(rows, None, scene_min, ext, extended)],
+                      [front_half.keys_reference(rows, None, scene_min, ext, extended)])
+
+
+@pytest.mark.parametrize("name", ["sponza", "soup_70001", "one", "signed_zeros", "nan", "cap"])
+def test_front_half_refs_route_matches_plain(cuda, name):
+    """The PrimRefs route (the plain scene box, then B with prim_idx and
+    C) with shuffled prim ids, against the plain steps."""
+    tris = torch.from_numpy(FRONT_SCENES[name]()).to(cuda)
+    mn, mx = lbvh.prim_refs_from_triangles(tris)[:2]
+    g = torch.Generator().manual_seed(5)
+    refs = PrimRefs(mn, mx, torch.randperm(tris.shape[0], generator=g).to(cuda, torch.int32))
+    before = front_half.launches
+    got = lbvh._sorted_leaves_packed(refs, True)
+    torch.cuda.synchronize()
+    assert front_half.launches == before + 2 and front_half.last_build == {"launches": 2}
+    assert _same_bits(got, front_half.from_rows_reference(lbvh.packed_rows(refs), refs.prim_idx,
+                                                          True))
+
+
+@pytest.mark.parametrize("name", ["sponza", "signed_zeros", "swap"])
+def test_front_half_ploc_route_equals_the_refs_route(cuda, name):
+    """PLOC's front half takes the triangles; the PrimRefs route it took
+    before (`prim_refs_from_triangles` and `packed_rows`) gives the same
+    bits, by the kernels and by the plain steps."""
+    tris = torch.from_numpy(FRONT_SCENES[name]()).to(cuda)
+    refs = lbvh.prim_refs_from_triangles(tris)
+    got = lbvh._sorted_leaves_from_tris(tris, True)
+    assert _same_bits(got, lbvh._sorted_leaves_packed(refs, True))
+    assert _same_bits(got, front_half.from_rows_reference(lbvh.packed_rows(refs), refs.prim_idx,
+                                                          True))
+
+
+def test_front_half_launches_per_build(cuda):
+    """Three launches a build on the card, for the LBVH and PLOC
+    builders, none for CPU input; the builds equal the CPU's."""
+    tris = torch.from_numpy(FRONT_SCENES["swap"]()).to(cuda)
+    for build in (lbvh.build_single_pass, ploc.build_ploc):
+        before = front_half.launches
+        got = build(tris)
+        assert front_half.launches == before + 3 and front_half.last_build == {"launches": 3}
+        want = build(tris.cpu())
+        assert front_half.launches == before + 3 and front_half.last_build == {"launches": 0}
+        for f in ("packed_t", "left", "right", "root"):
+            assert torch.equal(_bits(getattr(got, f)).cpu(), _bits(getattr(want, f)))
+
+
+@pytest.mark.parametrize("view", ["every_other", "transposed"])
+def test_front_half_strided_soup_builds_as_its_copy(cuda, view):
+    """A strided view of a soup (every other triangle; each triangle's
+    vertex and axis dimensions swapped) builds the tree of its contiguous
+    copy, with the kernels' three launches."""
+    soup = torch.from_numpy(FRONT_SCENES["sponza"]()).to(cuda)
+    tris = soup[::2] if view == "every_other" else soup.transpose(1, 2)
+    assert not tris.is_contiguous()
+    before = dict(front_half.kernel_launches)
+    got = lbvh.build_single_pass(tris)
+    assert all(front_half.kernel_launches[k] == before[k] + 1 for k in before)
+    want = lbvh.build_single_pass(tris.contiguous())
+    for f in ("packed_t", "left", "right", "root"):
+        assert torch.equal(_bits(getattr(got, f)), _bits(getattr(want, f)))
+    assert _same_bits(lbvh._sorted_leaves_from_tris(tris, True),
+                      front_half.from_tris_reference(tris, True))
+
+
+def test_cost_analysis_counts_the_front_half_kernels(cuda):
+    """Each front-half kernel's cost_analysis row holds its count
+    (`work.front_half`): from triangles C reads no pos (68 B a primitive),
+    from PrimRefs B reads prim_idx and C pos besides."""
+    tris = torch.from_numpy(FRONT_SCENES["soup_70001"]()).to(cuda)
+    n = tris.shape[0]
+    rows, scene_min, ext = front_half.tri_rows(tris)
+    prim = torch.randperm(n, device=cuda).to(torch.int32)
+    skey, pos = torch.sort(front_half.keys(rows, prim, scene_min, ext, True))
+    cases = [("front_tri_box", lambda: front_half.tri_rows(tris), "tri_box", False,
+              "front_box_kernel")]
+    for refs, p in ((False, None), (True, prim)):
+        cases += [("front_keys", lambda p=p: front_half.keys(rows, p, scene_min, ext, True), "keys",
+                   refs, "front_keys_kernel"),
+                  ("front_gather", lambda p=p: front_half.gather(skey, pos, rows, p), "gather",
+                   refs, "front_gather_kernel")]
+    for name, fn, kind, refs, kernel in cases:
+        row = introspect.cost_analysis(fn)["ops"][name]
+        assert row["hand_kernel"] and row["calls"] == 1, name
+        assert (row["bytes accessed"], row["flops"]) == work.front_half(kind, n, refs)[:2], name
+        names = [r["name"] for r in introspect.kernel_report(fn)]
+        assert names and all(kernel in nm for nm in names), (name, names)
+    assert work.front_half("gather", n)[0] == 68 * n
+    assert work.front_half("gather", n, refs=True)[0] == 76 * n
 
 
 # ------------------------------------------------------------------ PLOC

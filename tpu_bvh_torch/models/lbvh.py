@@ -1,9 +1,10 @@
 """LBVH builders, single-pass (Apetrei layout) and two-pass (Karras
 layout): the port of `tpu_bvh.models.lbvh`.
 
-Front half (column AABBs, scene extents, extended Morton codes, the
-(code, prim_idx) sort) is plain PyTorch on either device; the topology
-scan and the dense refit run hand-written kernels on CUDA tensors.
+The front half (leaf boxes, the scene box, extended Morton codes, the
+(code, prim_idx) sort and its gathers, `ops/front_half.py`), the topology
+scan and the dense refit run hand-written kernels on CUDA tensors and
+their plain PyTorch versions on the CPU.
 
 Under a running profiler each build marks its front half (`bvh.front_half`,
 with the sort and its gathers as `bvh.sort`), its topology and refit
@@ -18,7 +19,7 @@ import functools
 
 import torch
 
-from ..ops import aabb, morton, radix_tree
+from ..ops import aabb, front_half, radix_tree
 from ..types import Bvh2, PrimRefs
 from ..utils import timer
 
@@ -45,34 +46,12 @@ def prim_refs_from_triangles(tris) -> PrimRefs:
                     prim_idx=torch.arange(n, dtype=I32, device=tris.device))
 
 
-def _sorted_leaves_cols(packed, prim_idx, use_extended):
-    """packed: the leaf boxes as rows f32[6, n] (min xyz, -max xyz).
-    Returns (sorted_codes int64 [n] of u32 values, leaf_packed_t f32[6, n],
-    the packed rows in sorted order, leaf_prim i32[n])."""
-    mn, mx = packed[0:3], -packed[3:6]
-    scene_min = mn.amin(dim=1)
-    scene_max = mx.amax(dim=1)
-    ext = scene_max - scene_min
-    safe = torch.where(ext > 0, ext, 1.0)
-    nx, ny, nz = ((mn + mx) * 0.5 - scene_min[:, None]) / safe[:, None]
-    if use_extended:
-        codes = morton.extended_morton30_cols(nx, ny, nz, ext)
-    else:
-        codes = morton.morton30_cols(nx, ny, nz)
-    # (code, prim_idx) is unique, so one sort on the packed key gives the
-    # canonical order; the code is biased by -2^31 so the int64 key keeps
-    # the unsigned order of the u32 code
-    key = (codes - (1 << 31)) * (1 << 32) + prim_idx.to(torch.int64)
-    with timer.span("bvh.sort"):
-        skey, pos = torch.sort(key)
-        sorted_codes = (skey >> 32) + (1 << 31)
-        return sorted_codes, packed[:, pos], prim_idx[pos]
-
-
 def _sorted_leaves_packed(refs: PrimRefs, use_extended: bool):
-    """The contract of `_sorted_leaves_cols`, from PrimRefs."""
+    """The front half from PrimRefs: (sorted_codes int64 [n] of u32 values,
+    leaf_packed_t f32[6, n], the packed rows in sorted order, leaf_prim
+    i32[n]); `ops/front_half.from_rows`."""
     with timer.span("bvh.front_half"):
-        return _sorted_leaves_cols(packed_rows(refs), refs.prim_idx, use_extended)
+        return front_half.from_rows(packed_rows(refs), refs.prim_idx, use_extended)
 
 
 def packed_rows(refs: PrimRefs):
@@ -81,13 +60,10 @@ def packed_rows(refs: PrimRefs):
 
 
 def _sorted_leaves_from_tris(tris, use_extended: bool):
-    """Triangle-soup front end in column form; the contract of
-    `_sorted_leaves_cols`."""
-    n = tris.shape[0]
+    """Triangle-soup front end: the contract of `_sorted_leaves_packed`,
+    prim i being triangle i; `ops/front_half.from_tris`."""
     with timer.span("bvh.front_half"):
-        packed = aabb.packed_bounds(tris.permute(1, 2, 0), 0, 1)  # [6, n]: min xyz, -max xyz
-        idx = torch.arange(n, dtype=I32, device=tris.device)
-        return _sorted_leaves_cols(packed, idx, use_extended)
+        return front_half.from_tris(tris, use_extended)
 
 
 def _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root):

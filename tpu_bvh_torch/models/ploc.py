@@ -1,7 +1,7 @@
 """PLOC++ and HPLOC builders (the port of `tpu_bvh.models.ploc`).
 
-Triangle soup -> PrimRefs -> extents, Morton codes and the sorted leaves
-(`lbvh._sorted_leaves_cols` of `lbvh.packed_rows`) -> agglomerative
+Triangle soup -> extents, Morton codes and the sorted leaves (the LBVH's
+front half, `lbvh._sorted_leaves_from_tris`) -> agglomerative
 clustering (`ops.ploc.ploc_build_topology_packed`, the PLOC kernels on CUDA
 tensors). The clustering emits the internal boxes itself, so no refit
 follows. The root is node 0. Under a running profiler the front half is
@@ -25,10 +25,7 @@ def _build(tris, use_extended: bool, hploc: bool, shift0: int = HPLOC_SHIFT0,
            shift_step: int = HPLOC_SHIFT_STEP) -> Bvh2:
     """HPLOC's segment schedule starts at prefix shift `shift0` and grows by
     `shift_step` per round; plain PLOC ignores both (one segment)."""
-    with timer.span("bvh.front_half"):
-        refs = lbvh.prim_refs_from_triangles(tris)
-        codes, leaf_packed_t, leaf_prim = lbvh._sorted_leaves_cols(
-            lbvh.packed_rows(refs), refs.prim_idx, use_extended)
+    codes, leaf_packed_t, leaf_prim = lbvh._sorted_leaves_from_tris(tris, use_extended)
     n = leaf_prim.shape[0]
     left, right, int_packed_t = ploc_ops.ploc_build_topology_packed(
         leaf_packed_t, codes, hploc=hploc, shift0=shift0, shift_step=shift_step)

@@ -9,6 +9,8 @@ reproduced in Python integers. Per-primitive work stays on the device.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -111,12 +113,29 @@ def normalize_centroids(centroids, scene_min, scene_extent):
     return (centroids - scene_min) / safe
 
 
-def extended_morton30_cols(px, py, pz, scene_extent):
-    """Extended Morton code: extra leading bits on the dominant axes (by
-    extent ratio) before the 2D/3D interleave. Returns int64 of u32 values."""
-    nmb = 30
+class BitBudget(NamedTuple):
+    """The extended code's scene-wide decisions (host ints): the axes from
+    widest to narrowest, the bits each takes, the leading bits of the two
+    widest (`pre_x`, `pre_y`; `prebits_sum` > 0 turns the prebit path on)
+    and the swap of the x and y interleave slots."""
+    start_axis: tuple
+    bits_x: int
+    bits_y: int
+    bits_z: int
+    pre_x: int
+    pre_y: int
+    prebits_sum: int
+    use_swap: bool
+
+
+def bit_budget(scene_extent) -> BitBudget:
+    """`BitBudget` of the scene extent f32[3], as `tpu_bvh.ops.morton.
+    extended_morton30_cols` decides it. It copies the extent to the host,
+    the front half's one host sync, counted here; both the plain code and
+    the kernel's arguments (`ops/front_half.py`) take it from here."""
     ext = scene_extent.detach().to("cpu", torch.float32)  # the one host sync
     timer.count_host_sync()
+    nmb = 30
     start_axis, pre = _axis_order(ext)
     swap = pre[2] - (pre[0] + pre[1])
 
@@ -138,6 +157,15 @@ def extended_morton30_cols(px, py, pz, scene_extent):
     else:
         bits_y = max(0, (nmb - bits_z - prebits_sum) // 2 + pre_y)
         bits_x = nmb - bits_y - bits_z
+    return BitBudget(start_axis, bits_x, bits_y, bits_z, pre_x, pre_y, prebits_sum, use_swap)
+
+
+def extended_morton30_cols(px, py, pz, scene_extent):
+    """Extended Morton code: extra leading bits on the dominant axes (by
+    extent ratio) before the 2D/3D interleave. Returns int64 of u32 values."""
+    b = bit_budget(scene_extent)
+    start_axis, bits_x, bits_y, bits_z = b.start_axis, b.bits_x, b.bits_y, b.bits_z
+    pre_x, pre_y, prebits_sum, use_swap = b.pre_x, b.pre_y, b.prebits_sum, b.use_swap
 
     cols = (px, py, pz)
 

@@ -56,6 +56,9 @@ _SIGNATURES = {
     "tbvh_batched_block": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
     "tbvh_traverse_bvh2": [_I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _I,
                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "tbvh_front_tri_box": [_P, _I, _P, _P, _P, _P, _P],
+    "tbvh_front_keys": [_P, _I, _P, _P, _P, *[_I] * 11, _P, _P],
+    "tbvh_front_gather": [_P, _P, _P, _I, _P, _P, _P, _P],
     "tbvh_traverse_packed": [_P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P,
                              _P, _P, _P, _P, _P, _P, _P, _P],
 }

@@ -39,6 +39,11 @@ TRAVERSE_RAY_FLOPS = 81
 # and 8, each B16 half 4 and 12
 ROW_BYTES = {"psv_nsv_packed": 12, "psv_nsv_payload": 24, "child_positions": 12,
              "scan32_half": 16}
+# bytes a primitive of the front half's kernels from triangles: A reads 36
+# and writes 24, B reads 24 and writes 8, C reads 8 (the key), gathers 24
+# and writes 36; from PrimRefs B reads prim_idx (4) and C pos (8) besides
+FRONT_HALF_BYTES = {"tri_box": 60, "keys": 32, "gather": 68}
+FRONT_HALF_REFS_BYTES = {"tri_box": 0, "keys": 4, "gather": 8}
 
 
 def nbytes(*tensors) -> int:
@@ -48,6 +53,13 @@ def nbytes(*tensors) -> int:
 def per_row(kind: str, m: int):
     """A threshold scan (B12/B13, B14, B15) or a B16 half on m deltas."""
     return ROW_BYTES[kind] * m, 0, f"m {m}"
+
+
+def front_half(kind: str, n: int, refs: bool = False):
+    """A front-half kernel (`ops/front_half.py`: A, B, C) on n primitives:
+    each input byte read once, each output written once; `refs`, the
+    PrimRefs route, adds the reads of prim_idx (B) and pos (C)."""
+    return (FRONT_HALF_BYTES[kind] + refs * FRONT_HALF_REFS_BYTES[kind]) * n, 0, f"n {n}"
 
 
 def plane_scan(x):
