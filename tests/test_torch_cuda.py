@@ -283,6 +283,55 @@ def test_collapse_tiles_match_plain(cuda, w):
     assert torch.equal(got_m, want_m) and all(torch.equal(g, x) for g, x in zip(got_a, want_a))
 
 
+@pytest.mark.parametrize("scene", ["sponza_262k", "bench_4m"])
+def test_build_single_pass_bvh4_on_the_card_equals_the_cpu_path(cuda, scene):
+    """The build-plus-collapse entry at the benchmark's sizes (a 4M frame of
+    `benchmark/scene.py`: 3,999,995 internal nodes): one B3 launch, and the
+    card's Bvh4 equals the plain path's on the CPU bit for bit; the card
+    reads B3's error flag once more than the CPU path reads."""
+    if scene == "sponza_262k":
+        tris = torch.from_numpy(scenes.sponza_like(262_000))
+    else:
+        from benchmark.scene import Scene
+
+        tris = Scene(4_000_000, 262_000, 1, 0.0, 2**31 + 23, "cpu").frames[0]
+    before = collapse_block.launches
+    got = lbvh.build_single_pass_bvh4(tris.to(cuda))
+    torch.cuda.synchronize()
+    assert collapse_block.launches == before + 1
+    syncs = lbvh.last_build["host_syncs"]
+    want = lbvh.build_single_pass_bvh4(tris)
+    assert syncs == lbvh.last_build["host_syncs"] + 1
+    for f in Bvh4._fields:
+        assert torch.equal(_bits(getattr(got, f).cpu()), _bits(getattr(want, f))), f
+
+
+@pytest.mark.parametrize("n", [2, 300, 70_000])
+def test_build_single_pass_bvh4_replays_equal_the_cpu_path(cuda, n):
+    """A size's first collapse on the card runs op by op and captures a
+    graph; later calls at that size replay it. Three soups of n triangles,
+    the first one again last: every call one B3 launch and one flag read
+    more than the CPU path, and every Bvh4 equal to the CPU path's bit for
+    bit, read after the last call (the replays copy each soup's tree in
+    and their outputs out)."""
+    g = torch.Generator().manual_seed(n)
+    soups = [torch.rand((1, 1, 3), generator=g) * 20 + torch.rand((n, 3, 3), generator=g)
+             for _ in range(2)]
+    soups.append(torch.rand((n, 3, 3), generator=g) * 50)
+    got, want = [], []
+    for tris in soups + soups[:1]:
+        before = collapse_block.launches
+        got.append(lbvh.build_single_pass_bvh4(tris.to(cuda)))
+        torch.cuda.synchronize()
+        assert collapse_block.launches == before + 1
+        syncs = lbvh.last_build["host_syncs"]
+        want.append(lbvh.build_single_pass_bvh4(tris))
+        assert syncs == lbvh.last_build["host_syncs"] + 1
+    for a, b in zip(got, want):  # after every call: no output is the graph's own memory
+        for f in Bvh4._fields:
+            assert torch.equal(_bits(getattr(a, f).cpu()), _bits(getattr(b, f))), f
+
+
 @pytest.mark.parametrize("occlusion", [False, True])
 def test_ray_sweep_kernel_matches_plain(cuda, occlusion):
     tris = torch.from_numpy(scenes.sponza_like(16_384)).to(cuda)

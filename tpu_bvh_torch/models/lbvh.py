@@ -6,12 +6,17 @@ The front half (leaf boxes, the scene box, extended Morton codes, the
 scan and the dense refit run hand-written kernels on CUDA tensors and
 their plain PyTorch versions on the CPU.
 
+`build_single_pass_bvh4` collapses the single-pass tree to a 4-wide BVH
+(`ops/collapse_fast.py`, kernel B3 on the card).
+
 Under a running profiler each build marks its front half (`bvh.front_half`,
 with the sort and its gathers as `bvh.sort`), its topology and refit
-(`bvh.topology`, `bvh.refit`) and its output assembly (`bvh.finalize`).
+(`bvh.topology`, `bvh.refit`), its output assembly (`bvh.finalize`) and
+the collapse (`bvh.collapse`, with B3 as `bvh.collapse_block`).
 `last_build["host_syncs"]` holds the last build's device-to-host reads
-(the extent copy, the refit's long-node count and its `nonzero`), counted
-where they happen.
+(the extent copy, the refit's long-node count and its `nonzero`; the
+collapse's long-node count and, on the card, B3's error flag),
+counted where they happen.
 """
 from __future__ import annotations
 
@@ -19,8 +24,8 @@ import functools
 
 import torch
 
-from ..ops import aabb, front_half, radix_tree
-from ..types import Bvh2, PrimRefs
+from ..ops import aabb, collapse_fast, front_half, radix_tree
+from ..types import Bvh2, Bvh4, PrimRefs
 from ..utils import timer
 
 I32 = torch.int32
@@ -120,3 +125,11 @@ def build_single_pass_aux(tris, use_extended: bool = True):
     )
     bvh = _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root)
     return bvh, parent, first, last
+
+
+@_counts_host_syncs
+def build_single_pass_bvh4(tris, use_extended: bool = True) -> Bvh4:
+    """`build_single_pass` collapsed to a 4-wide BVH by the fast collapse
+    (`collapse_fast.collapse_lbvh_to_bvh4`): wide node x keeps its bvh2
+    id and the root is the bvh2 root. tris: f32[N, 3, 3], N >= 2."""
+    return collapse_fast.collapse_lbvh_to_bvh4(*build_single_pass_aux(tris, use_extended))

@@ -40,7 +40,7 @@ import threading
 
 import torch
 
-from ..utils import introspect, kernels, work
+from ..utils import introspect, kernels, timer, work
 from ..utils.platform import on_cuda
 
 I32 = torch.int32
@@ -55,10 +55,12 @@ launches = 0  # `collapse_block` calls that launched the kernel since the last r
 
 
 def collapse_block(meta, node8, leaf8, carr, m: int):
-    """Returns (outm i32[8, W], [outa0..outa3] i32[8, W]); dispatch by device."""
-    if on_cuda(meta):
-        return _collapse_block_cuda(meta, node8, leaf8, carr, m)
-    return collapse_block_reference(meta, node8, leaf8, carr, m)
+    """Returns (outm i32[8, W], [outa0..outa3] i32[8, W]); dispatch by device.
+    Under a running profiler the call is the span `bvh.collapse_block`."""
+    with timer.span("bvh.collapse_block"):
+        if on_cuda(meta):
+            return _collapse_block_cuda(meta, node8, leaf8, carr, m)
+        return collapse_block_reference(meta, node8, leaf8, carr, m)
 
 
 def _pull(vals, t, m: int):
@@ -227,6 +229,22 @@ _err = threading.local()
 
 def _collapse_block_cuda(meta, node8, leaf8, carr, m: int):
     global launches
+    stream = kernels.stream_of(meta)
+    words = vars(_err).setdefault("words", {})
+    err = words.get((meta.device, stream))
+    if err is None:
+        err = words[(meta.device, stream)] = torch.zeros((1,), dtype=I32, device=meta.device)
+    outm, outa = launch(meta, node8, leaf8, carr, m, err)
+    launches += 1
+    check_flag(err)
+    return outm, outa
+
+
+def launch(meta, node8, leaf8, carr, m: int, err):
+    """Launch B3 on the current stream with the error word `err` (i32[1],
+    zero) and return its outputs, without reading the word or counting the
+    launch: a CUDA graph captures this, and its replay counts the launch and
+    reads the word (`check_flag`)."""
     W = meta.shape[1]
     for name, x, rows in (("meta", meta, 8), ("node8", node8, 8), ("leaf8", leaf8, 8),
                           ("carr", carr, 32)):
@@ -236,20 +254,21 @@ def _collapse_block_cuda(meta, node8, leaf8, carr, m: int):
     dev = meta.device
     outm = torch.empty((8, W), dtype=I32, device=dev)
     outa = torch.empty((4, 8, W), dtype=I32, device=dev)
-    stream = kernels.stream_of(meta)
-    words = vars(_err).setdefault("words", {})
-    err = words.get((dev, stream))
-    if err is None:
-        err = words[(dev, stream)] = torch.zeros((1,), dtype=I32, device=dev)
     code = kernels.lib().tbvh_collapse_block(
         meta.data_ptr(), node8.data_ptr(), leaf8.data_ptr(), carr.data_ptr(), W, m,
-        err.data_ptr(), outm.data_ptr(), outa.data_ptr(), stream,
+        err.data_ptr(), outm.data_ptr(), outa.data_ptr(), kernels.stream_of(meta),
     )
     kernels.check("tbvh_collapse_block", code)
-    launches += 1
     introspect.record("collapse_block", lambda: work.collapse_block(meta, carr, outm, outa, m),
                       "collapse_block_kernel")
+    return outm, list(outa.unbind(0))
+
+
+def check_flag(err) -> None:
+    """Read B3's error word (one host sync); raise, after zeroing it, where
+    the kernel set it."""
     flag = int(err)  # one host sync
+    timer.count_host_sync()
     if flag:
         err.zero_()
         if flag & ERR_CHAIN:
@@ -257,4 +276,3 @@ def _collapse_block_cuda(meta, node8, leaf8, carr, m: int):
                                f"S_LEN + 2 = {S_LEN + 2} hops (the input is not a short-node tree)")
         raise RuntimeError(f"collapse_block: an output depends on a lane more than HALO = {HALO} "
                            "lanes outside its block's tile")
-    return outm, list(outa.unbind(0))

@@ -22,12 +22,29 @@ Three stages, as in the JAX package:
 The coarse capacity 2n/(S_LEN+1) + 2 covers bushy trees; chain-shaped
 crowns can exceed it, so a Python branch on the measured long count (one
 host sync) reruns the same stage at capacity m.
+
+On the card the three stages run as one CUDA graph a size: a size's first
+call runs them op by op and captures them, and later calls copy the tree
+into the graph's inputs, replay it and copy its outputs out, so the host
+makes one launch for the collapse's ~600 kernels. Cost analysis
+(`utils/introspect`) and the CPU run the ops one by one.
+
+Under a running profiler the collapse is the span `bvh.collapse`, with
+`bvh.collapse_block` inside it (B3's launch and its error flag's read; in a
+replay the flag's read). Its device-to-host reads are counted at their
+sites (`utils/timer.count_host_sync`): the long count and, on the card,
+B3's error flag.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
 from ..types import Bvh2, Bvh4
+from ..utils import introspect, kernels, timer
+from ..utils.platform import on_cuda
+from . import collapse_block as b3
 from .collapse_block import _E1, _E2, _UNK, _WIDE, S_LEN, _apply, collapse_block, expand2
 
 I32 = torch.int32
@@ -43,9 +60,46 @@ def collapse_lbvh_to_bvh4(bvh: Bvh2, parent, first, last) -> Bvh4:
     """bvh: boundary-layout Bvh2 from `lbvh.build_single_pass_aux` (node i
     at boundary i with first_i <= i < last_i). parent: i32[2n-1] (leaf
     parents included). first/last: i32[n-1] inclusive leaf ranges."""
+    with timer.span("bvh.collapse"):
+        is_long, ccap = _long_nodes(bvh, first, last)
+        parent = parent.to(I32)
+        if not on_cuda(bvh.packed_t) or introspect.recording():
+            return _collapse(bvh, parent, is_long, ccap, collapse_block)
+        return _replay(bvh, parent, is_long, ccap)
+
+
+def kernel_inputs(bvh: Bvh2, parent, first, last):
+    """Stages 1 and 2: the arguments (meta, node8, leaf8, carr) of
+    `collapse_block` for this tree."""
+    return _prepare(bvh, parent.to(I32), *_long_nodes(bvh, first, last))
+
+
+def _long_nodes(bvh: Bvh2, first, last):
+    """The long-node flags and the coarse capacity that holds them."""
+    n = bvh.n_leaves
+    m = bvh.n_internal
+    if m < 1:
+        raise ValueError("collapse needs at least 2 leaves")
+    # the doubling packs ptr * 64 + table in i32 and the coarse sort's
+    # sentinel is 2^30, so node ids must fit 22 bits
+    if m >= (1 << 22):
+        raise ValueError("collapse packing requires < 2^22 internal nodes")
+    is_long = (last - first + 1) > S_LEN
+    ccap = min(2 * n // (S_LEN + 1) + 2, m)
+    if ccap < m:
+        n_long = int(is_long.sum())  # one host sync
+        timer.count_host_sync()
+        if n_long > ccap:
+            ccap = m  # a chain-shaped crown: the same stage at full capacity
+    return is_long, ccap
+
+
+def _collapse(bvh: Bvh2, parent, is_long, ccap: int, block) -> Bvh4:
+    """Stages 1-3 at coarse capacity `ccap`; `block(meta, node8, leaf8,
+    carr, m)` runs B3."""
     m = bvh.n_internal
     n = bvh.n_leaves
-    outm, outa = collapse_block(*kernel_inputs(bvh, parent, first, last), m)
+    outm, outa = block(*_prepare(bvh, parent, is_long, ccap), m)
     # the kernel's dense outputs are the Bvh4
     count = outm[4, :m]
     sp = torch.stack([a[0:6, :m] for a in outa]).contiguous().view(F32)  # [4, 6, m]
@@ -61,22 +115,55 @@ def collapse_lbvh_to_bvh4(bvh: Bvh2, parent, first, last) -> Bvh4:
     )
 
 
-def kernel_inputs(bvh: Bvh2, parent, first, last):
-    """Stages 1 and 2: the arguments (meta, node8, leaf8, carr) of
-    `collapse_block` for this tree."""
-    n = bvh.n_leaves
-    m = bvh.n_internal
-    if m < 1:
-        raise ValueError("collapse needs at least 2 leaves")
-    # the doubling packs ptr * 64 + table in i32 and the coarse sort's
-    # sentinel is 2^30, so node ids must fit 22 bits
-    if m >= (1 << 22):
-        raise ValueError("collapse packing requires < 2^22 internal nodes")
-    is_long = (last - first + 1) > S_LEN
-    ccap = min(2 * n // (S_LEN + 1) + 2, m)
-    if ccap < m and int(is_long.sum()) > ccap:  # one host sync
-        ccap = m  # a chain-shaped crown: the same stage at full capacity
-    return _prepare(bvh, parent.to(I32), is_long, ccap)
+class _Graph:
+    """Stages 1-3 captured as one CUDA graph for trees of n leaves at coarse
+    capacity `ccap`, on the stream current at capture: static inputs (the
+    tree's boxes and links, the parents, the long-node flags) that each call
+    copies in, and static outputs that each call copies out."""
+
+    def __init__(self, bvh: Bvh2, parent, is_long, ccap: int):
+        dev = bvh.packed_t.device
+        self.inputs = [x.clone() for x in (bvh.packed_t, bvh.left, bvh.right, parent, is_long)]
+        self.err = torch.zeros((1,), dtype=I32, device=dev)
+        tree = Bvh2(*self.inputs[:3], bvh.root)
+        block = lambda *rows: b3.launch(*rows, self.err)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.outputs = _collapse(tree, self.inputs[3], self.inputs[4], ccap, block)
+
+    def __call__(self, bvh: Bvh2, parent, is_long) -> Bvh4:
+        for dst, src in zip(self.inputs, (bvh.packed_t, bvh.left, bvh.right, parent, is_long)):
+            dst.copy_(src)
+        self.graph.replay()
+        b3.launches += 1
+        out = Bvh4(*(x.clone() for x in self.outputs))._replace(root=bvh.root.to(I32))
+        with timer.span("bvh.collapse_block"):
+            b3.check_flag(self.err)
+        return out
+
+
+# each thread's graphs by (device, stream, n, ccap), the newest last; each
+# holds the collapse's working memory at its size, so a thread keeps two
+_graphs = threading.local()
+_MAX_GRAPHS = 2
+
+
+def _replay(bvh: Bvh2, parent, is_long, ccap: int) -> Bvh4:
+    """The collapse on the card. A size's first call runs the ops one by one
+    and then captures them as a graph (`_Graph`); later calls replay it, so
+    the host launches the collapse's ~600 kernels as one."""
+    dev = bvh.packed_t.device
+    key = (dev, kernels.stream_of(bvh.packed_t), bvh.n_leaves, ccap)
+    graphs = vars(_graphs).setdefault("graphs", {})
+    g = graphs.get(key)
+    if g is not None:
+        return g(bvh, parent, is_long)
+    out = _collapse(bvh, parent, is_long, ccap, collapse_block)
+    if len(graphs) >= _MAX_GRAPHS:  # every call ends in a sync: no replay is in flight
+        del graphs[next(iter(graphs))]
+    with torch.cuda.device(dev):
+        graphs[key] = _Graph(bvh, parent, is_long, ccap)
+    return out
 
 
 def _prepare(bvh: Bvh2, parent, is_long, ccap: int):
@@ -196,10 +283,11 @@ def _prepare(bvh: Bvh2, parent, is_long, ccap: int):
     own_row = torch.cat([own_pc + 1, own_inc + 1, own_inc + 1])[None]
     cout = torch.cat([cvals, child_cvals(c_left), child_cvals(c_right)], dim=1)
     pre_v = torch.cat([seed_row, own_row, cout, full((2, 3 * ccap), 0)])  # [34, 3 ccap]
-    pre = torch.cat([full((1, m), _UNK << 23), full((1, m), 0),
-                     cbg_col.expand(30, m), full((2, m), 0)])
-    keep = pre_t < m  # JAX's mode="drop"
-    pre[:, pre_t[keep]] = pre_v[:, keep]
+    # JAX's mode="drop": targets outside [0, m) land in a spare column m
+    pre = torch.cat([full((1, m + 1), _UNK << 23), full((1, m + 1), 0),
+                     cbg_col.expand(30, m + 1), full((2, m + 1), 0)], dim=0)
+    pre[:, torch.where(pre_t < m, pre_t, m)] = pre_v
+    pre = pre[:, :m]
     seed_e2, own_dense, carr = pre[0], pre[1], pre[2:34]
 
     # ---- kernel inputs (lane-major; W = n columns so leaf n-1 exists) ----
