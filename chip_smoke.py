@@ -81,7 +81,8 @@ On the way it
    shadow, ploc, batched, batched block, wavefront, app), every launch counter set to 0 just
    before each and read
    just after, and checks: every kernel of each path launched (the front
-   half's three once a build on the build and ploc paths; on the
+   half's three once a build on the build and ploc paths; the collapse's
+   P1, P2 and B3 once on the collapse path; on the
    ploc path one fused-round launch per round and none of B9's or B10's,
    host syncs = rounds + 1 per build); the fast
    topologies equal B1's route (`apetrei_build_packed_full`,
@@ -261,6 +262,8 @@ KERNELS = {  # name: (TPU kernel, source, the TPU kernel it replaces), B1 to B16
 }
 FRONT_WORK = {"front_tri_box": "tri_box", "front_keys": "keys", "front_gather": "gather"}
 FRONT_KERNELS = tuple(FRONT_WORK)
+# the collapse's prep (P1) and coarse stage (P2), csrc/collapse_prep.cu: no TPU kernel
+COLLAPSE_PREP_KERNELS = ("collapse_prep", "collapse_coarse")
 FRONT_FRAME = {"n_tris": 4_000_000, "occupancy_tris": 262_000, "seed": 22}  # benchmark/scene.py
 TRAVERSALS = ("packed", "if_if", "while_while", "speculative", "restart_trail")
 WAVEFRONT = (512, 512)  # the JAX bench's wavefront row: sponza 262K, 512^2 primary rays
@@ -516,9 +519,9 @@ def front_calls(inputs):
 def launch_counters():
     """The port's launch counters: kernel -> (module, counter attribute[,
     key of a counter dict])."""
-    from tpu_bvh_torch.ops import (batched_block, batched_build, collapse_block, front_half,
-                                   plane_scan, ploc_nn, ploc_round, raster_gpu, ray_sweep,
-                                   refit_dense, scan32, threshold_core, traverse)
+    from tpu_bvh_torch.ops import (batched_block, batched_build, collapse_block, collapse_fast,
+                                   front_half, plane_scan, ploc_nn, ploc_round, raster_gpu,
+                                   ray_sweep, refit_dense, scan32, threshold_core, traverse)
     return {
         "scan32": (scan32, "launches"), "refit_dense": (refit_dense, "launches"),
         "collapse_block": (collapse_block, "launches"), "raster_sweep": (raster_gpu, "launches"),
@@ -537,6 +540,8 @@ def launch_counters():
         **{f"traverse_{v}": (traverse, "launches", v) for v in TRAVERSALS},
         # and the front half's by kernel in one dict
         **{k: (front_half, "kernel_launches", k) for k in FRONT_KERNELS},
+        # and the collapse's prep kernels (P1, P2) in one dict
+        **{k: (collapse_fast, "kernel_launches", k) for k in COLLAPSE_PREP_KERNELS},
     }
 
 
@@ -1163,8 +1168,11 @@ def main():
     topo, _ = run_path("topology", ["psv_nsv_packed", "psv_nsv_packed_lanes", "psv_nsv_payload"],
                        lambda: (radix_tree.apetrei_topology_fast(t_codes),
                                 radix_tree.karras_topology_fast(t_codes)))
-    wide, _ = run_path("collapse", ["collapse_block"],
-                       lambda: collapse_fast.collapse_lbvh_to_bvh4(bvh, parent, first, last))
+    wide, c_counts = run_path("collapse", ["collapse_block", *COLLAPSE_PREP_KERNELS],
+                              lambda: collapse_fast.collapse_lbvh_to_bvh4(bvh, parent, first, last))
+    require(all(c_counts[k] == 1 for k in ("collapse_block", *COLLAPSE_PREP_KERNELS))
+            and collapse_fast.last_build["launches"] == 3,
+            "collapse path: P1, P2 and B3 launched once each")
 
     def render():
         pk = raster.pack_raster(bvh, tris, leaf_size=LEAF)

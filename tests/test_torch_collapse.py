@@ -94,6 +94,26 @@ def test_fast_collapse_matches_jax(name):
     assert abs(sah - jsah) <= 1e-6 * abs(jsah)
 
 
+@pytest.mark.parametrize("name", SCENES)
+def test_prepare_rows_do_not_depend_on_the_capacity(name):
+    """The plain prep gives the same four rows at every coarse capacity
+    from the long count up to m: the lanes past the count touch no row, so
+    the card's coarse stage skips them, and a chain-shaped crown runs at
+    capacity m in the same launch."""
+    bvh, parent, first, last = _port_aux(scene(name))
+    is_long = (last - first + 1) > collapse_block.S_LEN
+    lowest = max(int(is_long.sum()), 1)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # thousands of small calls run fastest on one thread
+    try:
+        want = collapse_fast._prepare(bvh, parent, is_long, lowest)
+        for cap in range(lowest + 1, bvh.n_internal + 1):
+            got = collapse_fast._prepare(bvh, parent, is_long, cap)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), cap
+    finally:
+        torch.set_num_threads(threads)
+
+
 def test_caterpillar_takes_the_overflow_branch():
     assert scenes.caterpillar().tobytes() == _caterpillar_tris().tobytes()
     bvh, parent, first, last = _port_aux(scene("caterpillar"))

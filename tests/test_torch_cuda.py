@@ -243,12 +243,27 @@ def _soup(scene):
     return scenes.caterpillar()
 
 
+def _same_rows(got, want):
+    """B3's four input rows on the card equal the plain prep's on the CPU."""
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.int32 and torch.equal(g.cpu(), w)
+
+
 @pytest.mark.parametrize("scene", ["sponza_like", "dup", "caterpillar"])
 def test_collapse_kernel_matches_plain(cuda, scene):
+    """P1 and P2 (the caterpillar's crown overflows the bushy capacity and
+    runs at capacity m) give the plain prep's rows; B3 on them gives the
+    plain version's outputs; the whole collapse on the card makes three
+    hand-written launches and equals the CPU collapse."""
     tris = torch.from_numpy(_soup(scene))
     aux = lbvh.build_single_pass_aux(tris.to(cuda))
     m = aux[0].n_internal
+    before = collapse_fast.launches
     rows = collapse_fast.kernel_inputs(*aux)
+    torch.cuda.synchronize()
+    assert collapse_fast.launches == before + 2
+    _same_rows(rows, collapse_fast.kernel_inputs(*lbvh.build_single_pass_aux(tris)))
     before = collapse_block.launches
     got_m, got_a = collapse_block.collapse_block(*rows, m)
     torch.cuda.synchronize()
@@ -259,7 +274,12 @@ def test_collapse_kernel_matches_plain(cuda, scene):
         assert torch.equal(g, w)
     # the whole collapse on the GPU == the port's CPU collapse
     got = collapse_fast.collapse_lbvh_to_bvh4(*aux)
+    torch.cuda.synchronize()
+    assert collapse_fast.last_build["launches"] == 3
+    n_long = int(collapse_fast.last_build["long"])
     want = collapse_fast.collapse_lbvh_to_bvh4(*lbvh.build_single_pass_aux(tris))
+    assert collapse_fast.last_build["launches"] == 0
+    assert int(collapse_fast.last_build["long"]) == n_long
     for f in Bvh4._fields:
         assert torch.equal(_bits(getattr(got, f).cpu()), _bits(getattr(want, f))), f
     assert validate.check_bvh4_correctness(got, tris.shape[0])
@@ -270,13 +290,16 @@ CT = collapse_block.TILE
 
 @pytest.mark.parametrize("w", [CT - 1, CT, CT + 1, 3 * CT + 5])
 def test_collapse_tiles_match_plain(cuda, w):
-    """B3 where W (the leaf count) falls at and across tile borders."""
+    """P1, P2 and B3 where W (the leaf count) falls at and across tile
+    borders (P1's tile and B3's are both TILE lanes): the rows equal the
+    plain prep's on the CPU, B3's outputs the plain version's."""
     rng = np.random.default_rng(w)
     base = rng.uniform(-10.0, 10.0, (w, 1, 3))
     tris = torch.from_numpy((base + rng.normal(0.0, 0.5, (w, 3, 3))).astype(np.float32))
     aux = lbvh.build_single_pass_aux(tris.to(cuda))
     rows = collapse_fast.kernel_inputs(*aux)
     assert rows[0].shape[1] == w
+    _same_rows(rows, collapse_fast.kernel_inputs(*lbvh.build_single_pass_aux(tris)))
     got_m, got_a = collapse_block.collapse_block(*rows, aux[0].n_internal)
     want_m, want_a = collapse_block.collapse_block_reference(*rows, aux[0].n_internal)
     torch.cuda.synchronize()
@@ -286,9 +309,10 @@ def test_collapse_tiles_match_plain(cuda, w):
 @pytest.mark.parametrize("scene", ["sponza_262k", "bench_4m"])
 def test_build_single_pass_bvh4_on_the_card_equals_the_cpu_path(cuda, scene):
     """The build-plus-collapse entry at the benchmark's sizes (a 4M frame of
-    `benchmark/scene.py`: 3,999,995 internal nodes): one B3 launch, and the
-    card's Bvh4 equals the plain path's on the CPU bit for bit; the card
-    reads B3's error flag once more than the CPU path reads."""
+    `benchmark/scene.py`: 3,999,995 internal nodes): one B3 launch, three
+    hand-written launches in the collapse, B3's rows and the card's Bvh4
+    equal the plain path's on the CPU bit for bit; the card reads B3's error
+    flag once more than the CPU path reads, five reads at 4M."""
     if scene == "sponza_262k":
         tris = torch.from_numpy(scenes.sponza_like(262_000))
     else:
@@ -299,21 +323,26 @@ def test_build_single_pass_bvh4_on_the_card_equals_the_cpu_path(cuda, scene):
     got = lbvh.build_single_pass_bvh4(tris.to(cuda))
     torch.cuda.synchronize()
     assert collapse_block.launches == before + 1
+    assert collapse_fast.last_build["launches"] == 3
     syncs = lbvh.last_build["host_syncs"]
+    if scene == "bench_4m":
+        assert syncs == 5
     want = lbvh.build_single_pass_bvh4(tris)
     assert syncs == lbvh.last_build["host_syncs"] + 1
     for f in Bvh4._fields:
         assert torch.equal(_bits(getattr(got, f).cpu()), _bits(getattr(want, f))), f
+    del got, want
+    aux = lbvh.build_single_pass_aux(tris.to(cuda))
+    cpu_aux = (Bvh2(*(x.cpu() for x in aux[0])), *(x.cpu() for x in aux[1:]))
+    _same_rows(collapse_fast.kernel_inputs(*aux), collapse_fast.kernel_inputs(*cpu_aux))
 
 
 @pytest.mark.parametrize("n", [2, 300, 70_000])
 def test_build_single_pass_bvh4_replays_equal_the_cpu_path(cuda, n):
-    """A size's first collapse on the card runs op by op and captures a
-    graph; later calls at that size replay it. Three soups of n triangles,
-    the first one again last: every call one B3 launch and one flag read
-    more than the CPU path, and every Bvh4 equal to the CPU path's bit for
-    bit, read after the last call (the replays copy each soup's tree in
-    and their outputs out)."""
+    """Repeated calls at one size: three soups of n triangles, the first
+    one again last: every call one B3 launch and one flag read more than
+    the CPU path, and every Bvh4 equal to the CPU path's bit for bit, read
+    after the last call (no call's output is reused by a later one)."""
     g = torch.Generator().manual_seed(n)
     soups = [torch.rand((1, 1, 3), generator=g) * 20 + torch.rand((n, 3, 3), generator=g)
              for _ in range(2)]
@@ -327,7 +356,7 @@ def test_build_single_pass_bvh4_replays_equal_the_cpu_path(cuda, n):
         syncs = lbvh.last_build["host_syncs"]
         want.append(lbvh.build_single_pass_bvh4(tris))
         assert syncs == lbvh.last_build["host_syncs"] + 1
-    for a, b in zip(got, want):  # after every call: no output is the graph's own memory
+    for a, b in zip(got, want):  # after every call
         for f in Bvh4._fields:
             assert torch.equal(_bits(getattr(a, f).cpu()), _bits(getattr(b, f))), f
 
@@ -1431,7 +1460,15 @@ def test_cost_analysis_counts_each_hand_kernel(cuda):
                         dlt[:, None], threshold_core.BIG)
     bvh, tris, rays, tr = _traverse_case("sponza", cuda)
     meshes = batched.pad_meshes(scenes.random_meshes(256, 32, 2), 32, device=cuda)[0]
+    caux = lbvh.build_single_pass_aux(torch.from_numpy(_soup("sponza_like")).to(cuda))
+    c_meta, _, _, c_carr = collapse_fast.kernel_inputs(*caux)
+    c_n = caux[0].n_leaves
+    c_long = int(((caux[3] - caux[2] + 1) > collapse_block.S_LEN).sum())
     cases = [
+        ("collapse_prep", lambda: collapse_fast.kernel_inputs(*caux),
+         work.collapse_prep(c_n, c_long), "collapse_"),
+        ("collapse_coarse", lambda: collapse_fast.kernel_inputs(*caux),
+         work.collapse_prep(c_n, c_long, c_meta, c_carr), "collapse_"),
         ("ploc_nn", lambda: ploc_nn.ploc_nn_round_raw(mat, n, 32, R), work.ploc_nn(n, R, 32),
          "ploc_nn_kernel"),
         ("ploc_emit_compact", lambda: ploc_round.ploc_emit_compact(mat, nn, nodes, n, 0),

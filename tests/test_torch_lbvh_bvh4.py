@@ -10,7 +10,8 @@ on the CPU.
   `jax.disable_jit()`) field by field, and its sequential oracle
   (`tpu_bvh.utils.cpu_reference.collapse_cpu`) renumbered by its bvh2 ids.
 * Under a profiler the collapse is the top-level span `bvh.collapse` after
-  `bvh.finalize`, with `bvh.collapse_block` inside it, and
+  `bvh.finalize`, with `bvh.collapse_prep` and `bvh.collapse_block` inside
+  it, and
   `last_build["host_syncs"]` counts the collapse's reads.
 """
 import json
@@ -136,7 +137,7 @@ def test_collapse_spans_follow_the_build(tmp_path):
     assert [(name, parent) for _, _, name, parent in got] == [
         ("bvh.front_half", None), ("bvh.sort", "bvh.front_half"), ("bvh.topology", None),
         ("bvh.refit", "bvh.topology"), ("bvh.finalize", None), ("bvh.collapse", None),
-        ("bvh.collapse_block", "bvh.collapse")]
+        ("bvh.collapse_prep", "bvh.collapse"), ("bvh.collapse_block", "bvh.collapse")]
     finalize, collapse = got[4], got[5]
     assert finalize[1] <= collapse[0]
 

@@ -228,23 +228,16 @@ _err = threading.local()
 
 
 def _collapse_block_cuda(meta, node8, leaf8, carr, m: int):
-    global launches
-    stream = kernels.stream_of(meta)
-    words = vars(_err).setdefault("words", {})
-    err = words.get((meta.device, stream))
-    if err is None:
-        err = words[(meta.device, stream)] = torch.zeros((1,), dtype=I32, device=meta.device)
-    outm, outa = launch(meta, node8, leaf8, carr, m, err)
-    launches += 1
+    outm, outa, err = launch(meta, node8, leaf8, carr, m)
     check_flag(err)
     return outm, outa
 
 
-def launch(meta, node8, leaf8, carr, m: int, err):
-    """Launch B3 on the current stream with the error word `err` (i32[1],
-    zero) and return its outputs, without reading the word or counting the
-    launch: a CUDA graph captures this, and its replay counts the launch and
-    reads the word (`check_flag`)."""
+def launch(meta, node8, leaf8, carr, m: int):
+    """Launch B3 on the current stream; returns (outm, outa, its error word
+    i32[1]) without reading the word, so that a caller can queue the work
+    that follows before it reads the word with `check_flag`."""
+    global launches
     W = meta.shape[1]
     for name, x, rows in (("meta", meta, 8), ("node8", node8, 8), ("leaf8", leaf8, 8),
                           ("carr", carr, 32)):
@@ -252,16 +245,22 @@ def launch(meta, node8, leaf8, carr, m: int, err):
     if not 1 <= m < W:
         raise ValueError(f"collapse_block needs 1 <= m < W, got m={m}, W={W}")
     dev = meta.device
+    stream = kernels.stream_of(meta)
+    words = vars(_err).setdefault("words", {})
+    err = words.get((dev, stream))
+    if err is None:
+        err = words[(dev, stream)] = torch.zeros((1,), dtype=I32, device=dev)
     outm = torch.empty((8, W), dtype=I32, device=dev)
     outa = torch.empty((4, 8, W), dtype=I32, device=dev)
     code = kernels.lib().tbvh_collapse_block(
         meta.data_ptr(), node8.data_ptr(), leaf8.data_ptr(), carr.data_ptr(), W, m,
-        err.data_ptr(), outm.data_ptr(), outa.data_ptr(), kernels.stream_of(meta),
+        err.data_ptr(), outm.data_ptr(), outa.data_ptr(), stream,
     )
     kernels.check("tbvh_collapse_block", code)
+    launches += 1
     introspect.record("collapse_block", lambda: work.collapse_block(meta, carr, outm, outa, m),
                       "collapse_block_kernel")
-    return outm, list(outa.unbind(0))
+    return outm, list(outa.unbind(0)), err
 
 
 def check_flag(err) -> None:

@@ -11,38 +11,40 @@ child_count 0) and `Bvh4.root` is the bvh2 root.
 Three stages, as in the JAX package:
   1. prep: areas, short flags, the kernel's dense input rows;
   2. coarse stage: the nodes whose leaf range exceeds S_LEN (an
-     ancestor-closed crown of a few percent) are compacted by one sort;
-     the expansion simulation, the state pointer doubling and the
-     ownership values run there, and everything they produce (seeds,
-     slots, counts, slot AABBs, claims) goes into the kernel's rows by
-     one lane scatter;
-  3. `collapse_block`: the short nodes, plus the coarse rows passed
+     ancestor-closed crown of a few percent) are compacted; the expansion
+     simulation, the state pointer doubling and the ownership values run
+     there, and everything they produce (seeds, slots, counts, slot AABBs,
+     claims) goes into the kernel's rows by one lane scatter;
+  3. `collapse_block` (B3): the short nodes, plus the coarse rows passed
      through; its dense outputs are the Bvh4.
 
 The coarse capacity 2n/(S_LEN+1) + 2 covers bushy trees; chain-shaped
 crowns can exceed it, so a Python branch on the measured long count (one
-host sync) reruns the same stage at capacity m.
+host sync) runs the same stage at capacity m.
 
-On the card the three stages run as one CUDA graph a size: a size's first
-call runs them op by op and captures them, and later calls copy the tree
-into the graph's inputs, replay it and copy its outputs out, so the host
-makes one launch for the collapse's ~600 kernels. Cost analysis
-(`utils/introspect`) and the CPU run the ops one by one.
+On the card stages 1 and 2 are two hand-written launches
+(`csrc/collapse_prep.cu`): P1 (`collapse_prep`) writes every row and
+compacts the long nodes by a single-pass scan, which also gives the long
+count; P2 (`collapse_coarse`, one cooperative launch) runs the coarse stage
+and its scatter. A CPU tensor takes the plain ops (`_prepare`), which the
+JAX package is held to; both give the same rows bit for bit.
 
 Under a running profiler the collapse is the span `bvh.collapse`, with
-`bvh.collapse_block` inside it (B3's launch and its error flag's read; in a
-replay the flag's read). Its device-to-host reads are counted at their
-sites (`utils/timer.count_host_sync`): the long count and, on the card,
-B3's error flag.
+`bvh.collapse_prep` (stages 1 and 2) and `bvh.collapse_block` (B3's launch
+and its error flag's read) inside it; on the card B3's flag is read in a
+second `bvh.collapse_block` span, after the Bvh4's slices are queued. Its device-to-host reads are counted
+at their sites (`utils/timer.count_host_sync`): the long count and, on the
+card, B3's error flag. `launches` counts P1's and P2's launches,
+`kernel_launches` each kernel's apart; `last_build` holds the last
+collapse's hand-written launches (P1, P2 and B3: 3 on the card, 0 on the
+CPU) and its long count (an i32[] on the tree's device).
 """
 from __future__ import annotations
-
-import threading
 
 import torch
 
 from ..types import Bvh2, Bvh4
-from ..utils import introspect, kernels, timer
+from ..utils import introspect, kernels, timer, work
 from ..utils.platform import on_cuda
 from . import collapse_block as b3
 from .collapse_block import _E1, _E2, _UNK, _WIDE, S_LEN, _apply, collapse_block, expand2
@@ -50,6 +52,13 @@ from .collapse_block import _E1, _E2, _UNK, _WIDE, S_LEN, _apply, collapse_block
 I32 = torch.int32
 F32 = torch.float32
 _BIGKEY = 2**30
+_PREP_TILE = 1024  # lanes a block of P1 (kTile in csrc/collapse_prep.cu)
+_COARSE_ROWS = 11  # P2's scratch rows (csrc/collapse_prep.cu)
+launches = 0  # P1 and P2 launches since the last reset
+kernel_launches = {"collapse_prep": 0, "collapse_coarse": 0}
+last_build = {"launches": 0, "long": None}
+_prep_work = {}  # (device, stream) -> P1's look-back status words and ticket
+_epoch = 0  # P1 launches in this process: tags its look-back words
 
 
 def _bits(x):
@@ -61,22 +70,32 @@ def collapse_lbvh_to_bvh4(bvh: Bvh2, parent, first, last) -> Bvh4:
     at boundary i with first_i <= i < last_i). parent: i32[2n-1] (leaf
     parents included). first/last: i32[n-1] inclusive leaf ranges."""
     with timer.span("bvh.collapse"):
-        is_long, ccap = _long_nodes(bvh, first, last)
-        parent = parent.to(I32)
-        if not on_cuda(bvh.packed_t) or introspect.recording():
-            return _collapse(bvh, parent, is_long, ccap, collapse_block)
-        return _replay(bvh, parent, is_long, ccap)
+        start = launches + b3.launches
+        m = bvh.n_internal
+        rows, n_long = _inputs(bvh, parent, first, last)
+        if on_cuda(bvh.packed_t):
+            # the Bvh4's slices are queued behind B3 before its flag is read
+            with timer.span("bvh.collapse_block"):
+                outm, outa, err = b3.launch(*rows, m)
+            del rows  # B3's input, freed before the slices allocate
+            out = _bvh4(bvh, outm, outa)
+            with timer.span("bvh.collapse_block"):
+                b3.check_flag(err)
+        else:
+            out = _bvh4(bvh, *collapse_block(*rows, m))
+        last_build.update(launches=launches + b3.launches - start, long=n_long)
+        return out
 
 
 def kernel_inputs(bvh: Bvh2, parent, first, last):
     """Stages 1 and 2: the arguments (meta, node8, leaf8, carr) of
-    `collapse_block` for this tree."""
-    return _prepare(bvh, parent.to(I32), *_long_nodes(bvh, first, last))
+    `collapse_block` for this tree; P1 and P2 on the card."""
+    return _inputs(bvh, parent, first, last)[0]
 
 
-def _long_nodes(bvh: Bvh2, first, last):
-    """The long-node flags and the coarse capacity that holds them."""
-    n = bvh.n_leaves
+def _inputs(bvh: Bvh2, parent, first, last):
+    """(the kernel rows, the long count i32[]), under the span
+    `bvh.collapse_prep`."""
     m = bvh.n_internal
     if m < 1:
         raise ValueError("collapse needs at least 2 leaves")
@@ -84,23 +103,32 @@ def _long_nodes(bvh: Bvh2, first, last):
     # sentinel is 2^30, so node ids must fit 22 bits
     if m >= (1 << 22):
         raise ValueError("collapse packing requires < 2^22 internal nodes")
-    is_long = (last - first + 1) > S_LEN
-    ccap = min(2 * n // (S_LEN + 1) + 2, m)
+    parent = parent.to(I32)
+    with timer.span("bvh.collapse_prep"):
+        if on_cuda(bvh.packed_t):
+            return _prepare_cuda(bvh, parent, first, last)
+        is_long = (last - first + 1) > S_LEN
+        n_long = is_long.sum(dtype=I32)
+        return _prepare(bvh, parent, is_long, _capacity(bvh, n_long)), n_long
+
+
+def _capacity(bvh: Bvh2, n_long) -> int:
+    """The coarse capacity that holds the long nodes, given their count
+    (an i32[], read only where the bushy capacity is below m)."""
+    m = bvh.n_internal
+    ccap = min(2 * bvh.n_leaves // (S_LEN + 1) + 2, m)
     if ccap < m:
-        n_long = int(is_long.sum())  # one host sync
+        count = int(n_long)  # one host sync
         timer.count_host_sync()
-        if n_long > ccap:
+        if count > ccap:
             ccap = m  # a chain-shaped crown: the same stage at full capacity
-    return is_long, ccap
+    return ccap
 
 
-def _collapse(bvh: Bvh2, parent, is_long, ccap: int, block) -> Bvh4:
-    """Stages 1-3 at coarse capacity `ccap`; `block(meta, node8, leaf8,
-    carr, m)` runs B3."""
+def _bvh4(bvh: Bvh2, outm, outa) -> Bvh4:
+    """The Bvh4 in B3's dense outputs."""
     m = bvh.n_internal
     n = bvh.n_leaves
-    outm, outa = block(*_prepare(bvh, parent, is_long, ccap), m)
-    # the kernel's dense outputs are the Bvh4
     count = outm[4, :m]
     sp = torch.stack([a[0:6, :m] for a in outa]).contiguous().view(F32)  # [4, 6, m]
     return Bvh4(
@@ -115,55 +143,53 @@ def _collapse(bvh: Bvh2, parent, is_long, ccap: int, block) -> Bvh4:
     )
 
 
-class _Graph:
-    """Stages 1-3 captured as one CUDA graph for trees of n leaves at coarse
-    capacity `ccap`, on the stream current at capture: static inputs (the
-    tree's boxes and links, the parents, the long-node flags) that each call
-    copies in, and static outputs that each call copies out."""
-
-    def __init__(self, bvh: Bvh2, parent, is_long, ccap: int):
-        dev = bvh.packed_t.device
-        self.inputs = [x.clone() for x in (bvh.packed_t, bvh.left, bvh.right, parent, is_long)]
-        self.err = torch.zeros((1,), dtype=I32, device=dev)
-        tree = Bvh2(*self.inputs[:3], bvh.root)
-        block = lambda *rows: b3.launch(*rows, self.err)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.outputs = _collapse(tree, self.inputs[3], self.inputs[4], ccap, block)
-
-    def __call__(self, bvh: Bvh2, parent, is_long) -> Bvh4:
-        for dst, src in zip(self.inputs, (bvh.packed_t, bvh.left, bvh.right, parent, is_long)):
-            dst.copy_(src)
-        self.graph.replay()
-        b3.launches += 1
-        out = Bvh4(*(x.clone() for x in self.outputs))._replace(root=bvh.root.to(I32))
-        with timer.span("bvh.collapse_block"):
-            b3.check_flag(self.err)
-        return out
+def _next_epoch() -> int:
+    """The next P1 launch's tag for its look-back words: 30 bits, never 0
+    (a zeroed word)."""
+    global _epoch
+    _epoch = _epoch % ((1 << 30) - 1) + 1
+    return _epoch
 
 
-# each thread's graphs by (device, stream, n, ccap), the newest last; each
-# holds the collapse's working memory at its size, so a thread keeps two
-_graphs = threading.local()
-_MAX_GRAPHS = 2
+def _launched(name, count, symbol):
+    global launches
+    launches += 1
+    kernel_launches[name] += 1
+    introspect.record(name, count, symbol)
 
 
-def _replay(bvh: Bvh2, parent, is_long, ccap: int) -> Bvh4:
-    """The collapse on the card. A size's first call runs the ops one by one
-    and then captures them as a graph (`_Graph`); later calls replay it, so
-    the host launches the collapse's ~600 kernels as one."""
-    dev = bvh.packed_t.device
-    key = (dev, kernels.stream_of(bvh.packed_t), bvh.n_leaves, ccap)
-    graphs = vars(_graphs).setdefault("graphs", {})
-    g = graphs.get(key)
-    if g is not None:
-        return g(bvh, parent, is_long)
-    out = _collapse(bvh, parent, is_long, ccap, collapse_block)
-    if len(graphs) >= _MAX_GRAPHS:  # every call ends in a sync: no replay is in flight
-        del graphs[next(iter(graphs))]
-    with torch.cuda.device(dev):
-        graphs[key] = _Graph(bvh, parent, is_long, ccap)
-    return out
+def _prepare_cuda(bvh: Bvh2, parent, first, last):
+    """`_prepare`'s rows by P1 and P2, and the long count i32[] (P1's)."""
+    n, m, mm = bvh.n_leaves, bvh.n_internal, bvh.n_nodes
+    pk, left, right = bvh.packed_t, bvh.left.to(I32), bvh.right.to(I32)
+    first, last = first.to(I32), last.to(I32)
+    kernels.require(pk, "packed_t", F32, (6, mm))
+    for name, x, size in (("left", left, mm), ("right", right, mm), ("parent", parent, mm),
+                          ("first", first, m), ("last", last, m)):
+        kernels.require(x, name, I32, (size,))
+    dev = pk.device
+    stream = kernels.stream_of(pk)
+    rows = torch.empty((56, n), dtype=I32, device=dev)  # meta, node8, leaf8, carr
+    longs = torch.empty(2 * m + 1, dtype=I32, device=dev)  # rank, ids, the long count
+    rank, ids, n_long = longs[:m], longs[m:2 * m], longs[2 * m]
+    status, ticket = kernels.look_back_work(_prep_work, dev, stream, -(-n // _PREP_TILE))
+    err = kernels.lib().tbvh_collapse_prep(
+        pk.data_ptr(), left.data_ptr(), right.data_ptr(), parent.data_ptr(), first.data_ptr(),
+        last.data_ptr(), n, rows.data_ptr(), rank.data_ptr(), ids.data_ptr(),
+        n_long.data_ptr(), status.data_ptr(), ticket.data_ptr(), _next_epoch(), stream)
+    kernels.check("tbvh_collapse_prep", err)
+    _launched("collapse_prep", lambda: work.collapse_prep(n, int(n_long)), "collapse_prep_kernel")
+    meta, node8, leaf8, carr = rows[0:8], rows[8:16], rows[16:24], rows[24:56]
+    cap = _capacity(bvh, n_long)
+    scratch = torch.empty((_COARSE_ROWS, cap), dtype=I32, device=dev)
+    err = kernels.lib().tbvh_collapse_coarse(
+        pk.data_ptr(), left.data_ptr(), right.data_ptr(), parent.data_ptr(), n, rank.data_ptr(),
+        ids.data_ptr(), n_long.data_ptr(), cap, scratch.data_ptr(), meta.data_ptr(),
+        carr.data_ptr(), stream)
+    kernels.check("tbvh_collapse_coarse", err)
+    _launched("collapse_coarse", lambda: work.collapse_prep(n, int(n_long), meta, carr),
+              "collapse_coarse_kernel")
+    return (meta, node8, leaf8, carr), n_long
 
 
 def _prepare(bvh: Bvh2, parent, is_long, ccap: int):

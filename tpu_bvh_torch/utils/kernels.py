@@ -37,6 +37,8 @@ _SIGNATURES = {
     "tbvh_raster_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "tbvh_collapse_block": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "tbvh_collapse_prep": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P],
+    "tbvh_collapse_coarse": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P],
     "tbvh_ray_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "tbvh_ploc_round": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P],

@@ -97,6 +97,30 @@ def collapse_block(meta, carr, outm, outa, m: int):
     return n_bytes, 0, f"W {W}, {n_cw} coarse wide lanes, {n_slots} slots of short wide lanes"
 
 
+def collapse_prep(n: int, n_long: int, meta=None, carr=None):
+    """The collapse's prep kernels on a tree of n leaves with n_long long
+    nodes. P1 (`collapse_prep`, no rows given): the box (6 words) of each of
+    the 2n - 1 nodes, left, right, parent, first and last of the n - 1
+    internal nodes and the n leaves' parents read; the 56 rows of B3's input
+    (W = n), rank and the long ids written. P2 (`collapse_coarse`, given the
+    rows it wrote into): per long node its id, links and parent's rank, its
+    children's areas and links read and its seed and own written; the seed
+    and own of each short node it seeds; and per wide long node its 30
+    coarse words written and 6 box words a slot read (the expansion's
+    deeper gathers and the doubling's scratch left out, so a floor)."""
+    m = n - 1
+    if meta is None:
+        words = 6 * (2 * n - 1) + 5 * m + n + 56 * n + m + n_long
+        return 4 * words, 0, f"n {n}, {n_long} long nodes"
+    seeded = int((((meta[4, :m] >> 23) < 3) & (meta[5, :m] == 1)).sum())
+    wide = carr[5] == 1
+    n_wide = int(wide.sum())
+    n_slots = int((carr[0:4][:, wide] >= 0).sum())
+    words = 13 * n_long + 2 * seeded + 30 * n_wide + 6 * n_slots
+    return (4 * words, 0, f"{n_long} long nodes, {n_wide} of them wide with {n_slots} slots, "
+                          f"{seeded} short nodes seeded")
+
+
 def sweep(name: str, args, out):
     """A split sweep (B4 `raster_sweep`, B5 `ray_sweep`): every input read
     once (of the slabs only the treelets that live pairs touch), every
