@@ -264,6 +264,10 @@ FRONT_WORK = {"front_tri_box": "tri_box", "front_keys": "keys", "front_gather": 
 FRONT_KERNELS = tuple(FRONT_WORK)
 # the collapse's prep (P1) and coarse stage (P2), csrc/collapse_prep.cu: no TPU kernel
 COLLAPSE_PREP_KERNELS = ("collapse_prep", "collapse_coarse")
+# the kernels whose launches a path counts (`kernels.launches`, by kernel
+# name); B12 and B13 are one kernel, counted under B12's name
+COUNTED = (*KERNELS, *COLLAPSE_PREP_KERNELS)
+COUNTED_AS = {"psv_nsv_packed_lanes": "psv_nsv_packed"}
 FRONT_FRAME = {"n_tris": 4_000_000, "occupancy_tris": 262_000, "seed": 22}  # benchmark/scene.py
 TRAVERSALS = ("packed", "if_if", "while_while", "speculative", "restart_trail")
 WAVEFRONT = (512, 512)  # the JAX bench's wavefront row: sponza 262K, 512^2 primary rays
@@ -516,46 +520,11 @@ def front_calls(inputs):
                              lambda: fh.gather_reference(skey, pos, rows, None))}
 
 
-def launch_counters():
-    """The port's launch counters: kernel -> (module, counter attribute[,
-    key of a counter dict])."""
-    from tpu_bvh_torch.ops import (batched_block, batched_build, collapse_block, collapse_fast,
-                                   front_half, plane_scan, ploc_nn, ploc_round, raster_gpu,
-                                   ray_sweep, refit_dense, scan32, threshold_core, traverse)
-    return {
-        "scan32": (scan32, "launches"), "refit_dense": (refit_dense, "launches"),
-        "collapse_block": (collapse_block, "launches"), "raster_sweep": (raster_gpu, "launches"),
-        "ray_sweep": (ray_sweep, "launches"), "ploc_round": (ploc_round, "rounds"),
-        "ploc_finish": (ploc_round, "finish_launches"),
-        "ploc_emit_compact": (ploc_round, "emit_launches"), "ploc_nn": (ploc_nn, "launches"),
-        "ploc_round_fused": (ploc_round, "fused_rounds"), "plane_scan": (plane_scan, "launches"),
-        "psv_nsv_packed": (threshold_core, "launches"),
-        "psv_nsv_packed_lanes": (threshold_core, "launches"),
-        "psv_nsv_payload": (threshold_core, "payload_launches"),
-        "child_positions": (threshold_core, "child_launches"),
-        "scan32_halves": (scan32, "half_launches"),
-        "batched_build": (batched_build, "launches"),
-        "batched_block": (batched_block, "launches"),
-        # the traversal kernels count by kernel in one dict
-        **{f"traverse_{v}": (traverse, "launches", v) for v in TRAVERSALS},
-        # and the front half's by kernel in one dict
-        **{k: (front_half, "kernel_launches", k) for k in FRONT_KERNELS},
-        # and the collapse's prep kernels (P1, P2) in one dict
-        **{k: (collapse_fast, "kernel_launches", k) for k in COLLAPSE_PREP_KERNELS},
-    }
+def read_counts():
+    """`kernels.launches` by the rows of COUNTED."""
+    from tpu_bvh_torch.utils import kernels
 
-
-def reset_counts(counters):
-    for mod, attr, *key in counters.values():
-        if key:
-            getattr(mod, attr)[key[0]] = 0
-        else:
-            setattr(mod, attr, 0)
-
-
-def read_counts(counters):
-    return {name: getattr(mod, attr)[key[0]] if key else getattr(mod, attr)
-            for name, (mod, attr, *key) in counters.items()}
+    return {name: kernels.launches[COUNTED_AS.get(name, name)] for name in COUNTED}
 
 
 def sharded_rank(dev, sponza, cbox, full):
@@ -573,10 +542,9 @@ def sharded_rank(dev, sponza, cbox, full):
     from tpu_bvh_torch.models import batched
     from tpu_bvh_torch.ops import raster
     from tpu_bvh_torch.parallel import sharded, sharded_build
-    from tpu_bvh_torch.utils import camera, scenes
+    from tpu_bvh_torch.utils import camera, kernels, scenes
 
     mesh = sharded.default_mesh()
-    counters = launch_counters()
     tris = torch.from_numpy(sponza).to(dev)
     n = tris.shape[0]
     tr, cam = scenes.preset("sponza", dev)
@@ -588,7 +556,7 @@ def sharded_rank(dev, sponza, cbox, full):
         sb = sharded_build.build_single_pass_sharded(mesh, tris)
         return sb, sharded_build.to_bvh2(sb, n, mesh)
 
-    reset_counts(counters)
+    kernels.launches.clear()
     sb, bvh = build()
     calls = {}
     if full:
@@ -601,7 +569,7 @@ def sharded_rank(dev, sponza, cbox, full):
                 mesh, packed, rays, tr, *WAVEFRONT, **caps)}
     res = {k: f() for k, f in calls.items()}
     torch.cuda.synchronize()
-    counts = read_counts(counters)
+    counts = read_counts()
     names = list(counts)
     every = mesh.all_gather(torch.tensor([counts[k] for k in names], device=dev)).tolist()
     if mesh.axis_index() == 0:
@@ -663,7 +631,6 @@ def main():
     sm_mhz = int(subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout.strip())
-    counters = launch_counters()
     # phase 1: the card
     print(f"[1] device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch "
           f"{torch.__version__} | cuda {torch.version.cuda} | python {sys.version.split()[0]}",
@@ -847,9 +814,10 @@ def main():
                                               dtype=np.int64).astype(np.int32)).to(dev)
         for is_min in (True, False):
             for reverse in (False, True):
-                before = plane_scan.launches
+                before = kernels.launches["plane_scan"]
                 got = plane_scan.plane_scan(x, is_min=is_min, reverse=reverse)
-                require(plane_scan.launches == before + 1, "plane_scan: one launch a call")
+                require(kernels.launches["plane_scan"] == before + 1,
+                        "plane_scan: one launch a call")
                 want = plane_scan.plane_scan_reference(x, is_min=is_min, reverse=reverse)
                 torch.cuda.synchronize()
                 same_outputs([got], [want], "plane_scan",
@@ -1014,13 +982,13 @@ def main():
                      f"at its width limit, {W} clusters, shift {shift}")
         print(f"  B7 counters, {W} clusters, shift {shift}: "
               f"{finish_info(ploc_round.last_finish_stats, sm_mhz)}", flush=True)
-    before = ploc_round.finish_launches
+    before = kernels.launches["ploc_finish"]
     try:
         ploc_round.ploc_finish(lim, junk((8, W)), W + 1, 32, 0, R, step)
         refused = False
     except ValueError:
         refused = True
-    require(refused and ploc_round.finish_launches == before,
+    require(refused and kernels.launches["ploc_finish"] == before,
             f"ploc_finish refuses {W + 1} clusters before the launch")
 
     # the batched build (one warp a mesh) on its four inputs: the demo (the
@@ -1047,13 +1015,13 @@ def main():
         require(batched_valid(torch, got, M) and all(
             validate.check_bvh2_correctness(one, M) and validate.check_root_aabb(one)
             for one in ends), f"batched_build, {what}: all {B} trees valid")
-    before = batched_build.launches
+    before = kernels.launches["batched_build"]
     try:
         batched_build.batched_build(torch.zeros((1, batched_build.MAX_PRIMS + 1, 3, 3), device=dev))
         refused = False
     except ValueError:
         refused = True
-    require(refused and batched_build.launches == before,
+    require(refused and kernels.launches["batched_build"] == before,
             f"batched_build refuses capacity {batched_build.MAX_PRIMS + 1} before the launch")
 
     # the block kernel (one block a mesh, 65-1024 prims) on its four inputs:
@@ -1071,11 +1039,11 @@ def main():
     k_got = {}
     for name, t in k_inputs.items():
         B, M = t.shape[:2]
-        before = batched_block.launches
+        before = kernels.launches["batched_block"]
         got = Bvh2(*batched_block.batched_block(t))
         want = batched_block.batched_block_reference(t)
         torch.cuda.synchronize()
-        require(batched_block.launches == before + 1,
+        require(kernels.launches["batched_block"] == before + 1,
                 f"batched_block, {k_what[name]}: one launch a call")
         same_outputs(got, want, "batched_block", f"{k_what[name]}, {B} meshes at capacity {M}")
         ends = [Bvh2(*(f[b] for f in got)) for b in (0, B - 1)]
@@ -1084,13 +1052,13 @@ def main():
             for one in ends), f"batched_block, {k_what[name]}: all {B} trees valid")
         k_got[name] = got
     for cap in (batched_build.MAX_PRIMS, batched_block.MAX_PRIMS + 1):
-        before = batched_block.launches
+        before = kernels.launches["batched_block"]
         try:
             batched_block.batched_block(torch.zeros((1, cap, 3, 3), device=dev))
             refused = False
         except ValueError:
             refused = True
-        require(refused and batched_block.launches == before,
+        require(refused and kernels.launches["batched_block"] == before,
                 f"batched_block refuses capacity {cap} before the launch")
     print(f"  the block kernel's checks: {time.perf_counter() - t_block:.1f} s", flush=True)
 
@@ -1149,10 +1117,10 @@ def main():
     launches = {}
 
     def run_path(path, names, fn):
-        reset_counts(counters)
+        kernels.launches.clear()
         out = fn()
         torch.cuda.synchronize()
-        counts = read_counts(counters)
+        counts = read_counts()
         print(f"  launches in the {path} path: {counts}", flush=True)
         require(all(counts[nm] > 0 for nm in names), f"every kernel of the {path} path launched")
         for nm, c in counts.items():  # over the whole main path
@@ -1656,7 +1624,7 @@ def main():
                 one = runs["nccl"][0]["times"][call]
                 line += f"; NCCL world size 1: host {one[1]!r}, events {one[0]!r} ms"
             print(line + f" ({smi})", flush=True)
-        return {k: sum(r["counts"][k] for run in runs.values() for r in run) for k in counters}
+        return {k: sum(r["counts"][k] for run in runs.values() for r in run) for k in COUNTED}
 
     sharded_counts = sharded_phase()
 

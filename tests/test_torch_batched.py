@@ -33,7 +33,7 @@ from tpu_bvh.models import batched as jbatched
 from tpu_bvh_torch.models import batched
 from tpu_bvh_torch.ops import aabb, batched_build, morton, radix_tree, scan32
 from tpu_bvh_torch.types import MAX_BATCHED_PRIMS, Bvh2
-from tpu_bvh_torch.utils import convert, scenes, validate
+from tpu_bvh_torch.utils import convert, kernels, scenes, validate
 
 I64 = torch.int64
 INT_MAX = 2**31 - 1
@@ -117,9 +117,9 @@ def test_build_batched_equals_jax(case):
     if case.startswith("signed_zero"):
         zeros = tris_b[tris_b == 0]
         assert np.signbit(zeros).any() and (~np.signbit(zeros)).any()
-    before = batched_build.launches
+    before = kernels.launches["batched_build"]
     got = batched.build_batched(torch.from_numpy(tris_b))
-    assert batched_build.launches == before  # a CPU tensor takes the plain version
+    assert kernels.launches["batched_build"] == before  # a CPU tensor takes the plain version
     _assert_same_bytes(got, jbatched.build_batched(jnp.asarray(tris_b)))
     _assert_valid(got)
 

@@ -31,7 +31,7 @@ from tpu_bvh.models import batched as jbatched
 from tpu_bvh_torch.models import batched
 from tpu_bvh_torch.ops import aabb, batched_block, batched_build, morton, refit
 from tpu_bvh_torch.types import Bvh2
-from tpu_bvh_torch.utils import scenes, validate
+from tpu_bvh_torch.utils import kernels, scenes, validate
 
 I64 = torch.int64
 INT_MAX = 2**31 - 1
@@ -96,9 +96,9 @@ def test_build_batched_equals_jax(case):
     if case.startswith("signed_zero"):
         zeros = tris_b[tris_b == 0]
         assert np.signbit(zeros).any() and (~np.signbit(zeros)).any()
-    before = batched_block.launches
+    before = kernels.launches["batched_block"]
     got = batched.build_batched(torch.from_numpy(tris_b))
-    assert batched_block.launches == before  # a CPU tensor takes the plain version
+    assert kernels.launches["batched_block"] == before  # a CPU tensor takes the plain version
     _assert_same_bytes(got, jbatched.build_batched(jnp.asarray(tris_b)))
     for b in range(B):
         one = Bvh2(*(f[b] for f in got))
@@ -140,9 +140,9 @@ def test_build_batched_past_the_block_capacity_equals_jax():
     vmapped path does."""
     rng = np.random.default_rng(1025)
     tris_b, _ = jbatched.pad_meshes([random_tris(rng, 1025), random_tris(rng, 300)], 1025)
-    before = batched_block.launches
+    before = kernels.launches["batched_block"]
     got = batched.build_batched(torch.from_numpy(tris_b))
-    assert batched_block.launches == before
+    assert kernels.launches["batched_block"] == before
     _assert_same_bytes(got, jbatched.build_batched(jnp.asarray(tris_b)))
 
 

@@ -25,9 +25,20 @@ from tpu_bvh_torch.ops import (batched_block, batched_build, collapse_block, col
 from tpu_bvh_torch.ops import ploc as ploc_ops
 from tpu_bvh_torch.types import (PLOC_RADIUS, Bvh2, Bvh4, PrimRefs, Rays, Transformation,
                                  identity_transform)
-from tpu_bvh_torch.utils import camera, introspect, scenes, validate, work
+from tpu_bvh_torch.utils import camera, introspect, kernels, scenes, validate, work
 
 pytestmark = pytest.mark.cuda
+FRONT_KERNELS = ("front_tri_box", "front_keys", "front_gather")
+
+
+def _launches(*names):
+    """The named kernels' launches (`kernels.launches`), summed."""
+    return sum(kernels.launches[k] for k in names)
+
+
+def _traverse_launches():
+    """The traversal kernels' launches, by kernel."""
+    return {k: kernels.launches[f"traverse_{k}"] for k in traverse.KERNELS}
 
 
 @pytest.fixture
@@ -54,10 +65,10 @@ def _codes(kind, n, seed=0):
 @pytest.mark.parametrize("n", [2, 97, 100_003])
 def test_scan_kernel_matches_plain(cuda, kind, n):
     dlt_raw = radix_tree.adjacent_deltas(_codes(kind, n).to(cuda))
-    before = scan32.launches
+    before = kernels.launches["scan32"]
     got = scan32.scan_core(dlt_raw)
     torch.cuda.synchronize()
-    assert scan32.launches == before + 1
+    assert kernels.launches["scan32"] == before + 1
     for g, w in zip(got, scan32.scan_core_reference(dlt_raw)):
         assert torch.equal(g, w)
 
@@ -111,10 +122,10 @@ def _same_bits(got, want):
 @pytest.mark.parametrize("n", [64, 100_003])
 def test_refit_kernel_matches_plain(cuda, radius, n):
     mat = torch.from_numpy(_refit_mat(n, radius, n + radius)).to(cuda)
-    before = refit_dense.launches
+    before = kernels.launches["refit_dense"]
     got = refit_dense.refit_dense(mat, n, radius)
     torch.cuda.synchronize()
-    assert refit_dense.launches == before + 1
+    assert kernels.launches["refit_dense"] == before + 1
     assert _same_bits(got, refit_dense.refit_dense_reference(mat, n, radius))
 
 
@@ -128,12 +139,12 @@ def test_refit_tiles_match_plain_with_signed_zeros(cuda, radius, n):
     both entries, bit for bit, one launch each."""
     mat = torch.from_numpy(_refit_mat(n, radius, n * radius, signed_zeros=True)).to(cuda)
     want = refit_dense.refit_dense_reference(mat, n, radius)
-    before = refit_dense.launches
+    before = kernels.launches["refit_dense"]
     got = refit_dense.refit_dense(mat, n, radius)
     packed_t, first, last = mat[0:6].view(torch.float32), mat[6, :n - 1], mat[7, :n - 1]
     got_cols = refit_dense.refit_dense_cols(packed_t, first, last, n, radius)
     torch.cuda.synchronize()
-    assert refit_dense.launches == before + 2
+    assert kernels.launches["refit_dense"] == before + 2
     assert _same_bits(got, want) and _same_bits(got_cols, want)
 
 
@@ -158,10 +169,10 @@ def test_raster_kernel_matches_plain(cuda, scene, preset, w, h, leaf, caps):
     rays = camera.generate_rays(cam, w, h)
     args, _, ovf = raster_gpu.prepare_sweep(packed, rays, tr, w, h, *caps)
     assert not bool(ovf)
-    before = raster_gpu.launches
+    before = kernels.launches["raster_sweep"]
     got = raster_gpu.raster_sweep(*args)
     torch.cuda.synchronize()
-    assert raster_gpu.launches == before + 1
+    assert kernels.launches["raster_sweep"] == before + 1
     for g, x in zip(got, raster_gpu.raster_sweep_reference(*args)):
         assert torch.equal(g, x)
     assert bool((got[1] >= 0).any())
@@ -181,10 +192,10 @@ def test_raster_split_matches_plain(cuda, w, h):
     rays, wp, hp = raster_gpu.pad_rays(camera.generate_rays(cam, w, h), w, h)
     args, _, ovf = raster_gpu.prepare_sweep(packed, rays, tr, wp, hp, *RENDER_CAPS[(w, h)])
     assert not bool(ovf)
-    before = raster_gpu.launches
+    before = kernels.launches["raster_sweep"]
     got = raster_gpu.raster_sweep(*args)
     torch.cuda.synchronize()
-    assert raster_gpu.launches == before + 1
+    assert kernels.launches["raster_sweep"] == before + 1
     for g, x in zip(got, raster_gpu.raster_sweep_reference(*args)):
         assert torch.equal(g, x)
     sweeps = got[4].reshape(-1, 256)[:, 0] // 64
@@ -227,10 +238,10 @@ def test_raster_sweep_refuses_2_pow_22_pairs(cuda):
     P = raster_gpu.MAX_P
     pad = lambda x, v: torch.cat([x, torch.full((P - x.shape[0],), v, dtype=x.dtype, device=cuda)])
     big = (*args[:2], pad(args[2], -1), pad(args[3], raster_gpu.BIG), pad(args[4], 0), *args[5:])
-    before = raster_gpu.launches
+    before = kernels.launches["raster_sweep"]
     with pytest.raises(ValueError, match="2\\^22"):
         raster_gpu.raster_sweep(*big)
-    assert raster_gpu.launches == before
+    assert kernels.launches["raster_sweep"] == before
 
 
 def _soup(scene):
@@ -259,15 +270,15 @@ def test_collapse_kernel_matches_plain(cuda, scene):
     tris = torch.from_numpy(_soup(scene))
     aux = lbvh.build_single_pass_aux(tris.to(cuda))
     m = aux[0].n_internal
-    before = collapse_fast.launches
+    before = _launches("collapse_prep", "collapse_coarse")
     rows = collapse_fast.kernel_inputs(*aux)
     torch.cuda.synchronize()
-    assert collapse_fast.launches == before + 2
+    assert _launches("collapse_prep", "collapse_coarse") == before + 2
     _same_rows(rows, collapse_fast.kernel_inputs(*lbvh.build_single_pass_aux(tris)))
-    before = collapse_block.launches
+    before = kernels.launches["collapse_block"]
     got_m, got_a = collapse_block.collapse_block(*rows, m)
     torch.cuda.synchronize()
-    assert collapse_block.launches == before + 1
+    assert kernels.launches["collapse_block"] == before + 1
     want_m, want_a = collapse_block.collapse_block_reference(*rows, m)
     assert torch.equal(got_m, want_m)
     for g, w in zip(got_a, want_a):
@@ -319,10 +330,10 @@ def test_build_single_pass_bvh4_on_the_card_equals_the_cpu_path(cuda, scene):
         from benchmark.scene import Scene
 
         tris = Scene(4_000_000, 262_000, 1, 0.0, 2**31 + 23, "cpu").frames[0]
-    before = collapse_block.launches
+    before = kernels.launches["collapse_block"]
     got = lbvh.build_single_pass_bvh4(tris.to(cuda))
     torch.cuda.synchronize()
-    assert collapse_block.launches == before + 1
+    assert kernels.launches["collapse_block"] == before + 1
     assert collapse_fast.last_build["launches"] == 3
     syncs = lbvh.last_build["host_syncs"]
     if scene == "bench_4m":
@@ -349,10 +360,10 @@ def test_build_single_pass_bvh4_replays_equal_the_cpu_path(cuda, n):
     soups.append(torch.rand((n, 3, 3), generator=g) * 50)
     got, want = [], []
     for tris in soups + soups[:1]:
-        before = collapse_block.launches
+        before = kernels.launches["collapse_block"]
         got.append(lbvh.build_single_pass_bvh4(tris.to(cuda)))
         torch.cuda.synchronize()
-        assert collapse_block.launches == before + 1
+        assert kernels.launches["collapse_block"] == before + 1
         syncs = lbvh.last_build["host_syncs"]
         want.append(lbvh.build_single_pass_bvh4(tris))
         assert syncs == lbvh.last_build["host_syncs"] + 1
@@ -380,10 +391,10 @@ def test_ray_sweep_kernel_matches_plain(cuda, occlusion):
                 torch.where(live, dist - 2e-3, -1.0))
     args, _, _, ovf = ray_sweep.prepare_trace(packed, rays, tr, 4096, 24576, 32)
     assert not bool(ovf)
-    before = ray_sweep.launches
+    before = kernels.launches["ray_sweep"]
     got = ray_sweep.ray_sweep_kernel(*args, occlusion)
     torch.cuda.synchronize()
-    assert ray_sweep.launches == before + 1
+    assert kernels.launches["ray_sweep"] == before + 1
     for g, x in zip(got, ray_sweep.ray_sweep_reference(*args, occlusion)):
         assert torch.equal(g, x)
     assert bool((got[1] >= 0).any())
@@ -399,15 +410,15 @@ def test_ray_sweep_kernel_at_its_leaf_size_limit(cuda, leaf):
     args, _, _, ovf = ray_sweep.prepare_trace(packed, camera.generate_rays(cam, 64, 64), tr,
                                               64, 4096, 32)
     assert not bool(ovf) and args[1].shape[1] == leaf
-    before = ray_sweep.launches
+    before = kernels.launches["ray_sweep"]
     if leaf > ray_sweep.MAX_L:
         with pytest.raises(ValueError, match="L <="):
             ray_sweep.ray_sweep_kernel(*args)
-        assert ray_sweep.launches == before
+        assert kernels.launches["ray_sweep"] == before
         return
     got = ray_sweep.ray_sweep_kernel(*args)
     torch.cuda.synchronize()
-    assert ray_sweep.launches == before + 1
+    assert kernels.launches["ray_sweep"] == before + 1
     for g, x in zip(got, ray_sweep.ray_sweep_reference(*args)):
         assert torch.equal(g, x)
     assert bool((got[1] >= 0).any())
@@ -441,10 +452,10 @@ def test_ray_sweep_split_over_many_chunks(cuda, occlusion, inflate):
     if inflate:
         args = list(args)
         args[3] = torch.where(args[3] < ray_sweep.BIG, args[3] * 3.0 + 0.5, args[3])
-    before = ray_sweep.launches
+    before = kernels.launches["ray_sweep"]
     got = ray_sweep.ray_sweep_kernel(*args, occlusion)
     torch.cuda.synchronize()
-    assert ray_sweep.launches == before + 1
+    assert kernels.launches["ray_sweep"] == before + 1
     for g, x in zip(got, ray_sweep.ray_sweep_reference(*args, occlusion)):
         assert torch.equal(g, x)
     sweeps = got[4].reshape(-1, 256)[:, 0] // 16
@@ -464,10 +475,10 @@ def test_ray_sweep_refuses_2_pow_23_pairs(cuda):
     P = ray_sweep.MAX_P
     pad = lambda x, v: torch.cat([x, torch.full((P - x.shape[0],), v, dtype=x.dtype, device=cuda)])
     big = (*args[:2], pad(args[2], -1), pad(args[3], ray_sweep.BIG), pad(args[4], 0), *args[5:])
-    before = ray_sweep.launches
+    before = kernels.launches["ray_sweep"]
     with pytest.raises(ValueError, match="2\\^23"):
         ray_sweep.ray_sweep_kernel(*big)
-    assert ray_sweep.launches == before
+    assert kernels.launches["ray_sweep"] == before
     got = ray_sweep.ray_sweep_kernel(*(x[:-1] if i in (2, 3, 4) else x for i, x in enumerate(big)))
     torch.cuda.synchronize()  # one pair less launches
     for g, x in zip(got, ray_sweep.ray_sweep_reference(*args)):
@@ -495,10 +506,10 @@ def test_front_half_kernels_match_plain(cuda, name, extended):
     extent's bits (a NaN by place); the scene minimum's values (the plain
     amin may keep either zero)."""
     tris = torch.from_numpy(FRONT_SCENES[name]()).to(cuda)
-    before = front_half.launches
+    before = _launches(*FRONT_KERNELS)
     got = lbvh._sorted_leaves_from_tris(tris, extended)
     torch.cuda.synchronize()
-    assert front_half.launches == before + 3 and front_half.last_build == {"launches": 3}
+    assert _launches(*FRONT_KERNELS) == before + 3 and front_half.last_build == {"launches": 3}
     assert _same_bits(got, front_half.from_tris_reference(tris, extended))
     rows, scene_min, ext = front_half.tri_rows(tris)
     want_rows, want_min, want_ext = front_half.tri_rows_reference(tris)
@@ -517,10 +528,10 @@ def test_front_half_refs_route_matches_plain(cuda, name):
     mn, mx = lbvh.prim_refs_from_triangles(tris)[:2]
     g = torch.Generator().manual_seed(5)
     refs = PrimRefs(mn, mx, torch.randperm(tris.shape[0], generator=g).to(cuda, torch.int32))
-    before = front_half.launches
+    before = _launches(*FRONT_KERNELS)
     got = lbvh._sorted_leaves_packed(refs, True)
     torch.cuda.synchronize()
-    assert front_half.launches == before + 2 and front_half.last_build == {"launches": 2}
+    assert _launches(*FRONT_KERNELS) == before + 2 and front_half.last_build == {"launches": 2}
     assert _same_bits(got, front_half.from_rows_reference(lbvh.packed_rows(refs), refs.prim_idx,
                                                           True))
 
@@ -543,11 +554,11 @@ def test_front_half_launches_per_build(cuda):
     builders, none for CPU input; the builds equal the CPU's."""
     tris = torch.from_numpy(FRONT_SCENES["swap"]()).to(cuda)
     for build in (lbvh.build_single_pass, ploc.build_ploc):
-        before = front_half.launches
+        before = _launches(*FRONT_KERNELS)
         got = build(tris)
-        assert front_half.launches == before + 3 and front_half.last_build == {"launches": 3}
+        assert _launches(*FRONT_KERNELS) == before + 3 and front_half.last_build == {"launches": 3}
         want = build(tris.cpu())
-        assert front_half.launches == before + 3 and front_half.last_build == {"launches": 0}
+        assert _launches(*FRONT_KERNELS) == before + 3 and front_half.last_build == {"launches": 0}
         for f in ("packed_t", "left", "right", "root"):
             assert torch.equal(_bits(getattr(got, f)).cpu(), _bits(getattr(want, f)))
 
@@ -560,9 +571,9 @@ def test_front_half_strided_soup_builds_as_its_copy(cuda, view):
     soup = torch.from_numpy(FRONT_SCENES["sponza"]()).to(cuda)
     tris = soup[::2] if view == "every_other" else soup.transpose(1, 2)
     assert not tris.is_contiguous()
-    before = dict(front_half.kernel_launches)
+    before = {k: kernels.launches[k] for k in FRONT_KERNELS}
     got = lbvh.build_single_pass(tris)
-    assert all(front_half.kernel_launches[k] == before[k] + 1 for k in before)
+    assert all(kernels.launches[k] == before[k] + 1 for k in before)
     want = lbvh.build_single_pass(tris.contiguous())
     for f in ("packed_t", "left", "right", "root"):
         assert torch.equal(_bits(getattr(got, f)), _bits(getattr(want, f)))
@@ -653,10 +664,10 @@ def test_ploc_nn_kernel_matches_plain(cuda, state, nc, shift, radius):
     on signed-zero boxes with tied areas."""
     mat = _ploc_state(cuda) if state == "sponza" else _signed_zero_state(cuda)
     nc = mat.shape[1] if nc is None else nc
-    before = ploc_nn.launches
+    before = kernels.launches["ploc_nn"]
     got = ploc_nn.ploc_nn_round_raw(mat, nc, shift, radius)
     torch.cuda.synchronize()
-    assert ploc_nn.launches == before + 1
+    assert kernels.launches["ploc_nn"] == before + 1
     assert torch.equal(got, ploc_nn.ploc_nn_round_raw_reference(mat, nc, shift, radius))
     assert bool((got[7] == 1).any())
 
@@ -692,10 +703,10 @@ def test_ploc_nn_kernel_at_tile_edges(cuda, width, nc, shift, radius, state):
         mat = _ploc_state(cuda)[:, :width].contiguous()
     else:
         mat = _nn_special_state(cuda, width)
-    before = ploc_nn.launches
+    before = kernels.launches["ploc_nn"]
     got = ploc_nn.ploc_nn_round_raw(mat, nc, shift, radius)
     torch.cuda.synchronize()
-    assert ploc_nn.launches == before + 1
+    assert kernels.launches["ploc_nn"] == before + 1
     assert torch.equal(got, ploc_nn.ploc_nn_round_raw_reference(mat, nc, shift, radius))
     assert bool((got[7] == 1).any())
 
@@ -726,7 +737,7 @@ def test_ploc_round_kernels_match_plain(cuda, k):
     mat, nc, shift = states[k]
     base = n - nc
     nn = ploc_nn.ploc_nn_round_raw_reference(mat, nc, shift, R)
-    before = (ploc_round.emit_launches, ploc_round.rounds)
+    before = (kernels.launches["ploc_emit_compact"], _launches("ploc_round", "ploc_round_fused"))
     cases = [
         (ploc_round.ploc_emit_compact(mat, nn, _junk((8, n - 1), cuda), nc, base),
          ploc_round.ploc_emit_compact_reference(mat, nn, _junk((8, n - 1), cuda), nc, base)),
@@ -739,7 +750,8 @@ def test_ploc_round_kernels_match_plain(cuda, k):
     ]
     torch.cuda.synchronize()
     # B9 launches once; each round is one launch of the fused kernel
-    assert (ploc_round.emit_launches, ploc_round.rounds) == (before[0] + 1, before[1] + 2)
+    assert (kernels.launches["ploc_emit_compact"],
+            _launches("ploc_round", "ploc_round_fused")) == (before[0] + 1, before[1] + 2)
     for got, want in cases:
         for g, w in zip(got, want):
             assert torch.equal(g, w)
@@ -763,10 +775,10 @@ def test_emit_compact_one_launch_matches_plain(cuda, nc, merges):
         nn[7] = 0
     base = 7
     _junk((8 * n + 1,), cuda)  # freed at once: the output's allocation takes this block
-    before = ploc_round.emit_launches
+    before = kernels.launches["ploc_emit_compact"]
     got = ploc_round.ploc_emit_compact(mat, nn, _junk((8, n - 1), cuda), nc, base)
     torch.cuda.synchronize()
-    assert ploc_round.emit_launches == before + 1
+    assert kernels.launches["ploc_emit_compact"] == before + 1
     want = ploc_round.ploc_emit_compact_reference(mat, nn, _junk((8, n - 1), cuda), nc, base)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -817,13 +829,14 @@ def test_ploc_round_one_launch_matches_plain(cuda, nc):
     mat = _ploc_state(cuda)
     n = mat.shape[1]
     nc = n if nc == "all" else nc
-    before = (ploc_round.rounds, ploc_round.emit_launches, ploc_nn.launches)
+    before = (_launches("ploc_round", "ploc_round_fused"), kernels.launches["ploc_emit_compact"],
+              kernels.launches["ploc_nn"])
     got = [ploc_round.ploc_round_pp(mat, _junk(mat.shape, cuda), _junk((8, n - 1), cuda), nc, 9,
                                     0, R),
            ploc_round.ploc_round_fused(mat, _junk((8, n - 1), cuda), nc, 9, 0, R)]
     torch.cuda.synchronize()
-    assert (ploc_round.rounds, ploc_round.emit_launches, ploc_nn.launches) == (
-        before[0] + 2, before[1], before[2])
+    assert (_launches("ploc_round", "ploc_round_fused"), kernels.launches["ploc_emit_compact"],
+            kernels.launches["ploc_nn"]) == (before[0] + 2, before[1], before[2])
     want = [ploc_round.ploc_round_pp_reference(mat, _junk(mat.shape, cuda),
                                                _junk((8, n - 1), cuda), nc, 9, 0, R),
             ploc_round.ploc_round_reference(mat, _junk((8, n - 1), cuda), nc, 9, 0, R)]
@@ -871,10 +884,10 @@ def test_ploc_finish_kernel_matches_plain(cuda, width, shift, step):
     shared-memory width limit MAX_FIN_WIDTH."""
     w = ploc_round.MAX_FIN_WIDTH if width == "max" else width
     mat = _ploc_state(cuda, max(w, 16_384) + 64)[:, :w].contiguous()
-    before = ploc_round.finish_launches
+    before = kernels.launches["ploc_finish"]
     got = ploc_round.ploc_finish(mat, _junk((8, w), cuda), w, shift, 0, R, step)
     torch.cuda.synchronize()
-    assert ploc_round.finish_launches == before + 1
+    assert kernels.launches["ploc_finish"] == before + 1
     want = ploc_round.ploc_finish_reference(mat, _junk((8, w), cuda), w, shift, 0, R, step)
     assert torch.equal(got, want)
     assert bool((got[:, :w - 1] != -3).all()) and bool((got[:, w - 1:] == -3).all())
@@ -883,10 +896,10 @@ def test_ploc_finish_kernel_matches_plain(cuda, width, shift, step):
 def test_ploc_finish_refuses_past_its_width(cuda):
     w = ploc_round.MAX_FIN_WIDTH + 1
     mat = _ploc_state(cuda, w + 64)[:, :w].contiguous()
-    before = ploc_round.finish_launches
+    before = kernels.launches["ploc_finish"]
     with pytest.raises(ValueError, match="MAX_FIN_WIDTH"):
         ploc_round.ploc_finish(mat, _junk((8, w), cuda), w, 32, 0, R, 6)
-    assert ploc_round.finish_launches == before
+    assert kernels.launches["ploc_finish"] == before
 
 
 def test_ploc_finish_runs_every_regime(cuda):
@@ -919,7 +932,7 @@ def test_builds_match_cpu(cuda, monkeypatch, name, fin):
     want = build(tris)
     if fin is not None:
         monkeypatch.setattr(ploc_round, "FIN_WIDTH", fin)
-    before = (ploc_round.rounds, ploc_round.finish_launches)
+    before = (_launches("ploc_round", "ploc_round_fused"), kernels.launches["ploc_finish"])
     got = build(tris.to(cuda))
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -931,8 +944,8 @@ def test_builds_match_cpu(cuda, monkeypatch, name, fin):
             assert tris.shape[0] <= ploc_round.FIN_WIDTH and rounds == 0
         else:
             assert rounds > 0
-        assert ploc_round.rounds == before[0] + rounds
-        assert ploc_round.finish_launches == before[1] + 1
+        assert _launches("ploc_round", "ploc_round_fused") == before[0] + rounds
+        assert kernels.launches["ploc_finish"] == before[1] + 1
 
 
 # ------------------------------------------------------ threshold scans
@@ -955,12 +968,12 @@ def test_threshold_kernels_match_plain(cuda, kind, m):
     dlt = _deltas(kind, m, cuda)
     pay = torch.from_numpy(np.random.default_rng(1).integers(0, 2**22, m).astype(np.int32))
     pay = pay.to(cuda)
-    counters = ("launches", "payload_launches", "child_launches")
-    before = [getattr(threshold_core, c) for c in counters]
+    counters = ("psv_nsv_packed", "psv_nsv_payload", "child_positions")
+    before = [kernels.launches[c] for c in counters]
     got = [threshold_core.psv_nsv_packed(dlt), threshold_core.psv_nsv_payload_auto(dlt, pay),
            threshold_core.child_positions_auto(dlt)]
     torch.cuda.synchronize()
-    assert [getattr(threshold_core, c) for c in counters] == [b + 1 for b in before]
+    assert [kernels.launches[c] for c in counters] == [b + 1 for b in before]
     want = [threshold_core.psv_nsv_packed_reference(dlt),
             threshold_core.psv_nsv_payload_reference(dlt, pay),
             threshold_core.child_positions_reference(dlt)]
@@ -1063,12 +1076,12 @@ def test_threshold_kernels_refuse_large_m(cuda, which):
     fn = {"psv_nsv": threshold_core.psv_nsv_packed,
           "payload": lambda d: threshold_core.psv_nsv_payload_auto(d, d),
           "child": threshold_core.child_positions_auto}[which]
-    before = (threshold_core.launches, threshold_core.payload_launches,
-              threshold_core.child_launches)
+    before = (kernels.launches["psv_nsv_packed"], kernels.launches["psv_nsv_payload"],
+              kernels.launches["child_positions"])
     with pytest.raises(ValueError, match=f"m < {limit}"):
         fn(dlt)
-    assert (threshold_core.launches, threshold_core.payload_launches,
-            threshold_core.child_launches) == before
+    assert (kernels.launches["psv_nsv_packed"], kernels.launches["psv_nsv_payload"],
+            kernels.launches["child_positions"]) == before
     got = fn(dlt[:-1])  # one row less launches: equal deltas have no smaller
     torch.cuda.synchronize()  # value and empty child windows
     assert bool((got[0] == -1).all())
@@ -1087,10 +1100,10 @@ def test_plane_scan_kernel_matches_plain(cuda, is_min, reverse, m, v):
     of one and three strips (V = 130: no 16-byte rows)."""
     x = np.random.default_rng(m + v).integers(-(2**31), 2**31 - 1, size=(m, v), dtype=np.int64)
     x = torch.from_numpy(x.astype(np.int32)).to(cuda)
-    before = plane_scan.launches
+    before = kernels.launches["plane_scan"]
     got = plane_scan.plane_scan(x, is_min=is_min, reverse=reverse)
     torch.cuda.synchronize()
-    assert plane_scan.launches == before + 1
+    assert kernels.launches["plane_scan"] == before + 1
     assert torch.equal(got, plane_scan.plane_scan_reference(x, is_min=is_min, reverse=reverse))
 
 
@@ -1140,10 +1153,10 @@ def test_child_positions_kernel_one_pass(cuda, kind, m):
     the scatter) against its plain version: at and past one resident wave
     (2^22 - 1 rows: many tiles a block, the answers parked)."""
     d = _child_deltas(kind, m, cuda)
-    before = threshold_core.child_launches
+    before = kernels.launches["child_positions"]
     got = threshold_core.child_positions_auto(d)
     torch.cuda.synchronize()
-    assert threshold_core.child_launches == before + 1
+    assert kernels.launches["child_positions"] == before + 1
     for g, w in zip(got, threshold_core.child_positions_reference(d)):
         assert torch.equal(g, w)
 
@@ -1155,11 +1168,11 @@ def test_scan_halves_match_plain_and_b1(cuda, kind, n):
     dlt_raw = radix_tree.adjacent_deltas(_codes(kind, n).to(cuda))
     dlt32 = scan32.dlt32_from_raw(dlt_raw)
     m = n - 1
-    before = scan32.half_launches
+    before = kernels.launches["scan32_halves"]
     fwd = scan32.scan_fwd(dlt32)
     rev = scan32.scan_rev(torch.flip(dlt32, [0]), m)
     torch.cuda.synchronize()
-    assert scan32.half_launches == before + 2
+    assert kernels.launches["scan32_halves"] == before + 2
     want = (scan32.scan_fwd_reference(dlt32), scan32.scan_rev_reference(torch.flip(dlt32, [0]), m))
     for gs, ws in zip((fwd, rev), want):
         for g, w in zip(gs, ws):
@@ -1175,12 +1188,12 @@ def test_fast_topologies_match_b1_route(cuda, scene):
     route, the plain oracles and the port's CPU run."""
     tris = torch.from_numpy(_soup(scene)).to(cuda)
     codes, leaves, _ = lbvh._sorted_leaves_from_tris(tris, True)
-    before = (threshold_core.launches, threshold_core.payload_launches)
+    before = (kernels.launches["psv_nsv_packed"], kernels.launches["psv_nsv_payload"])
     ape = radix_tree.apetrei_topology_fast(codes)
     kar = radix_tree.karras_topology_fast(codes)
     torch.cuda.synchronize()
-    assert threshold_core.launches == before[0] + 2
-    assert threshold_core.payload_launches == before[1] + 1
+    assert kernels.launches["psv_nsv_packed"] == before[0] + 2
+    assert kernels.launches["psv_nsv_payload"] == before[1] + 1
     left, right, parent, _, root, first, last = radix_tree.apetrei_build_packed_full(codes, leaves)
     kl, kr, _ = radix_tree.karras_build_packed(codes, leaves)
     for got, want in ((ape, (left, right, parent, first, last, root)), (kar[:2], (kl, kr)),
@@ -1233,10 +1246,10 @@ def test_batched_kernel_matches_plain(cuda, kind):
     the card and on the CPU, floats by their bits; every tree valid."""
     meshes, cap = _batched_meshes(kind)
     tris_b = batched.pad_meshes(meshes, cap, device=cuda)[0]
-    before = batched_build.launches
+    before = kernels.launches["batched_build"]
     got = batched.build_batched(tris_b)
     torch.cuda.synchronize()
-    assert batched_build.launches == before + 1
+    assert kernels.launches["batched_build"] == before + 1
     for want in (batched._build_batched_small(tris_b), batched._build_batched_small(tris_b.cpu())):
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(_bits(g).cpu(), _bits(w).cpu())
@@ -1254,14 +1267,16 @@ def test_batched_kernel_refuses_past_its_capacity(cuda):
     cap = batched_build.MAX_PRIMS + 1
     meshes, _ = _batched_meshes("random64", seed=1)
     tris_b = batched.pad_meshes(meshes[:3], cap, device=cuda)[0]
-    before = batched_build.launches
+    before = kernels.launches["batched_build"]
     with pytest.raises(ValueError, match="2 <= M <= 64"):
         batched_build.batched_build(tris_b)
-    scans, refits, blocks = scan32.launches, refit_dense.launches, batched_block.launches
+    scans, refits, blocks = (kernels.launches[k] for k in ("scan32", "refit_dense",
+                                                            "batched_block"))
     got = batched.build_batched(tris_b)
     torch.cuda.synchronize()
-    assert batched_build.launches == before and batched_block.launches == blocks + 1
-    assert scan32.launches == scans and refit_dense.launches == refits
+    assert kernels.launches["batched_build"] == before
+    assert kernels.launches["batched_block"] == blocks + 1
+    assert kernels.launches["scan32"] == scans and kernels.launches["refit_dense"] == refits
     for g, w in zip(got, batched.build_batched(tris_b.cpu())):
         assert g.dtype == w.dtype and torch.equal(_bits(g).cpu(), _bits(w))
     cap = batched_block.MAX_PRIMS + 1
@@ -1270,8 +1285,8 @@ def test_batched_kernel_refuses_past_its_capacity(cuda):
         batched_block.batched_block(tris_b)
     got = batched.build_batched(tris_b)
     torch.cuda.synchronize()
-    assert batched_block.launches == blocks + 1
-    assert scan32.launches == scans + 3 and refit_dense.launches == refits + 3
+    assert kernels.launches["batched_block"] == blocks + 1
+    assert kernels.launches["scan32"] == scans + 3 and kernels.launches["refit_dense"] == refits + 3
     for g, w in zip(got, batched.build_batched(tris_b.cpu())):
         assert g.dtype == w.dtype and torch.equal(_bits(g).cpu(), _bits(w))
 
@@ -1314,12 +1329,13 @@ def test_batched_block_kernel_matches_plain(cuda, kind):
     every tree valid."""
     meshes, cap = _block_meshes(kind)
     tris_b = batched.pad_meshes(meshes, cap, device=cuda)[0]
-    before, warps = batched_block.launches, batched_build.launches
-    scans, refits = scan32.launches, refit_dense.launches
+    before, warps = kernels.launches["batched_block"], kernels.launches["batched_build"]
+    scans, refits = kernels.launches["scan32"], kernels.launches["refit_dense"]
     got = batched.build_batched(tris_b)
     torch.cuda.synchronize()
-    assert batched_block.launches == before + 1 and batched_build.launches == warps
-    assert scan32.launches == scans and refit_dense.launches == refits
+    assert kernels.launches["batched_block"] == before + 1
+    assert kernels.launches["batched_build"] == warps
+    assert kernels.launches["scan32"] == scans and kernels.launches["refit_dense"] == refits
     for want in (batched_block.batched_block_reference(tris_b),
                  batched_block.batched_block_reference(tris_b.cpu())):
         for g, w in zip(got, want):
@@ -1397,10 +1413,10 @@ def test_traverse_kernel_matches_plain(cuda, kind, variant):
     the card and on the CPU, t, u and v by their bits, the counts exactly;
     its device counters add up to the counts."""
     bvh, tris, rays, tr = _traverse_case(kind, cuda)
-    before = dict(traverse.launches)
+    before = _traverse_launches()
     got = traverse.traverse_by_name(variant, bvh, tris, rays, tr)
     torch.cuda.synchronize()
-    assert traverse.launches == {**before, variant: before[variant] + 1}
+    assert _traverse_launches() == {**before, variant: before[variant] + 1}
     _same_hits(got, traverse.traverse_by_name(variant, bvh, tris, rays, tr, plain=True))
     cpu = [type(x)(*(f.cpu() for f in x)) for x in (bvh, rays, tr)]
     _same_hits(got, traverse.traverse_by_name(variant, cpu[0], tris.cpu(), cpu[1], cpu[2],
@@ -1661,16 +1677,16 @@ def test_traverse_kernel_launch_counter_and_no_rays(cuda):
     """One launch a call on CUDA tensors, none for an empty ray set, none
     on CPU tensors."""
     bvh, tris, rays, tr = _traverse_case("cornellbox", cuda)
-    before = dict(traverse.launches)
+    before = _traverse_launches()
     after = {**before, "if_if": before["if_if"] + 1}
     traverse.traverse_bvh2(bvh, tris, rays, tr, "if_if")
-    assert traverse.launches == after
+    assert _traverse_launches() == after
     empty = Rays(*(x[:0] for x in rays))
     hit, counts = traverse.traverse_bvh2(bvh, tris, empty, tr, "if_if")
-    assert traverse.launches == after and hit.prim_idx.shape == (0,) and counts.shape == (0,)
+    assert _traverse_launches() == after and hit.prim_idx.shape == (0,) and counts.shape == (0,)
     cpu = [type(x)(*(f.cpu() for f in x)) for x in (bvh, rays, tr)]
     traverse.traverse_bvh2(cpu[0], tris.cpu(), cpu[1], cpu[2], "if_if")
-    assert traverse.launches == after
+    assert _traverse_launches() == after
 
 
 # ---- the sharded paths (tpu_bvh_torch.parallel) on ranks that use the card ----

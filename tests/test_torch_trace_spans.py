@@ -1,8 +1,8 @@
 """The port's spans and build counters: `utils/timer.span` records nothing
 while no profiler runs; under `torch.profiler` each build marks its layers
 with `bvh.` spans (`cpu_op` events) of fixed names and nesting; PLOC's
-`last_build` keeps each round's live clusters and merges, and the LBVH's
-`last_build` its device-to-host reads. Imports no JAX; the one CUDA test
+`last_build` keeps each round's live clusters and merges and its counted
+reads, and the LBVH's `last_build` its device-to-host reads. Imports no JAX; the one CUDA test
 skips without a card."""
 import json
 
@@ -168,6 +168,20 @@ def test_lbvh_host_syncs_count_the_reads_the_build_ran(n, extended, syncs):
     assert lbvh.last_build["host_syncs"] == syncs == timer.host_syncs - start
     lbvh.build_two_pass(tris, extended)
     assert lbvh.last_build["host_syncs"] == syncs
+
+
+@pytest.mark.parametrize("name", ["ploc", "hploc"])
+def test_ploc_host_syncs_count_the_round_loop_reads(name, monkeypatch):
+    """On the CPU the plain round loop reads each round's merge count once,
+    counted where it happens; the front half's extent read is the build's
+    other counted read, outside the round loop."""
+    monkeypatch.setattr(ploc_round, "FIN_WIDTH", 4096)
+    tris = torch.from_numpy(scenes.sponza_like(16_384))
+    start = timer.host_syncs
+    getattr(ploc, f"build_{name}")(tris)
+    got = ploc_ops.last_build
+    assert got["host_syncs"] == got["rounds"] == len(got["clusters"]) > 0
+    assert timer.host_syncs - start == got["host_syncs"] + 1
 
 
 @pytest.mark.cuda

@@ -16,11 +16,9 @@ the collapse (`bvh.collapse`, with B3 as `bvh.collapse_block`).
 `last_build["host_syncs"]` holds the last build's device-to-host reads
 (the extent copy, the refit's long-node count and its `nonzero`; the
 collapse's long-node count and, on the card, B3's error flag),
-counted where they happen.
+counted where they happen and tallied by `utils/timer.tally`.
 """
 from __future__ import annotations
-
-import functools
 
 import torch
 
@@ -30,17 +28,6 @@ from ..utils import timer
 
 I32 = torch.int32
 last_build = {"host_syncs": 0}
-
-
-def _counts_host_syncs(build):
-    """Keep the build's device-to-host reads in `last_build`."""
-    @functools.wraps(build)
-    def counted(*args, **kwargs):
-        start = timer.host_syncs
-        out = build(*args, **kwargs)
-        last_build["host_syncs"] = timer.host_syncs - start
-        return out
-    return counted
 
 
 def prim_refs_from_triangles(tris) -> PrimRefs:
@@ -87,17 +74,17 @@ def _two_pass(codes, leaf_packed_t, leaf_prim) -> Bvh2:
     return _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root)
 
 
-@_counts_host_syncs
 def build_two_pass(tris, use_extended: bool = True) -> Bvh2:
     """Two-pass (Karras-layout) LBVH: the single-pass scans and refit, then
     one relabel sort; the root is node 0. tris: f32[N, 3, 3]."""
-    return _two_pass(*_sorted_leaves_from_tris(tris, use_extended))
+    with timer.tally(last_build):
+        return _two_pass(*_sorted_leaves_from_tris(tris, use_extended))
 
 
-@_counts_host_syncs
 def build_two_pass_refs(refs: PrimRefs, use_extended: bool = True) -> Bvh2:
     """`build_two_pass` from PrimRefs."""
-    return _two_pass(*_sorted_leaves_packed(refs, use_extended))
+    with timer.tally(last_build):
+        return _two_pass(*_sorted_leaves_packed(refs, use_extended))
 
 
 def build_single_pass(tris, use_extended: bool = True) -> Bvh2:
@@ -106,30 +93,30 @@ def build_single_pass(tris, use_extended: bool = True) -> Bvh2:
     return build_single_pass_aux(tris, use_extended)[0]
 
 
-@_counts_host_syncs
 def build_single_pass_refs(refs: PrimRefs, use_extended: bool = True) -> Bvh2:
     """`build_single_pass` from PrimRefs."""
-    codes, leaf_packed_t, leaf_prim = _sorted_leaves_packed(refs, use_extended)
-    left, right, _parent, int_packed_t, root = radix_tree.apetrei_build_packed(
-        codes, leaf_packed_t)
-    return _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root)
+    with timer.tally(last_build):
+        codes, leaf_packed_t, leaf_prim = _sorted_leaves_packed(refs, use_extended)
+        left, right, _parent, int_packed_t, root = radix_tree.apetrei_build_packed(
+            codes, leaf_packed_t)
+        return _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root)
 
 
-@_counts_host_syncs
 def build_single_pass_aux(tris, use_extended: bool = True):
     """`build_single_pass` plus parent i32[2n-1] and the per-node leaf
     ranges first/last i32[n-1]."""
-    codes, leaf_packed_t, leaf_prim = _sorted_leaves_from_tris(tris, use_extended)
-    left, right, parent, int_packed_t, root, first, last = (
-        radix_tree.apetrei_build_packed_full(codes, leaf_packed_t)
-    )
-    bvh = _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root)
-    return bvh, parent, first, last
+    with timer.tally(last_build):
+        codes, leaf_packed_t, leaf_prim = _sorted_leaves_from_tris(tris, use_extended)
+        left, right, parent, int_packed_t, root, first, last = (
+            radix_tree.apetrei_build_packed_full(codes, leaf_packed_t)
+        )
+        bvh = _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root)
+        return bvh, parent, first, last
 
 
-@_counts_host_syncs
 def build_single_pass_bvh4(tris, use_extended: bool = True) -> Bvh4:
     """`build_single_pass` collapsed to a 4-wide BVH by the fast collapse
     (`collapse_fast.collapse_lbvh_to_bvh4`): wide node x keeps its bvh2
     id and the root is the bvh2 root. tris: f32[N, 3, 3], N >= 2."""
-    return collapse_fast.collapse_lbvh_to_bvh4(*build_single_pass_aux(tris, use_extended))
+    with timer.tally(last_build):
+        return collapse_fast.collapse_lbvh_to_bvh4(*build_single_pass_aux(tris, use_extended))

@@ -28,7 +28,7 @@ other children than the vmapped build, so this contract is the vmapped
 build's.)
 
 A CUDA tensor launches `csrc/batched_block.cu` (one launch a call, one
-block a mesh, counted by `launches`); a CPU tensor takes the plain
+block a mesh, counted in `kernels.launches`); a CPU tensor takes the plain
 version, `batched_block_reference`. M outside (64, MAX_PRIMS] is refused
 on either device before any work.
 """
@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import introspect, kernels, work
+from ..utils import kernels, work
 from ..utils.platform import on_cuda
 from . import batched_build, morton, radix_tree, refit, scan32, threshold_core
 from .aabb import fmax, fmin, from_min_key, min_key
@@ -47,7 +47,6 @@ RADIUS = 16  # JAX's refit radius off the TPU's stencil kernel (kRadius)
 BIG_KEY = int(min_key(torch.tensor([refit.BIG], dtype=torch.float32)))
 I32 = torch.int32
 FOLD_ROWS = 1 << 21  # rows of one folded plain topology (its child table needs < 2^22)
-launches = 0  # kernel launches by `batched_block` since the last reset
 
 
 def _check(tris_b) -> None:
@@ -170,17 +169,12 @@ def _clamped(first, last):
 
 def _launch(tris_b, clk=None):
     """One launch for the whole batch (none for an empty batch)."""
-    global launches
     B, M = tris_b.shape[:2]
     out = _empty(B, M, tris_b.device)
     if B == 0:
         return out
-    err = kernels.lib().tbvh_batched_block(
-        tris_b.data_ptr(), B, M, *(o.data_ptr() for o in out),
-        0 if clk is None else clk.data_ptr(), kernels.stream_of(tris_b))
-    kernels.check("tbvh_batched_block", err)
-    launches += 1
-    introspect.record("batched_block", lambda: work.batched(tris_b), "batched_block")
+    kernels.launch("batched_block", "tbvh_batched_block", tris_b, B, M, *out, clk, like=tris_b,
+                   count=lambda: work.batched(tris_b), symbols="batched_block")
     return out
 
 

@@ -21,7 +21,7 @@ max follows `jnp.minimum` / `jnp.maximum` (`aabb.fmin`, `fmax`; reductions as
 one exact min of `aabb.min_key`s), so the trees equal JAX's bit for bit.
 
 A CUDA tensor launches `csrc/batched_build.cu` (one launch a call, one warp
-a mesh, counted by `launches`); a CPU tensor takes the plain version,
+a mesh, counted in `kernels.launches`); a CPU tensor takes the plain version,
 `batched_build_reference`. M outside [2, MAX_PRIMS] is refused on either
 device before any work (JAX fails on M = 1; the packing (delta << 6) | j
 holds up to 63 boundaries).
@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import introspect, kernels, work
+from ..utils import kernels, work
 from ..utils.platform import on_cuda
 from . import morton, radix_tree, scan32
 from .aabb import fmax, fmin, from_min_key, min_key
@@ -39,7 +39,6 @@ MAX_PRIMS = 64  # the largest capacity (kMaxPrims in csrc/batched_build.cu)
 WALK_MAX = 48  # past it (two slots a lane) the kernel refits from tables (kWalkMax)
 BIG = 3.0e38
 I32 = torch.int32
-launches = 0  # kernel launches by `batched_build` since the last reset
 
 
 def _check(tris_b) -> None:
@@ -116,7 +115,6 @@ def batched_build_reference(tris_b):
 def _launch(tris_b, clk=None):
     """One launch for the whole batch (none for an empty batch); `clk`
     i64[B, 6] takes each warp's phase clocks."""
-    global launches
     B, M = tris_b.shape[:2]
     dev = tris_b.device
     packed_t = torch.empty((B, 6, 2 * M - 1), dtype=torch.float32, device=dev)
@@ -125,12 +123,9 @@ def _launch(tris_b, clk=None):
     root = torch.empty((B,), dtype=I32, device=dev)
     if B == 0:
         return packed_t, left, right, root
-    err = kernels.lib().tbvh_batched_build(
-        tris_b.data_ptr(), B, M, packed_t.data_ptr(), left.data_ptr(), right.data_ptr(),
-        root.data_ptr(), 0 if clk is None else clk.data_ptr(), kernels.stream_of(tris_b))
-    kernels.check("tbvh_batched_build", err)
-    launches += 1
-    introspect.record("batched_build", lambda: work.batched(tris_b), "batched_build_warp")
+    kernels.launch("batched_build", "tbvh_batched_build", tris_b, B, M, packed_t, left, right,
+                   root, clk, like=tris_b, count=lambda: work.batched(tris_b),
+                   symbols="batched_build_warp")
     return packed_t, left, right, root
 
 

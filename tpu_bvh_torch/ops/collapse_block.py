@@ -40,7 +40,7 @@ import threading
 
 import torch
 
-from ..utils import introspect, kernels, timer, work
+from ..utils import kernels, timer, work
 from ..utils.platform import on_cuda
 
 I32 = torch.int32
@@ -51,7 +51,6 @@ _CONST_TBL = 0b010101  # state s -> the constant table (s, s, s)
 N_TRIPS = max(3, (S_LEN + 2).bit_length())
 TILE = 1024  # lanes one block owns (kTile in csrc/collapse_block.cu)
 HALO = 128  # lanes staged on either side of a tile (kHalo)
-launches = 0  # `collapse_block` calls that launched the kernel since the last reset
 
 
 def collapse_block(meta, node8, leaf8, carr, m: int):
@@ -237,7 +236,6 @@ def launch(meta, node8, leaf8, carr, m: int):
     """Launch B3 on the current stream; returns (outm, outa, its error word
     i32[1]) without reading the word, so that a caller can queue the work
     that follows before it reads the word with `check_flag`."""
-    global launches
     W = meta.shape[1]
     for name, x, rows in (("meta", meta, 8), ("node8", node8, 8), ("leaf8", leaf8, 8),
                           ("carr", carr, 32)):
@@ -252,14 +250,10 @@ def launch(meta, node8, leaf8, carr, m: int):
         err = words[(dev, stream)] = torch.zeros((1,), dtype=I32, device=dev)
     outm = torch.empty((8, W), dtype=I32, device=dev)
     outa = torch.empty((4, 8, W), dtype=I32, device=dev)
-    code = kernels.lib().tbvh_collapse_block(
-        meta.data_ptr(), node8.data_ptr(), leaf8.data_ptr(), carr.data_ptr(), W, m,
-        err.data_ptr(), outm.data_ptr(), outa.data_ptr(), stream,
-    )
-    kernels.check("tbvh_collapse_block", code)
-    launches += 1
-    introspect.record("collapse_block", lambda: work.collapse_block(meta, carr, outm, outa, m),
-                      "collapse_block_kernel")
+    kernels.launch("collapse_block", "tbvh_collapse_block", meta, node8, leaf8, carr, W, m, err,
+                   outm, outa, like=meta,
+                   count=lambda: work.collapse_block(meta, carr, outm, outa, m),
+                   symbols="collapse_block_kernel")
     return outm, list(outa.unbind(0)), err
 
 

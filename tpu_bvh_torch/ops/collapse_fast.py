@@ -34,17 +34,17 @@ Under a running profiler the collapse is the span `bvh.collapse`, with
 and its error flag's read) inside it; on the card B3's flag is read in a
 second `bvh.collapse_block` span, after the Bvh4's slices are queued. Its device-to-host reads are counted
 at their sites (`utils/timer.count_host_sync`): the long count and, on the
-card, B3's error flag. `launches` counts P1's and P2's launches,
-`kernel_launches` each kernel's apart; `last_build` holds the last
-collapse's hand-written launches (P1, P2 and B3: 3 on the card, 0 on the
-CPU) and its long count (an i32[] on the tree's device).
+card, B3's error flag. `last_build` holds the last collapse's
+hand-written launches (P1, P2 and B3: 3 on the card, 0 on the CPU;
+`kernels.launches` has each kernel's) and its long count (an i32[] on the
+tree's device).
 """
 from __future__ import annotations
 
 import torch
 
 from ..types import Bvh2, Bvh4
-from ..utils import introspect, kernels, timer, work
+from ..utils import kernels, timer, work
 from ..utils.platform import on_cuda
 from . import collapse_block as b3
 from .collapse_block import _E1, _E2, _UNK, _WIDE, S_LEN, _apply, collapse_block, expand2
@@ -54,11 +54,8 @@ F32 = torch.float32
 _BIGKEY = 2**30
 _PREP_TILE = 1024  # lanes a block of P1 (kTile in csrc/collapse_prep.cu)
 _COARSE_ROWS = 11  # P2's scratch rows (csrc/collapse_prep.cu)
-launches = 0  # P1 and P2 launches since the last reset
-kernel_launches = {"collapse_prep": 0, "collapse_coarse": 0}
 last_build = {"launches": 0, "long": None}
 _prep_work = {}  # (device, stream) -> P1's look-back status words and ticket
-_epoch = 0  # P1 launches in this process: tags its look-back words
 
 
 def _bits(x):
@@ -69,8 +66,7 @@ def collapse_lbvh_to_bvh4(bvh: Bvh2, parent, first, last) -> Bvh4:
     """bvh: boundary-layout Bvh2 from `lbvh.build_single_pass_aux` (node i
     at boundary i with first_i <= i < last_i). parent: i32[2n-1] (leaf
     parents included). first/last: i32[n-1] inclusive leaf ranges."""
-    with timer.span("bvh.collapse"):
-        start = launches + b3.launches
+    with timer.span("bvh.collapse"), timer.tally(last_build):
         m = bvh.n_internal
         rows, n_long = _inputs(bvh, parent, first, last)
         if on_cuda(bvh.packed_t):
@@ -83,7 +79,7 @@ def collapse_lbvh_to_bvh4(bvh: Bvh2, parent, first, last) -> Bvh4:
                 b3.check_flag(err)
         else:
             out = _bvh4(bvh, *collapse_block(*rows, m))
-        last_build.update(launches=launches + b3.launches - start, long=n_long)
+        last_build["long"] = n_long
         return out
 
 
@@ -143,21 +139,6 @@ def _bvh4(bvh: Bvh2, outm, outa) -> Bvh4:
     )
 
 
-def _next_epoch() -> int:
-    """The next P1 launch's tag for its look-back words: 30 bits, never 0
-    (a zeroed word)."""
-    global _epoch
-    _epoch = _epoch % ((1 << 30) - 1) + 1
-    return _epoch
-
-
-def _launched(name, count, symbol):
-    global launches
-    launches += 1
-    kernel_launches[name] += 1
-    introspect.record(name, count, symbol)
-
-
 def _prepare_cuda(bvh: Bvh2, parent, first, last):
     """`_prepare`'s rows by P1 and P2, and the long count i32[] (P1's)."""
     n, m, mm = bvh.n_leaves, bvh.n_internal, bvh.n_nodes
@@ -172,23 +153,18 @@ def _prepare_cuda(bvh: Bvh2, parent, first, last):
     rows = torch.empty((56, n), dtype=I32, device=dev)  # meta, node8, leaf8, carr
     longs = torch.empty(2 * m + 1, dtype=I32, device=dev)  # rank, ids, the long count
     rank, ids, n_long = longs[:m], longs[m:2 * m], longs[2 * m]
-    status, ticket = kernels.look_back_work(_prep_work, dev, stream, -(-n // _PREP_TILE))
-    err = kernels.lib().tbvh_collapse_prep(
-        pk.data_ptr(), left.data_ptr(), right.data_ptr(), parent.data_ptr(), first.data_ptr(),
-        last.data_ptr(), n, rows.data_ptr(), rank.data_ptr(), ids.data_ptr(),
-        n_long.data_ptr(), status.data_ptr(), ticket.data_ptr(), _next_epoch(), stream)
-    kernels.check("tbvh_collapse_prep", err)
-    _launched("collapse_prep", lambda: work.collapse_prep(n, int(n_long)), "collapse_prep_kernel")
+    status, ticket, epoch = kernels.look_back_work(_prep_work, dev, stream, -(-n // _PREP_TILE))
+    kernels.launch("collapse_prep", "tbvh_collapse_prep", pk, left, right, parent, first, last, n,
+                   rows, rank, ids, n_long, status, ticket, epoch, like=pk,
+                   count=lambda: work.collapse_prep(n, int(n_long)),
+                   symbols="collapse_prep_kernel")
     meta, node8, leaf8, carr = rows[0:8], rows[8:16], rows[16:24], rows[24:56]
     cap = _capacity(bvh, n_long)
     scratch = torch.empty((_COARSE_ROWS, cap), dtype=I32, device=dev)
-    err = kernels.lib().tbvh_collapse_coarse(
-        pk.data_ptr(), left.data_ptr(), right.data_ptr(), parent.data_ptr(), n, rank.data_ptr(),
-        ids.data_ptr(), n_long.data_ptr(), cap, scratch.data_ptr(), meta.data_ptr(),
-        carr.data_ptr(), stream)
-    kernels.check("tbvh_collapse_coarse", err)
-    _launched("collapse_coarse", lambda: work.collapse_prep(n, int(n_long), meta, carr),
-              "collapse_coarse_kernel")
+    kernels.launch("collapse_coarse", "tbvh_collapse_coarse", pk, left, right, parent, n, rank,
+                   ids, n_long, cap, scratch, meta, carr, like=pk,
+                   count=lambda: work.collapse_prep(n, int(n_long), meta, carr),
+                   symbols="collapse_coarse_kernel")
     return (meta, node8, leaf8, carr), n_long
 
 

@@ -23,22 +23,19 @@ kernels give the same bits; the scene box's min of +0.0 and -0.0 may
 differ in its sign (`amin` keeps either), which changes no code.
 
 The PrimRefs route (`from_rows`) starts from packed rows: its scene box
-is the plain reduction, and B and C follow. `launches` counts the
-kernels' launches, `kernel_launches` each kernel's apart;
-`last_build["launches"]` holds those of the last front half (on CUDA 3
-from triangles, 2 from rows; 0 on the CPU).
+is the plain reduction, and B and C follow. `last_build["launches"]`
+holds the hand-written launches of the last front half (on CUDA 3 from
+triangles, 2 from rows; 0 on the CPU), `kernels.launches` each kernel's.
 """
 from __future__ import annotations
 
 import torch
 
-from ..utils import introspect, kernels, timer, work
+from ..utils import kernels, timer, work
 from ..utils.platform import on_cuda
 from . import aabb, morton
 
 I32 = torch.int32
-launches = 0  # kernel launches since the last reset
-kernel_launches = {"front_tri_box": 0, "front_keys": 0, "front_gather": 0}
 last_build = {"launches": 0}
 _scratch = {}  # (device, stream) -> the box kernel's i32 keys [6] and counter [1]
 
@@ -87,13 +84,6 @@ def _box_work(device):
     return _scratch[key]
 
 
-def _launched(name, count, symbol):
-    global launches
-    launches += 1
-    kernel_launches[name] += 1
-    introspect.record(name, count, symbol)
-
-
 def tri_rows(tris):
     """`tri_rows_reference`; kernel A on a CUDA tensor."""
     if not on_cuda(tris):
@@ -105,11 +95,9 @@ def tri_rows(tris):
     rows = torch.empty((6, n), dtype=torch.float32, device=tris.device)
     box = torch.empty(6, dtype=torch.float32, device=tris.device)
     scratch, done = _box_work(tris.device)
-    err = kernels.lib().tbvh_front_tri_box(tris.data_ptr(), n, rows.data_ptr(), scratch.data_ptr(),
-                                           done.data_ptr(), box.data_ptr(),
-                                           kernels.stream_of(tris))
-    kernels.check("tbvh_front_tri_box", err)
-    _launched("front_tri_box", lambda: work.front_half("tri_box", n), "front_box_kernel")
+    kernels.launch("front_tri_box", "tbvh_front_tri_box", tris, n, rows, scratch, done, box,
+                   like=tris, count=lambda: work.front_half("tri_box", n),
+                   symbols="front_box_kernel")
     return rows, box[0:3], box[3:6]
 
 
@@ -132,13 +120,10 @@ def keys(rows, prim_idx, scene_min, ext, use_extended: bool):
     else:
         budget = (0,) * 11
     key = torch.empty(n, dtype=torch.int64, device=rows.device)
-    err = kernels.lib().tbvh_front_keys(rows.data_ptr(), n,
-                                        None if prim_idx is None else prim_idx.data_ptr(),
-                                        scene_min.data_ptr(), ext.data_ptr(), *budget,
-                                        key.data_ptr(), kernels.stream_of(rows))
-    kernels.check("tbvh_front_keys", err)
-    _launched("front_keys", lambda: work.front_half("keys", n, refs=prim_idx is not None),
-              "front_keys_kernel")
+    kernels.launch("front_keys", "tbvh_front_keys", rows, n, prim_idx, scene_min, ext, *budget,
+                   key, like=rows,
+                   count=lambda: work.front_half("keys", n, refs=prim_idx is not None),
+                   symbols="front_keys_kernel")
     return key
 
 
@@ -157,12 +142,10 @@ def gather(skey, pos, rows, prim_idx):
     leaf = torch.empty((6, n), dtype=torch.float32, device=dev)
     leaf_prim = torch.empty(n, dtype=I32, device=dev)
     refs = prim_idx is not None
-    err = kernels.lib().tbvh_front_gather(skey.data_ptr(), pos.data_ptr() if refs else None,
-                                          rows.data_ptr(), n, codes.data_ptr(), leaf.data_ptr(),
-                                          leaf_prim.data_ptr(), kernels.stream_of(skey))
-    kernels.check("tbvh_front_gather", err)
-    _launched("front_gather", lambda: work.front_half("gather", n, refs=refs),
-              "front_gather_kernel")
+    kernels.launch("front_gather", "tbvh_front_gather", skey, pos if refs else None, rows, n,
+                   codes, leaf, leaf_prim, like=skey,
+                   count=lambda: work.front_half("gather", n, refs=refs),
+                   symbols="front_gather_kernel")
     return codes, leaf, leaf_prim
 
 
@@ -181,19 +164,15 @@ def _sorted(rows, prim_idx, scene_min, ext, use_extended):
 def from_tris(tris, use_extended: bool):
     """(sorted_codes i64[n] of u32 values, leaf_packed_t f32[6, n],
     leaf_prim i32[n]) of a triangle soup f32[n, 3, 3]; prim i is triangle i."""
-    start = launches
-    rows, scene_min, ext = tri_rows(tris)
-    out = _sorted(rows, None, scene_min, ext, use_extended)
-    last_build["launches"] = launches - start
-    return out
+    with timer.tally(last_build):
+        rows, scene_min, ext = tri_rows(tris)
+        return _sorted(rows, None, scene_min, ext, use_extended)
 
 
 def from_rows(rows, prim_idx, use_extended: bool):
     """`from_tris`' contract from packed rows f32[6, n] and prim_idx i32[n]."""
-    start = launches
-    out = _sorted(rows, prim_idx, *row_box(rows), use_extended)
-    last_build["launches"] = launches - start
-    return out
+    with timer.tally(last_build):
+        return _sorted(rows, prim_idx, *row_box(rows), use_extended)
 
 
 def from_tris_reference(tris, use_extended: bool):

@@ -15,13 +15,11 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import introspect, kernels, work
+from ..utils import kernels, work
 from ..utils.platform import on_cuda
 
 TILE_ROWS = 128  # rows per tile of csrc/plane_scan.cu (kRows)
 COLS = 64  # columns per strip of csrc/plane_scan.cu (kCols)
-launches = 0  # kernel launches by `plane_scan` since the last reset
-_epoch = 0  # launches in this process: tags the look-back status words
 _work = {}  # (device, stream) -> (status i64, ticket i32[1]), reused by every call
 
 
@@ -51,7 +49,6 @@ def plane_scan_reference(x, *, is_min: bool, reverse: bool):
 
 
 def _plane_scan_cuda(x, is_min: bool, reverse: bool):
-    global launches, _epoch
     if x.dim() != 2:
         raise ValueError(f"plane_scan: expected a 2-D plane, got shape {tuple(x.shape)}")
     m, v = x.shape
@@ -60,13 +57,9 @@ def _plane_scan_cuda(x, is_min: bool, reverse: bool):
         raise ValueError(f"plane_scan needs a non-empty plane, got shape {(m, v)}")
     stream = kernels.stream_of(x)
     words = -(-m // TILE_ROWS) * -(-v // COLS) * COLS  # one a column of every tile's strip
-    status, ticket = kernels.look_back_work(_work, x.device, stream, words)
+    status, ticket, epoch = kernels.look_back_work(_work, x.device, stream, words)
     out = torch.empty_like(x)
-    _epoch = _epoch % ((1 << 31) - 2) + 1  # in [1, 2^31), never 0 (a zeroed word)
-    err = kernels.lib().tbvh_plane_scan(x.data_ptr(), m, v, int(is_min), int(reverse),
-                                        out.data_ptr(), status.data_ptr(), ticket.data_ptr(),
-                                        _epoch, stream)
-    kernels.check("tbvh_plane_scan", err)
-    launches += 1
-    introspect.record("plane_scan", lambda: work.plane_scan(x), "plane_scan_kernel")
+    kernels.launch("plane_scan", "tbvh_plane_scan", x, m, v, int(is_min), int(reverse), out,
+                   status, ticket, epoch, like=x, count=lambda: work.plane_scan(x),
+                   symbols="plane_scan_kernel")
     return out

@@ -17,8 +17,9 @@ any device, both are their plain versions. The rounds do not depend on
 where the hand-over falls, so every path builds the same tree.
 
 `last_build` keeps the last build's round loop: its rounds, the finisher
-call, the host syncs of the kernel path, and per round the live clusters
-at its start (`clusters`) and the merges its readback returned
+call, its counted host syncs (each round's readback and, on the card, the
+finisher's error flag: `utils/timer.tally`), and per round the live
+clusters at its start (`clusters`) and the merges its readback returned
 (`merged`), so round k + 1 starts with clusters[k] - merged[k]. Under a
 running profiler the state's set-up is the span `bvh.ploc_init`, each
 round `bvh.ploc_round`, the finisher `bvh.ploc_finish` and the flip
@@ -40,8 +41,7 @@ from . import ploc_round
 
 I32 = torch.int32
 # the last build's round-loop counts: rounds before the finisher, finisher
-# calls, host syncs (kernel path only), and each round's live clusters and
-# merges
+# calls, counted host syncs, and each round's live clusters and merges
 last_build = {"rounds": 0, "finish": 0, "host_syncs": 0, "clusters": [], "merged": []}
 
 
@@ -103,24 +103,24 @@ def _agglomerate(leaf_packed_t, codes, hploc, radius, shift0, shift_step, use_ke
         spare = torch.empty_like(mat)
     nc, shift = n, (shift0 if hploc else 32)
     clusters, merged = [], []
-    while nc > ploc_round.FIN_WIDTH:
-        if len(clusters) >= n + 16:  # only non-finite boxes stall every round
-            raise RuntimeError(f"PLOC: {nc} clusters left after {len(clusters)} rounds")
-        with timer.span("bvh.ploc_round"):
-            _, _, nm = round_fn(mat, spare, nodes, nc, shift, n - nc, radius, work)
-            clusters.append(nc)
-            merged.append(int(nm))  # the loop test: one host sync per round
-            nc -= merged[-1]
-            mat, spare = spare, mat
-            shift = min(shift + shift_step, 32)
-    with timer.span("bvh.ploc_finish"):
-        finish_fn(mat, nodes, nc, shift, n - nc, radius, shift_step)
-    rounds, finished = len(clusters), int(nc > 1)
-    # the kernel path syncs once per round and once for the finisher's
-    # error flag; the plain finisher also syncs once per round
-    last_build.update(rounds=rounds, finish=finished,
-                      host_syncs=rounds + finished if use_kernels else None,
-                      clusters=clusters, merged=merged)
+    # counted: one readback a round and, on the card, the finisher's error
+    # flag (the plain finisher's own per-round reads are not counted)
+    with timer.tally(last_build):
+        while nc > ploc_round.FIN_WIDTH:
+            if len(clusters) >= n + 16:  # only non-finite boxes stall every round
+                raise RuntimeError(f"PLOC: {nc} clusters left after {len(clusters)} rounds")
+            with timer.span("bvh.ploc_round"):
+                _, _, nm = round_fn(mat, spare, nodes, nc, shift, n - nc, radius, work)
+                clusters.append(nc)
+                merged.append(int(nm))  # the loop test: one host sync per round
+                timer.count_host_sync()
+                nc -= merged[-1]
+                mat, spare = spare, mat
+                shift = min(shift + shift_step, 32)
+        with timer.span("bvh.ploc_finish"):
+            finish_fn(mat, nodes, nc, shift, n - nc, radius, shift_step)
+        last_build.update(rounds=len(clusters), finish=int(nc > 1), clusters=clusters,
+                          merged=merged)
 
     with timer.span("bvh.finalize"):
         nodes = nodes.flip(1)

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..types import PLOC_RADIUS
-from ..utils import introspect, kernels, work
+from ..utils import kernels, work
 from ..utils.platform import on_cuda
 from .aabb import fmin
 
@@ -39,7 +39,6 @@ THREADS = 256  # threads a block (kThreads)
 COLS = THREADS * LANES  # table columns a block (kCols): its lanes and 3 * MAX_RADIUS more
 TILE = COLS - 3 * MAX_RADIUS  # output lanes a block (kTile)
 PHASES = ("load", "areas", "best_rel", "mutual_writes")  # the kernel's clock64 stamps
-launches = 0  # kernel launches of the NN stage since the last reset
 
 
 def area6(c):
@@ -153,7 +152,6 @@ def launch(mat, nc: int, shift_bits: int, radius: int, out, s: int, clk=None):
     """Launch the kernel on lanes [0, s) of `mat` (i32[8, C], s <= C, live
     clusters nc <= s), writing lanes [0, s) of `out` (i32[8, C']); `clk`
     i64[ceil(s / TILE), 5] takes each block's phase clocks."""
-    global launches
     _check(radius)
     kernels.require(mat, "mat", I32)
     kernels.require(out, "out", I32)
@@ -163,11 +161,6 @@ def launch(mat, nc: int, shift_bits: int, radius: int, out, s: int, clk=None):
         raise ValueError(f"ploc_nn needs 0 <= nc <= s <= width, s >= 1; got nc={nc}, s={s}")
     if clk is not None:
         kernels.require(clk, "clk", torch.int64, (-(-s // TILE), len(PHASES) + 1))
-    err = kernels.lib().tbvh_ploc_nn(
-        mat.data_ptr(), mat.shape[1], s, nc, shift_bits, radius,
-        out.data_ptr(), out.shape[1], 0 if clk is None else clk.data_ptr(),
-        kernels.stream_of(mat),
-    )
-    kernels.check("tbvh_ploc_nn", err)
-    launches += 1
-    introspect.record("ploc_nn", lambda: work.ploc_nn(nc, radius, shift_bits), "ploc_nn_kernel")
+    kernels.launch("ploc_nn", "tbvh_ploc_nn", mat, mat.shape[1], s, nc, shift_bits, radius, out,
+                   out.shape[1], clk, like=mat, count=lambda: work.ploc_nn(nc, radius, shift_bits),
+                   symbols="ploc_nn_kernel")

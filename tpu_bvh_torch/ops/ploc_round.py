@@ -42,7 +42,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils import introspect, kernels
+from ..utils import kernels, timer
 from ..utils import work as counts
 from ..utils.platform import on_cuda
 from . import ploc_nn
@@ -66,13 +66,8 @@ MAX_FIN_WIDTH = FIN_CTAS * FIN_CAP
 FIN_STATS = (3, 7)
 _EMIT_BLOCK = 256  # lanes per block of csrc/ploc_round_fused.cu (kThreads)
 _EMIT_TILE = 1024  # lanes per block of csrc/ploc_round.cu (kTile)
-rounds = 0  # B6/B8 rounds on the card (one launch each) since the last reset
-fused_rounds = 0  # of those, B8 rounds (`ploc_round_fused`)
-emit_launches = 0  # B9 launches (`ploc_emit_compact`)
-finish_launches = 0  # B7 launches
 last_finish_stats = None  # the last B7 launch's counters, i64[FIN_STATS]
 _cluster_checked = False  # whether the card can schedule the finisher's cluster (checked once)
-_epoch = 0  # B6/B8 and B9 launches in this process: tags the look-back status words
 _emit_work = {}  # (device, stream) -> B9's (status i64, ticket i32[1]), reused by every call
 
 
@@ -130,16 +125,7 @@ def ploc_emit_compact_reference(mat, nn, nodes, n_clusters: int, base: int, out=
     return out, nodes, mi.sum(dtype=I32)
 
 
-def _next_epoch() -> int:
-    """The next launch's tag for the look-back words of B6/B8 and B9: 30
-    bits, never 0 (a zeroed word), one count for both kernels."""
-    global _epoch
-    _epoch = _epoch % ((1 << 30) - 1) + 1
-    return _epoch
-
-
 def _emit_compact_cuda(mat, nn, nodes, nc: int, base: int):
-    global emit_launches
     _require_states("ploc_emit_compact", mat=mat, nn=nn, nodes=nodes)
     S = mat.shape[1]
     if not 1 <= nc <= min(S, nn.shape[1]):
@@ -148,19 +134,16 @@ def _emit_compact_cuda(mat, nn, nodes, nc: int, base: int):
         raise ValueError(f"ploc_emit_compact: ids [{base}, {base + nc // 2}) exceed the "
                          f"{nodes.shape[1]} node columns")
     stream = kernels.stream_of(mat)
-    status, ticket = kernels.look_back_work(_emit_work, mat.device, stream,
-                                            2 * -(-nc // _EMIT_TILE))  # two a tile
+    status, ticket, epoch = kernels.look_back_work(_emit_work, mat.device, stream,
+                                                   2 * -(-nc // _EMIT_TILE))  # two a tile
     # one allocation: the new state, then the word that receives n_merged
     buf = torch.empty(8 * S + 1, dtype=I32, device=mat.device)
-    err = kernels.lib().tbvh_ploc_emit_compact(
-        mat.data_ptr(), S, nn.data_ptr(), nn.shape[1], nc, base, buf.data_ptr(), S,
-        nodes.data_ptr(), nodes.shape[1], status.data_ptr(), ticket.data_ptr(),
-        buf.data_ptr() + 4 * 8 * S, _next_epoch(), stream,
-    )
-    kernels.check("tbvh_ploc_emit_compact", err)
-    emit_launches += 1
-    introspect.record("ploc_emit_compact", lambda: counts.ploc_emit_compact(
-        nc, int((nn[7, :nc] == 1).sum()), int((nn[7, :nc] == 2).sum()), S), "emit_kernel")
+    kernels.launch("ploc_emit_compact", "tbvh_ploc_emit_compact", mat, S, nn, nn.shape[1], nc,
+                   base, buf, S, nodes, nodes.shape[1], status, ticket,
+                   buf.data_ptr() + 4 * 8 * S, epoch, like=mat,
+                   count=lambda: counts.ploc_emit_compact(
+                       nc, int((nn[7, :nc] == 1).sum()), int((nn[7, :nc] == 2).sum()), S),
+                   symbols="emit_kernel")
     return buf[:8 * S].view(8, S), nodes, buf[8 * S]
 
 
@@ -169,15 +152,11 @@ def _emit_compact_cuda(mat, nn, nodes, nc: int, base: int):
 def ploc_round_fused(mat, nodes, n_clusters: int, shift_bits: int, base: int, radius: int):
     """One full round. Returns (new_mat i32[8, S] with zeros past the
     survivors, nodes, n_merged i32[]); dispatch by device."""
-    global fused_rounds
     if on_cuda(mat):
         out = torch.zeros_like(mat)
         work = round_work(int(n_clusters), mat.device)
-        nm = _round_cuda(mat, out, nodes, int(n_clusters), int(shift_bits), int(base), radius,
-                         work)
-        fused_rounds += 1
-        _record_round("ploc_round_fused", counts.ploc_round_fused, work, n_clusters, shift_bits,
-                      radius)
+        nm = _round_cuda("ploc_round_fused", counts.ploc_round_fused, mat, out, nodes,
+                         int(n_clusters), int(shift_bits), int(base), radius, work)
         return out, nodes, nm
     return ploc_round_reference(mat, nodes, n_clusters, shift_bits, base, radius)
 
@@ -203,9 +182,8 @@ def ploc_round_pp(matA, matB, nodes, n_clusters: int, shift_bits: int, base: int
     if on_cuda(matA):
         if work is None:
             work = round_work(matA.shape[1], matA.device)
-        nm = _round_cuda(matA, matB, nodes, int(n_clusters), int(shift_bits), int(base), radius,
-                         work)
-        _record_round("ploc_round", counts.ploc_round, work, n_clusters, shift_bits, radius)
+        nm = _round_cuda("ploc_round", counts.ploc_round, matA, matB, nodes, int(n_clusters),
+                         int(shift_bits), int(base), radius, work)
         return matB, nodes, nm
     return ploc_round_pp_reference(matA, matB, nodes, n_clusters, shift_bits, base, radius)
 
@@ -216,19 +194,14 @@ def ploc_round_pp_reference(matA, matB, nodes, n_clusters: int, shift_bits: int,
     return ploc_round_reference(matA, nodes, n_clusters, shift_bits, base, radius, out=matB)
 
 
-def _record_round(name, count, work: RoundWork, nc, shift_bits, radius):
-    """Report a round to `introspect.record`: its counts from the
-    (n_merged, n_keep) the kernel left in work.ctl."""
+def _round_cuda(name, count, mat, out, nodes, nc: int, shift_bits: int, base: int, radius: int,
+                work: RoundWork):
+    """One launch of the round kernel, counted as `name` (B6 or B8); its
+    counts (`count`) come from the (n_merged, n_keep) it left in work.ctl."""
     def round_counts():
         nm, n_keep = work.ctl[1:3].tolist()
-        return count(int(nc), nm, int(nc) - n_keep, radius, int(shift_bits))
+        return count(nc, nm, nc - n_keep, radius, shift_bits)
 
-    introspect.record(name, round_counts, "ploc_round_kernel")
-
-
-def _round_cuda(mat, out, nodes, nc: int, shift_bits: int, base: int, radius: int,
-                work: RoundWork):
-    global rounds
     ploc_nn._check(radius)
     _require_states("a PLOC round", mat=mat, out=out, nodes=nodes)
     if not 1 <= nc <= min(mat.shape[1], out.shape[1]):
@@ -241,13 +214,10 @@ def _round_cuda(mat, out, nodes, nc: int, shift_bits: int, base: int, radius: in
     kernels.require(work.ctl, "RoundWork.ctl", I32, (4,))
     if work.status.numel() < 2 * nb:
         raise ValueError(f"a PLOC round of {nc} clusters needs RoundWork.status i64[>= {2 * nb}]")
-    err = kernels.lib().tbvh_ploc_round(
-        mat.data_ptr(), mat.shape[1], nc, shift_bits, radius, base, out.data_ptr(),
-        out.shape[1], nodes.data_ptr(), nodes.shape[1], work.status.data_ptr(),
-        work.ctl.data_ptr(), _next_epoch(), kernels.stream_of(mat),
-    )
-    kernels.check("tbvh_ploc_round", err)
-    rounds += 1
+    kernels.launch(name, "tbvh_ploc_round", mat, mat.shape[1], nc, shift_bits, radius, base, out,
+                   out.shape[1], nodes, nodes.shape[1], work.status, work.ctl,
+                   kernels.next_epoch(), like=mat, count=round_counts,
+                   symbols="ploc_round_kernel")
     return work.n_merged  # as the kernel left it
 
 
@@ -288,7 +258,7 @@ def ploc_finish_reference(mat, nodes, n_clusters: int, shift_bits: int, base: in
 
 
 def _finish_cuda(mat, nodes, nc: int, shift_bits: int, base: int, radius: int, step: int):
-    global finish_launches, last_finish_stats, _cluster_checked
+    global last_finish_stats, _cluster_checked
     ploc_nn._check(radius)
     _require_states("ploc_finish", mat=mat, nodes=nodes)
     if not nc <= min(MAX_FIN_WIDTH, mat.shape[1]):
@@ -297,11 +267,9 @@ def _finish_cuda(mat, nodes, nc: int, shift_bits: int, base: int, radius: int, s
     if base < 0 or base + nc - 1 > nodes.shape[1]:
         raise ValueError(f"ploc_finish: ids [{base}, {base + nc - 1}) exceed the "
                          f"{nodes.shape[1]} node columns")
-    lib = kernels.lib()
     if not _cluster_checked:  # at the largest slice
         out = ctypes.c_int(0)
-        kernels.check("tbvh_ploc_finish_clusters",
-                      lib.tbvh_ploc_finish_clusters(ctypes.byref(out)))
+        kernels.query("tbvh_ploc_finish_clusters", ctypes.byref(out))
         if out.value == 0:
             raise RuntimeError(f"ploc_finish: the card cannot hold a cluster of {FIN_CTAS} CTAs "
                                f"with {FIN_CAP} lanes of shared memory each")
@@ -312,17 +280,14 @@ def _finish_cuda(mat, nodes, nc: int, shift_bits: int, base: int, radius: int, s
     cap = -(-cap // 4) * 4
     err = torch.zeros((1,), dtype=I32, device=mat.device)
     stats = torch.zeros(FIN_STATS, dtype=torch.int64, device=mat.device)
-    code = lib.tbvh_ploc_finish(
-        mat.data_ptr(), mat.shape[1], nc, shift_bits, step, base, radius,
-        nodes.data_ptr(), nodes.shape[1], err.data_ptr(), stats.data_ptr(), cap,
-        kernels.stream_of(mat),
-    )
-    kernels.check("tbvh_ploc_finish", code)
-    finish_launches += 1
+    kernels.launch("ploc_finish", "tbvh_ploc_finish", mat, mat.shape[1], nc, shift_bits, step,
+                   base, radius, nodes, nodes.shape[1], err, stats, cap, like=mat,
+                   count=lambda: counts.ploc_finish(mat, nc, shift_bits, radius, step, FIN_CTAS),
+                   symbols="ploc_finish_kernel")
     last_finish_stats = stats
-    if int(err) != 0:  # one host sync
+    flag = int(err)  # one host sync
+    timer.count_host_sync()
+    if flag != 0:
         raise RuntimeError(f"ploc_finish: clusters left after {nc + 16} rounds "
                            "(non-finite boxes?)")
-    introspect.record("ploc_finish", lambda: counts.ploc_finish(mat, nc, shift_bits, radius, step,
-                                                                FIN_CTAS), "ploc_finish_kernel")
     return nodes

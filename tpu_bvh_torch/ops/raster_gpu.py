@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..types import FLT_MAX, HitInfo, Rays
-from ..utils import introspect, kernels, work
+from ..utils import kernels, work
 from ..utils.platform import on_cuda
 from . import raster as R
 from .aabb import transform_point
@@ -42,7 +42,6 @@ MAX_L = 768
 MAX_P = 1 << 22  # pair indices fill 22 bits of the kernel's 64-bit hit key
 CHUNK = 2  # pair slots per work item of the split sweep (kChunk in the .cu)
 STATS = 4 + 1024  # the kernel's counters (kStats + kSmSlots in the .cu)
-launches = 0  # calls of `raster_sweep` on the card since the last reset (3 launches each)
 # the last call's device counters, i64[STATS]: ray-prim tests run, pair
 # sweeps, subtiles re-swept serially, 0, then pair sweeps per SM id
 last_stats = None
@@ -223,7 +222,7 @@ def raster_sweep_reference(dirs_ct, slabs, p_tid, p_tlb, p_bits, t_start, t_end)
 def _raster_sweep_cuda(dirs_ct, slabs, p_tid, p_tlb, p_bits, t_start, t_end):
     """The split sweep of `csrc/raster.cu`. Needs p_tlb non-decreasing
     within each tile's [t_start, t_end), as `prepare_sweep` makes it."""
-    global launches, last_stats
+    global last_stats
     n_ct = dirs_ct.shape[0]
     nt, L = slabs.shape[0], slabs.shape[1]
     P = p_tid.shape[0]
@@ -247,18 +246,11 @@ def _raster_sweep_cuda(dirs_ct, slabs, p_tid, p_tlb, p_bits, t_start, t_end):
     ints = torch.empty((n_ct * (RPC + 2 * NSUB + 3) + 4 + 3 * (P // CHUNK + 2),), dtype=I32,
                        device=dev)
     stats = torch.empty((STATS,), dtype=torch.int64, device=dev)
-    err = kernels.lib().tbvh_raster_sweep(
-        dirs_ct.data_ptr(), slabs.data_ptr(), p_tid.data_ptr(), p_tlb.data_ptr(),
-        p_bits.data_ptr(), t_start.data_ptr(), t_end.data_ptr(), n_ct, P, L,
-        *(o.data_ptr() for o in out), keys.data_ptr(), ints.data_ptr(), stats.data_ptr(),
-        kernels.stream_of(dirs_ct),
-    )
-    kernels.check("tbvh_raster_sweep", err)
-    launches += 1
+    ins = (dirs_ct, slabs, p_tid, p_tlb, p_bits, t_start, t_end)
+    kernels.launch("raster_sweep", "tbvh_raster_sweep", *ins, n_ct, P, L, *out, keys, ints,
+                   stats, like=dirs_ct, count=lambda: work.sweep("raster_sweep", ins, out),
+                   symbols=("rt_init", "rt_sweep", "rt_finish"))
     last_stats = stats
-    introspect.record("raster_sweep", lambda: work.sweep(
-        "raster_sweep", (dirs_ct, slabs, p_tid, p_tlb, p_bits, t_start, t_end), out),
-        "rt_init", "rt_sweep", "rt_finish")
     return tuple(out)
 
 

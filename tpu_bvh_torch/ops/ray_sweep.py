@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from ..types import FLT_MAX, HitInfo, Rays
-from ..utils import introspect, kernels, work
+from ..utils import kernels, work
 from ..utils.platform import on_cuda
 from . import raster as R
 from .aabb import _cross, transform_point
@@ -51,7 +51,6 @@ MAX_L = (48 * 1024 - 48) // (PRIM_WORDS * 4)
 MAX_P = 1 << 23  # pair indices fill 23 bits of the kernel's 64-bit hit key
 CHUNK = 8  # pair slots per work item of the split sweep (kChunk in the .cu)
 STATS = 4 + 1024  # the kernel's counters (kStats + kSmSlots in the .cu)
-launches = 0  # calls of `ray_sweep_kernel` on the card since the last reset (3 launches each)
 # the last call's device counters, i64[STATS]: ray-prim tests run, pair
 # sweeps, subgroups re-swept serially, 0, then pair sweeps per SM id
 last_stats = None
@@ -187,7 +186,7 @@ def ray_sweep_reference(feats, slabs, p_tid, p_tlb, p_bits, t_start, t_end,
 def _ray_sweep_cuda(feats, slabs, p_tid, p_tlb, p_bits, t_start, t_end, occlusion):
     """The split sweep of `csrc/ray_sweep.cu`. Needs p_tlb non-decreasing
     within each group's [t_start, t_end), as `prepare_trace` makes it."""
-    global launches, last_stats
+    global last_stats
     n_ct = feats.shape[0]
     nt, L = slabs.shape[0], slabs.shape[1]
     P = p_tid.shape[0]
@@ -209,18 +208,11 @@ def _ray_sweep_cuda(feats, slabs, p_tid, p_tlb, p_bits, t_start, t_end, occlusio
     keys = torch.empty((n_ct * RPG,), dtype=torch.int64, device=dev)
     ints = torch.empty((n_ct * (RPG + NSUB + 2) + 4 + P // CHUNK + 2,), dtype=I32, device=dev)
     stats = torch.empty((STATS,), dtype=torch.int64, device=dev)
-    err = kernels.lib().tbvh_ray_sweep(
-        feats.data_ptr(), slabs.data_ptr(), p_tid.data_ptr(), p_tlb.data_ptr(),
-        p_bits.data_ptr(), t_start.data_ptr(), t_end.data_ptr(), n_ct, P, L, int(occlusion),
-        *(o.data_ptr() for o in out), keys.data_ptr(), ints.data_ptr(), stats.data_ptr(),
-        kernels.stream_of(feats),
-    )
-    kernels.check("tbvh_ray_sweep", err)
-    launches += 1
+    ins = (feats, slabs, p_tid, p_tlb, p_bits, t_start, t_end)
+    kernels.launch("ray_sweep", "tbvh_ray_sweep", *ins, n_ct, P, L, int(occlusion), *out, keys,
+                   ints, stats, like=feats, count=lambda: work.sweep("ray_sweep", ins, out),
+                   symbols=("rs_init", "rs_sweep", "rs_finish"))
     last_stats = stats
-    introspect.record("ray_sweep", lambda: work.sweep(
-        "ray_sweep", (feats, slabs, p_tid, p_tlb, p_bits, t_start, t_end), out),
-        "rs_init", "rs_sweep", "rs_finish")
     return tuple(out)
 
 

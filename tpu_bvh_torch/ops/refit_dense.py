@@ -18,14 +18,14 @@ n - 1 takes first = last = n - 1), so the refit builds no `mat`.
 Every min is `aabb.fmin` (`jnp.minimum`'s rule: -0.0 < +0.0, NaN
 propagates), under which a min does not depend on the order of its
 arguments, so every path is bit-exact. A CUDA tensor launches
-`csrc/refit_dense.cu` (one launch; both entries, counted by `launches`);
+`csrc/refit_dense.cu` (one launch; both entries, counted in `kernels.launches`);
 a CPU tensor takes the plain version.
 """
 from __future__ import annotations
 
 import torch
 
-from ..utils import introspect, kernels, work
+from ..utils import kernels, work
 from ..utils.platform import on_cuda
 from .aabb import fmin
 
@@ -33,7 +33,6 @@ BIG = 3.0e38
 MAX_RADIUS = 128  # the contract's largest radius: the kernel's halo (kMaxHalo)
 MIN_RADIUS = 15  # the t4 window needs 15 forward columns
 TILE = 1024  # columns one block owns (kTile in csrc/refit_dense.cu)
-launches = 0  # kernel launches by `refit_dense` and `refit_dense_cols` since the last reset
 
 
 def _check_radius(radius: int) -> None:
@@ -107,7 +106,6 @@ def refit_dense_reference(mat, n: int, radius: int):
 def _launch(cols, first, last, m_fl: int, n: int, radius: int):
     """One launch on column rows `cols` (6 rows of stride s) and the ranges
     of the first `m_fl` columns (the rest take first = last = n - 1)."""
-    global launches
     s = cols.shape[1]
     if not 1 <= n <= s:
         raise ValueError(f"refit_dense needs 1 <= n <= {s}, got {n}")
@@ -115,13 +113,8 @@ def _launch(cols, first, last, m_fl: int, n: int, radius: int):
     acc = torch.empty((6, s), dtype=torch.float32, device=dev)
     short = torch.empty((s,), dtype=torch.bool, device=dev)
     t4 = torch.empty((6, s), dtype=torch.float32, device=dev)
-    err = kernels.lib().tbvh_refit_dense(
-        cols.data_ptr(), s, first.data_ptr(), last.data_ptr(), m_fl, n, radius,
-        acc.data_ptr(), short.data_ptr(), t4.data_ptr(), kernels.stream_of(cols),
-    )
-    kernels.check("tbvh_refit_dense", err)
-    launches += 1
-    introspect.record("refit_dense", lambda: work.refit_dense(cols[0:6], first, last,
-                                                               (acc, short, t4)),
-                      "refit_dense_tile")
+    kernels.launch("refit_dense", "tbvh_refit_dense", cols, s, first, last, m_fl, n, radius,
+                   acc, short, t4, like=cols,
+                   count=lambda: work.refit_dense(cols[0:6], first, last, (acc, short, t4)),
+                   symbols="refit_dense_tile")
     return acc, short, t4

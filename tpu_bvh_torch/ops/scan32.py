@@ -26,12 +26,9 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import introspect, kernels, work
+from ..utils import kernels, work
 from ..utils.platform import on_cuda
 from . import threshold_core
-
-launches = 0  # kernel launches by `scan_core` since the last reset
-half_launches = 0  # kernel launches by `scan_fwd` and `scan_rev`
 
 
 def remap_deltas(dlt_raw):
@@ -76,23 +73,14 @@ def scan_core_reference(dlt_raw):
 
 
 def _scan_core_cuda(dlt_raw):
-    global launches
     m = dlt_raw.shape[0]
     kernels.require(dlt_raw, "dlt_raw", torch.int32, (m,))
     if not 1 <= m < (1 << 22):
         raise ValueError(f"scan_core needs 1 <= m < 2^22, got {m}")
     outs = [torch.empty(m, dtype=torch.int32, device=dlt_raw.device) for _ in range(6)]
     agg = threshold_core.scan_scratch(m, dlt_raw.device)
-    psv_pos, psv_val, lc, nsv_pos, nsv_val, rc = outs
-    err = kernels.lib().tbvh_scan32(
-        dlt_raw.data_ptr(), m, agg.data_ptr(),
-        psv_pos.data_ptr(), psv_val.data_ptr(), lc.data_ptr(),
-        nsv_pos.data_ptr(), nsv_val.data_ptr(), rc.data_ptr(),
-        kernels.stream_of(dlt_raw),
-    )
-    kernels.check("tbvh_scan32", err)
-    launches += 1
-    introspect.record("scan32", lambda: work.scan32(dlt_raw, outs), "scan_kernel<Topology")
+    kernels.launch("scan32", "tbvh_scan32", dlt_raw, m, agg, *outs, like=dlt_raw,
+                   count=lambda: work.scan32(dlt_raw, outs), symbols="scan_kernel<Topology")
     return tuple(outs)
 
 
@@ -126,17 +114,13 @@ def scan_rev_reference(dlt32_flipped, m: int):
 
 
 def _scan_half_cuda(dlt32, m: int, flipped: bool):
-    global half_launches
     kernels.require(dlt32, "dlt32", torch.int32, (m,))
     if not 1 <= m < (1 << 22):
         raise ValueError(f"scan_fwd / scan_rev need 1 <= m < 2^22, got {m}")
     outs = [torch.empty(m, dtype=torch.int32, device=dlt32.device) for _ in range(3)]
     agg = threshold_core.scan_scratch(m, dlt32.device)
-    fn = kernels.lib().tbvh_scan32_rev if flipped else kernels.lib().tbvh_scan32_fwd
-    err = fn(dlt32.data_ptr(), m, agg.data_ptr(), *(o.data_ptr() for o in outs),
-             kernels.stream_of(dlt32))
-    kernels.check("tbvh_scan32_rev" if flipped else "tbvh_scan32_fwd", err)
-    half_launches += 1
-    introspect.record("scan32_halves", lambda: work.per_row("scan32_half", m),
-                      "scan_kernel<Scan32Rev" if flipped else "scan_kernel<Scan32Fwd")
+    kernels.launch("scan32_halves", "tbvh_scan32_rev" if flipped else "tbvh_scan32_fwd",
+                   dlt32, m, agg, *outs, like=dlt32,
+                   count=lambda: work.per_row("scan32_half", m),
+                   symbols="scan_kernel<Scan32Rev" if flipped else "scan_kernel<Scan32Fwd")
     return tuple(outs)

@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from ..utils import introspect, kernels, work
+from ..utils import kernels, work
 from ..utils.platform import on_cuda
 
 V = 64
@@ -38,9 +38,6 @@ _POSB = 22  # pos bits in the packed (dlt << 22 | pos) key; needs m < 2^22
 MAX_M = 1 << 25  # 64 * pos + dlt must fit an i32
 MAX_M_CHILD = 1 << _POSB
 TILE = 1024  # rows per tile of csrc/psv_scan.cuh (kTile)
-launches = 0  # psv/nsv kernel launches (B12/B13) since the last reset
-payload_launches = 0  # payload kernel launches (B14)
-child_launches = 0  # child-position kernel launches (B15)
 
 
 def _check_size(dlt, limit: int, what: str) -> int:
@@ -121,8 +118,7 @@ def launch_grid(m: int, device, topology: bool = False) -> dict:
     resident blocks an SM (the occupancy query) and SMs."""
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
-        fn = kernels.lib().tbvh_scan32_grid if topology else kernels.lib().tbvh_psv_nsv_grid
-        kernels.check("the grid query", fn(m, out))
+        kernels.query("tbvh_scan32_grid" if topology else "tbvh_psv_nsv_grid", m, out)
     return dict(zip(("blocks", "tiles_a_block", "blocks_an_sm", "sms"), out))
 
 
@@ -143,7 +139,6 @@ def psv_nsv_phase_cycles(dlt) -> dict:
 
 
 def _threshold_cuda(dlt, pay, clk=None):
-    global launches, payload_launches
     m = dlt.shape[0]
     kernels.require(dlt, "dlt", torch.int32, (m,))
     if m < 1:
@@ -153,23 +148,15 @@ def _threshold_cuda(dlt, pay, clk=None):
     psv = torch.empty(m, dtype=torch.int32, device=dev)
     nsv = torch.empty(m, dtype=torch.int32, device=dev)
     if pay is None:
-        err = kernels.lib().tbvh_psv_nsv(dlt.data_ptr(), m, agg.data_ptr(), psv.data_ptr(),
-                                         nsv.data_ptr(), 0 if clk is None else clk.data_ptr(),
-                                         kernels.stream_of(dlt))
-        kernels.check("tbvh_psv_nsv", err)
-        launches += 1
-        introspect.record("psv_nsv_packed", lambda: work.per_row("psv_nsv_packed", m),
-                          "scan_kernel<PsvNsv")
+        kernels.launch("psv_nsv_packed", "tbvh_psv_nsv", dlt, m, agg, psv, nsv, clk, like=dlt,
+                       count=lambda: work.per_row("psv_nsv_packed", m),
+                       symbols="scan_kernel<PsvNsv")
         return psv, nsv
     pp = torch.empty(m, dtype=torch.int32, device=dev)
     np_ = torch.empty(m, dtype=torch.int32, device=dev)
-    err = kernels.lib().tbvh_psv_nsv_payload(dlt.data_ptr(), pay.data_ptr(), m, agg.data_ptr(),
-                                             psv.data_ptr(), pp.data_ptr(), nsv.data_ptr(),
-                                             np_.data_ptr(), kernels.stream_of(dlt))
-    kernels.check("tbvh_psv_nsv_payload", err)
-    payload_launches += 1
-    introspect.record("psv_nsv_payload", lambda: work.per_row("psv_nsv_payload", m),
-                      "scan_kernel<PsvNsv")
+    kernels.launch("psv_nsv_payload", "tbvh_psv_nsv_payload", dlt, pay, m, agg, psv, pp, nsv,
+                   np_, like=dlt, count=lambda: work.per_row("psv_nsv_payload", m),
+                   symbols="scan_kernel<PsvNsv")
     return psv, pp, nsv, np_
 
 
@@ -260,7 +247,6 @@ def child_positions_from_ranges(dlt, psv, nsv):
 
 
 def _child_cuda(dlt):
-    global child_launches
     m = dlt.shape[0]
     kernels.require(dlt, "dlt", torch.int32, (m,))
     if m < 1:
@@ -270,11 +256,7 @@ def _child_cuda(dlt):
     scratch = torch.empty(3 * m, dtype=torch.int32, device=dev)  # nsv <, psv <=, nsv <=
     left = torch.empty(m, dtype=torch.int32, device=dev)
     right = torch.empty(m, dtype=torch.int32, device=dev)
-    err = kernels.lib().tbvh_child_positions(dlt.data_ptr(), m, agg.data_ptr(),
-                                             scratch.data_ptr(), left.data_ptr(),
-                                             right.data_ptr(), kernels.stream_of(dlt))
-    kernels.check("tbvh_child_positions", err)
-    child_launches += 1
-    introspect.record("child_positions", lambda: work.per_row("child_positions", m),
-                      "scan_kernel<ChildPositions")
+    kernels.launch("child_positions", "tbvh_child_positions", dlt, m, agg, scratch, left, right,
+                   like=dlt, count=lambda: work.per_row("child_positions", m),
+                   symbols="scan_kernel<ChildPositions")
     return left, right

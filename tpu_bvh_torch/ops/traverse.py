@@ -24,13 +24,13 @@ with the `if_if` schedule and gives the same results too.
 
 On a CUDA tensor `traverse_bvh2` and `traverse_packed` launch
 `csrc/traverse.cu` (persistent lanes that fetch their rays, a lane taking
-its next ray when its own ends; one launch and one memset a call, counted in
-`launches` by kernel; `last_stats` holds the launch's node steps, leaf
-steps and overflowed rays, `last_warp_steps` its warp steps, whence
-`simd_efficiency`; with `count_rows` set, `last_rows` holds the distinct
-internal and leaf rows its steps stood on). The rays are read in place at
-their row strides. On a CPU tensor they take the plain
-engine, `traverse_bvh2_reference` and `traverse_packed_reference`, whose
+its next ray when its own ends; one launch and one memset a call, counted
+in `kernels.launches` as `traverse_<kernel>`; `last_stats` holds the
+launch's node steps, leaf steps and overflowed rays, `last_warp_steps` its
+warp steps, whence `simd_efficiency`; with `count_rows` set, `last_rows`
+holds the distinct internal and leaf rows its steps stood on). The rays
+are read in place at their row strides. On a CPU tensor they take the
+plain engine, `traverse_bvh2_reference` and `traverse_packed_reference`, whose
 loops read `.any()` once a step (a host sync a step on the card: the plain
 engine is the kernel's oracle, not a path to run there).
 
@@ -61,7 +61,6 @@ VARIANTS = ("if_if", "while_while", "speculative", "restart_trail")
 _NODE_STEPS = {"if_if": 1, "while_while": 4}
 _SHAPES = {"if_if": 0, "while_while": 1, "speculative": 2, "restart_trail": 3}  # kernel's Shape
 KERNELS = ("packed", *VARIANTS)  # traverse_packed's kernel, then traverse_bvh2's
-launches = dict.fromkeys(KERNELS, 0)  # kernel launches since the last reset, by kernel
 last_stats = None  # the last launch's i64[3]: node steps, leaf steps, overflowed rays
 last_warp_steps = None  # and its warp steps (i64[]): see simd_efficiency
 count_rows = False  # when set, each launch marks the rows its steps stand on
@@ -491,10 +490,6 @@ def _ray_args(rays: Rays, tr: Transformation):
     return origin, o_stride, direction, d_stride, n, *vecs
 
 
-def _ptrs(args):
-    return [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-
-
 def _root_arg(root, dev):
     r = torch.as_tensor(root, device=dev).to(I32).reshape(())
     kernels.require(r, "root", I32)
@@ -518,17 +513,19 @@ def _rows_of(touched, n_internal):
     return torch.stack([touched[:n_internal].sum(), touched[n_internal:].sum()])
 
 
-def _finish(key, name, err, outs, stats, touched, n_internal):
+def _launch(key, entry, args, ray_args, outs, stats, touched, n_internal):
+    """Launch the C entry of kernel `key` on `args`, then the ray arguments,
+    the outputs, the counters and the row marks; keep its counters."""
     global last_stats, last_warp_steps, last_rows
-    kernels.check(name, err)
-    launches[key] += 1
+    kernels.launch(
+        f"traverse_{key}", entry, *args, *ray_args, *outs, stats, touched, like=ray_args[0],
+        count=lambda: work.traverse(stats[:3].tolist(), _rows_of(touched, n_internal).tolist(),
+                                    key, outs[0].shape[0]),
+        symbols="traverse_kernel<PackedNodes" if key == "packed" else "traverse_kernel<Bvh2Nodes")
     last_stats = stats[:3]
     last_warp_steps = stats[3]
     if count_rows:
         last_rows = _rows_of(touched, n_internal)
-    introspect.record(f"traverse_{key}", lambda: work.traverse(
-        stats[:3].tolist(), _rows_of(touched, n_internal).tolist(), key, outs[0].shape[0]),
-        "traverse_kernel<PackedNodes" if key == "packed" else "traverse_kernel<Bvh2Nodes")
     return HitInfo(*outs[:4]), outs[4]
 
 
@@ -554,12 +551,9 @@ def _launch_bvh2(bvh: Bvh2, tris, rays: Rays, tr: Transformation, variant):
     outs, stats, touched = _outputs(n, mm, dev)
     if n == 0:
         return HitInfo(*outs[:4]), outs[4]
-    err = kernels.lib().tbvh_traverse_bvh2(
-        _SHAPES[variant], bvh.packed_t.data_ptr(), bvh.left.data_ptr(), bvh.right.data_ptr(), mm,
-        bvh.n_internal, root.data_ptr(), tris.data_ptr(), tris.shape[0], *_ptrs(ray_args),
-        *(o.data_ptr() for o in outs), stats.data_ptr(),
-        None if touched is None else touched.data_ptr(), kernels.stream_of(ray_args[0]))
-    return _finish(variant, "tbvh_traverse_bvh2", err, outs, stats, touched, bvh.n_internal)
+    return _launch(variant, "tbvh_traverse_bvh2",
+                   (_SHAPES[variant], bvh.packed_t, bvh.left, bvh.right, mm, bvh.n_internal, root,
+                    tris, tris.shape[0]), ray_args, outs, stats, touched, bvh.n_internal)
 
 
 def _launch_packed(packed, n_internal, root, rays: Rays, tr: Transformation):
@@ -580,8 +574,5 @@ def _launch_packed(packed, n_internal, root, rays: Rays, tr: Transformation):
         outs, stats, touched = _outputs(n, mm, dev)
     if n == 0:
         return HitInfo(*outs[:4]), outs[4]
-    err = kernels.lib().tbvh_traverse_packed(
-        packed.data_ptr(), mm, int(n_internal), root_t.data_ptr(), *_ptrs(ray_args),
-        *(o.data_ptr() for o in outs), stats.data_ptr(),
-        None if touched is None else touched.data_ptr(), kernels.stream_of(ray_args[0]))
-    return _finish("packed", "tbvh_traverse_packed", err, outs, stats, touched, int(n_internal))
+    return _launch("packed", "tbvh_traverse_packed", (packed, mm, int(n_internal), root_t),
+                   ray_args, outs, stats, touched, int(n_internal))

@@ -98,22 +98,25 @@ def recording() -> bool:
     return rec is not None and not rec.paused
 
 
-def record(kernel: str, count, *symbols: str) -> None:
-    """Report one launch of a hand-written kernel, called by its wrapper
-    right after the launch. Does nothing outside `cost_analysis`. Inside
-    it, `count()` gives the call's (bytes, flops, info) (`utils/work.py`;
-    it may read the kernel's outputs, a host sync that happens only here),
-    with the torch ops it runs left out of the counts. `symbols` name the
+def record(kernel: str, count, *symbols) -> None:
+    """Report one launch of a hand-written kernel, called by
+    `kernels.launch` right after the launch. Does nothing outside
+    `cost_analysis`. Inside it, `count()` gives the call's (bytes, flops,
+    info) (`utils/work.py`; it may read the kernel's outputs, a host sync
+    that happens only here), with the torch ops it runs left out of the
+    counts. `symbols` name the
     CUDA kernels the launch ran, for `kernel_report(fn)`: the kernel
     function's identifier, or "name<Type" for its instantiations with a
-    type argument of that name."""
+    type argument of that name; a tuple of them counts as its members."""
     rec = _active()
     if rec is None or rec.paused:
         return
     with rec.pause():
         n_bytes, flops, _ = count()
     rec.add(kernel, int(flops), int(n_bytes), kernel=True)
-    rec.symbols.extend(s for s in symbols if s not in rec.symbols)
+    for s in symbols:
+        rec.symbols.extend(x for x in ((s,) if isinstance(s, str) else s)
+                           if x not in rec.symbols)
 
 
 def _op_kind(func) -> str:

@@ -5,10 +5,17 @@ and the objects link into one shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds). The library lands in
 `tpu_bvh_torch/_build/`, named by a hash of the sources and flags, and is
 built at first use. Each C entry launches on the stream it is given and
-returns `cudaGetLastError()`; `check` raises on non-zero.
+returns `cudaGetLastError()`.
+
+`launch` is the one way the wrappers in `ops/` start a kernel: it passes
+the tensors as pointers, appends the stream, checks the return code,
+counts the call in `launches` under the kernel's name and reports it to
+`introspect.record` under the same name. `query` calls an entry that
+launches nothing (an occupancy or a cluster query).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -17,6 +24,8 @@ import subprocess
 import time
 
 import torch
+
+from . import introspect
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -66,6 +75,8 @@ _SIGNATURES = {
 }
 
 _lib = None
+launches = collections.Counter()  # calls of each kernel's C entry by `launch`, by kernel name
+_epoch = 0  # look-back launches in this process: the last tag `next_epoch` handed out
 build_seconds = None  # wall time of the last build in this process
 build_report = ""  # nvcc and ptxas output of the library's build
 
@@ -146,12 +157,47 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
+def launch(name: str, entry: str, *args, like, count, symbols) -> None:
+    """One call of the C entry `entry` (a key of `_SIGNATURES`) on the
+    current stream of `like`'s device: each tensor argument goes as its
+    `data_ptr()`, every other as it is (ints, None for a null pointer, a
+    pointer plus an offset), and the stream last. Raises on a non-zero
+    return; else counts one in `launches[name]` and reports the launch to
+    `introspect.record` under `name`, with `count` (its bytes, flops and
+    info) and `symbols` (the CUDA kernel's name pattern, or a tuple of
+    them)."""
+    # ints and None first: an isinstance that fails on torch.Tensor is slow
+    err = getattr(lib(), entry)(
+        *[a if type(a) is int or a is None else a.data_ptr() if isinstance(a, torch.Tensor)
+          else a for a in args],
+        stream_of(like))
+    check(entry, err)
+    launches[name] += 1
+    introspect.record(name, count, symbols)
+
+
+def query(entry: str, *args) -> None:
+    """Call an entry that launches nothing (its arguments as ctypes takes
+    them) and check its return code; counts nothing."""
+    check(entry, getattr(lib(), entry)(*args))
+
+
+def next_epoch() -> int:
+    """A tag for one launch's look-back status words: 30 bits, never 0 (a
+    zeroed word), and one count for every kernel, so no launch reads a word
+    an earlier launch left as its own."""
+    global _epoch
+    _epoch = _epoch % ((1 << 30) - 1) + 1
+    return _epoch
+
+
 def look_back_work(store: dict, device, stream: int, words: int):
-    """The status words (i64, at least `words`) and the ticket (i32[1]) of a
-    single-pass scan with decoupled look-back, kept in `store` per device
-    and stream and grown as needed. Both start as zeros; a launch leaves
-    the ticket at 0 and its words tagged with its epoch, so no call clears
-    them."""
+    """(status, ticket, epoch) of one launch of a single-pass scan with
+    decoupled look-back: the status words (i64, at least `words`) and the
+    ticket (i32[1]), kept in `store` per device and stream and grown as
+    needed, and the launch's `next_epoch`. Both start as zeros; a launch
+    leaves the ticket at 0 and its words tagged with its epoch, so no call
+    clears them."""
     key = (device, stream)
     status, ticket = store.get(key, (None, None))
     if ticket is None:
@@ -159,12 +205,14 @@ def look_back_work(store: dict, device, stream: int, words: int):
     if status is None or status.numel() < words:
         status = torch.zeros(words, dtype=torch.int64, device=device)
     store[key] = (status, ticket)
-    return status, ticket
+    return status, ticket, next_epoch()
 
 
 def stream_of(x) -> int:
-    """Raw handle of PyTorch's current stream on `x`'s device."""
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """Raw handle of PyTorch's current stream on `x`'s device: the value of
+    `torch.cuda.current_stream(x.device).cuda_stream`, read without making
+    a `Stream` object (a few microseconds of host time a launch)."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
 def check(name: str, err: int) -> None:
@@ -173,12 +221,14 @@ def check(name: str, err: int) -> None:
 
 
 def require(x, name: str, dtype, shape=None) -> None:
-    """Validate a kernel argument: CUDA, dtype, shape, contiguity."""
-    if x.device.type != "cuda":
+    """Validate a kernel argument: CUDA, dtype, shape, contiguity. Kept
+    cheap (`is_cuda`, the `Size` compared as it is): a PLOC round checks
+    five."""
+    if not x.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
     if x.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {x.dtype}")
-    if shape is not None and tuple(x.shape) != tuple(shape):
+    if shape is not None and x.shape != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")

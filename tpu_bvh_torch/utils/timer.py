@@ -16,7 +16,8 @@ event time what the stream spent between the two events.
 records only while a profiler runs and costs one attribute check
 otherwise; `Timer.span` enters it under `bvh.<token value>`. The
 `host_syncs` counter counts the device-to-host reads of the build paths,
-each at its site (`count_host_sync`).
+each at its site (`count_host_sync`); `tally` writes a build's launches
+and host syncs into its `last_build`.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ import time
 from collections import defaultdict
 
 import torch
+
+from . import kernels
 
 # device-to-host reads counted at their sites since the process started
 host_syncs = 0
@@ -46,6 +49,20 @@ def count_host_sync() -> None:
     """Count one device-to-host read (a host sync on the card) at its site."""
     global host_syncs
     host_syncs += 1
+
+
+@contextlib.contextmanager
+def tally(d: dict):
+    """Write into `d`, in place, what the block ran: under "launches" the
+    hand-written kernel launches (`kernels.launches`, all kernels) and
+    under "host_syncs" the counted device-to-host reads, each only where
+    `d` holds the key. A block that raises leaves `d` as it was."""
+    launches, syncs = kernels.launches.total(), host_syncs
+    yield d
+    if "launches" in d:
+        d["launches"] = kernels.launches.total() - launches
+    if "host_syncs" in d:
+        d["host_syncs"] = host_syncs - syncs
 
 
 class TimerCodes(enum.Enum):

@@ -8,9 +8,9 @@ f32 peak (`introspect.optimal_seconds`). Each function here returns
 once, every output byte written once, and where the work depends on the
 data (ray-prim tests, merges, rows a walk stood on) what this call's data
 needs; `info` says what the data-dependent parts came to. The launch
-wrappers report these counts to `introspect.record` (inside
-`introspect.cost_analysis` only), and chip_smoke.py prints its bounds from
-the same functions.
+wrappers hand these counts to `kernels.launch`, which reports them to
+`introspect.record` (read inside `introspect.cost_analysis` only), and
+chip_smoke.py prints its bounds from the same functions.
 """
 from __future__ import annotations
 
