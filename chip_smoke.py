@@ -26,7 +26,9 @@ On the way it
    for bit in every output (floats compared as their i32 bits): the
    topology scan, the dense refit (both entries) and the collapse kernel
    on sponza, on a soup of duplicated triangles (tie-heavy Morton codes)
-   and on a soup whose coordinates hold both +0.0 and -0.0; the raster
+   and on a soup whose coordinates hold both +0.0 and -0.0, and there
+   the single-pass tail (B1's links form against the plain links, B2's
+   tree mode and L against the CPU refit joined with the leaves); the raster
    sweep at 512^2 and at 1920x1080 with the renders' caps, printing its
    split's device counters (tests run against counted, pair sweeps on the
    busiest SM, re-swept subtiles); the ray sweep in occlusion mode on every live
@@ -81,7 +83,8 @@ On the way it
    shadow, ploc, batched, batched block, wavefront, app), every launch counter set to 0 just
    before each and read
    just after, and checks: every kernel of each path launched (the front
-   half's three once a build on the build and ploc paths; the collapse's
+   half's three once a build on the build and ploc paths, B1, B2 and L
+   once a build on the build path; the collapse's
    P1, P2 and B3 once on the collapse path; on the
    ploc path one fused-round launch per round and none of B9's or B10's,
    host syncs = rounds + 1 per build); the fast
@@ -265,8 +268,9 @@ FRONT_KERNELS = tuple(FRONT_WORK)
 # the collapse's prep (P1) and coarse stage (P2), csrc/collapse_prep.cu: no TPU kernel
 COLLAPSE_PREP_KERNELS = ("collapse_prep", "collapse_coarse")
 # the kernels whose launches a path counts (`kernels.launches`, by kernel
-# name); B12 and B13 are one kernel, counted under B12's name
-COUNTED = (*KERNELS, *COLLAPSE_PREP_KERNELS)
+# name); B12 and B13 are one kernel, counted under B12's name; refit_long is
+# the single-pass tail's L (csrc/refit_long.cu: no TPU kernel)
+COUNTED = (*KERNELS, *COLLAPSE_PREP_KERNELS, "refit_long")
 COUNTED_AS = {"psv_nsv_packed_lanes": "psv_nsv_packed"}
 FRONT_FRAME = {"n_tris": 4_000_000, "occupancy_tris": 262_000, "seed": 22}  # benchmark/scene.py
 TRAVERSALS = ("packed", "if_if", "while_while", "speculative", "restart_trail")
@@ -718,6 +722,17 @@ def main():
         got = refit_dense.refit_dense_cols(leaf_packed_t, first, last, n, refit.RADIUS)
         torch.cuda.synchronize()
         same_outputs(got, want, "refit_dense", f"{name} n={n}, the column entry")
+        # the single-pass tail: B1's links form, B2's tree mode and L
+        prim = torch.randperm(n, device=dev).to(torch.int32)
+        require(all(torch.equal(g, w) for g, w in zip(scan32.topology_links(codes, prim),
+                                                       radix_tree.apetrei_links_reference(
+                                                           codes, prim))),
+                f"B1's links form == the plain links (scan_core and its glue), {name}")
+        want = torch.cat([refit.refit_anchored_packed(*(x.cpu() for x in (leaf_packed_t, first,
+                                                                          last))),
+                          leaf_packed_t.cpu()], dim=1)
+        require(torch.equal(bits(refit.refit_tree(leaf_packed_t, first, last)).cpu(), bits(want)),
+                f"refit_tree (B2's tree mode, L) == the CPU refit and the leaf columns, {name}")
         aux = lbvh.build_single_pass_aux(tris)
         rows = collapse_fast.kernel_inputs(*aux)
         got_m, got_a = collapse_block.collapse_block(*rows, aux[0].n_internal)
@@ -1128,10 +1143,10 @@ def main():
         return out, counts
 
     ((bvh, parent, first, last), bvh_two), l_counts = run_path(
-        "build", ["scan32", "refit_dense", *FRONT_KERNELS],
+        "build", ["scan32", "refit_dense", "refit_long", *FRONT_KERNELS],
         lambda: (lbvh.build_single_pass_aux(tris), lbvh.build_two_pass(tris)))
-    require(all(l_counts[k] == 2 for k in FRONT_KERNELS),
-            "build path: each front-half kernel launched once a build (2 builds)")
+    require(all(l_counts[k] == 2 for k in ("scan32", "refit_dense", "refit_long", *FRONT_KERNELS)),
+            "build path: each front-half kernel, B1, B2 and L launched once a build (2 builds)")
     t_codes = topo_inputs["sponza"][0]
     topo, _ = run_path("topology", ["psv_nsv_packed", "psv_nsv_packed_lanes", "psv_nsv_payload"],
                        lambda: (radix_tree.apetrei_topology_fast(t_codes),

@@ -17,11 +17,12 @@ import pytest
 import torch
 
 from front_half_scenes import SCENES as FRONT_SCENES
+from tail_scenes import caterpillar, caterpillar_huge, huge, soup
 from tpu_bvh_torch.models import batched, lbvh, ploc
 from tpu_bvh_torch.ops import (batched_block, batched_build, collapse_block, collapse_fast,
                                front_half,
                                plane_scan, ploc_nn, ploc_round, radix_tree, raster, raster_gpu,
-                               ray_sweep, refit_dense, scan32, threshold_core, traverse)
+                               ray_sweep, refit, refit_dense, scan32, threshold_core, traverse)
 from tpu_bvh_torch.ops import ploc as ploc_ops
 from tpu_bvh_torch.types import (PLOC_RADIUS, Bvh2, Bvh4, PrimRefs, Rays, Transformation,
                                  identity_transform)
@@ -155,6 +156,84 @@ def test_build_matches_cpu(cuda):
     for g, w in zip(list(got[0]) + list(got[1:]), list(want[0]) + list(want[1:])):
         assert g.dtype == w.dtype and torch.equal(_bits(g.cpu()), _bits(w))
     assert validate.check_bvh2_correctness(got[0], tris.shape[0])
+
+
+def _tail_tris(scene):
+    if scene == "soup_5000_huge":
+        return torch.from_numpy(huge(soup(5000, 3)))
+    if scene.startswith("soup_"):
+        return torch.from_numpy(soup(int(scene[5:]), seed=len(scene)))
+    if scene == "sponza_262k":
+        return torch.from_numpy(scenes.sponza_like(262_000))
+    if scene == "caterpillar":
+        return torch.from_numpy(caterpillar())
+    if scene == "caterpillar_huge":
+        return torch.from_numpy(caterpillar_huge())
+    assert scene == "bench_4m"
+    from benchmark.scene import Scene
+
+    return Scene(4_000_000, 262_000, 1, 0.0, 2**31 + 23, "cpu").frames[0]
+
+
+def _same_tree(got, want):
+    """Every array of two (Bvh2, parent, first, last) or two Bvh2, bit for bit."""
+    flat = [(g, w) for a, b in zip(got, want)
+            for g, w in (zip(a, b) if isinstance(a, Bvh2) else [(a, b)])]
+    return all(g.dtype == w.dtype and torch.equal(_bits(g.cpu()), _bits(w.cpu())) for g, w in flat)
+
+
+TAIL_SCENES = ["soup_2", "soup_3", "soup_40", "soup_1025", "soup_65537", "sponza_262k",
+               "caterpillar", "caterpillar_huge", "soup_5000_huge", "bench_4m"]
+
+
+@pytest.mark.parametrize("extended", [True, False])
+@pytest.mark.parametrize("scene", TAIL_SCENES)
+def test_lbvh_tail_on_the_card_equals_the_cpu_build(cuda, scene, extended):
+    """The single-pass build on the card (its tail three launches: B1's links
+    form, B2's tree mode, L) equals the CPU build bit for bit in the Bvh2
+    (packed_t, left, right, root) and in parent, first and last; so do its
+    `_refs` form and the two-pass build (whose refit is B2 and L too). The
+    card reads only the extent (extended codes) and nothing in the tail;
+    the caterpillar's long count passes the CPU's budget (its full table)."""
+    tris = _tail_tris(scene)
+    got = lbvh.build_single_pass_aux(tris.to(cuda), extended)
+    torch.cuda.synchronize()
+    assert lbvh.last_build["host_syncs"] == int(extended)
+    assert radix_tree.last_build["launches"] == 3
+    assert _same_tree(got, lbvh.build_single_pass_aux(tris, extended))
+    if scene == "bench_4m":
+        return
+    refs = lbvh.prim_refs_from_triangles(tris)
+    got = lbvh.build_single_pass_refs(PrimRefs(*(x.to(cuda) for x in refs)), extended)
+    assert lbvh.last_build["host_syncs"] == int(extended)
+    assert _same_tree(got, lbvh.build_single_pass_refs(refs, extended))
+    got = lbvh.build_two_pass(tris.to(cuda), extended)
+    assert lbvh.last_build["host_syncs"] == int(extended)
+    assert _same_tree(got, lbvh.build_two_pass(tris, extended))
+
+
+@pytest.mark.parametrize("scene", ["soup_2", "soup_40", "soup_1025", "sponza_262k", "caterpillar",
+                                   "caterpillar_huge", "soup_5000_huge"])
+def test_lbvh_tail_kernels_match_plain(cuda, scene):
+    """B1's links form, B2's tree mode and L, each one launch, against their
+    plain versions on the CPU bit for bit."""
+    codes, packed_t, prim = lbvh._sorted_leaves_from_tris(_tail_tris(scene).to(cuda), True)
+    before = _launches("scan32", "refit_dense", "refit_long")
+    links = scan32.topology_links(codes, prim)
+    first, last = links[:2]
+    nodes, short, t4 = refit_dense.refit_dense_nodes(packed_t, first, last, refit.RADIUS)
+    dense = (nodes.clone(), short, t4)
+    refit.refit_long(nodes, short, t4, first, last, refit.RADIUS)
+    torch.cuda.synchronize()
+    assert _launches("scan32", "refit_dense", "refit_long") == before + 3
+    cpu = [x.cpu() for x in (codes, packed_t, prim)]
+    assert _same_bits([x.cpu() for x in links],
+                      radix_tree.apetrei_links_reference(cpu[0], cpu[2]))
+    c_first, c_last = first.cpu(), last.cpu()
+    want = refit_dense.refit_dense_nodes(cpu[1], c_first, c_last, refit.RADIUS)
+    assert _same_bits([x.cpu() for x in dense], want)
+    want = refit.refit_long_reference(*[x.cpu() for x in dense], c_first, c_last, refit.RADIUS)
+    assert torch.equal(_bits(nodes.cpu()), _bits(want))
 
 
 @pytest.mark.parametrize("scene,preset,w,h,leaf,caps", [
@@ -317,13 +396,20 @@ def test_collapse_tiles_match_plain(cuda, w):
     assert torch.equal(got_m, want_m) and all(torch.equal(g, x) for g, x in zip(got_a, want_a))
 
 
+def _cpu_refit_reads(n):
+    """The CPU refit's host reads for n leaves: the `nonzero`, and the long
+    count where the budget is below the node count."""
+    return 1 if refit._cap(n - 1, refit.RADIUS) >= n - 1 else 2
+
+
 @pytest.mark.parametrize("scene", ["sponza_262k", "bench_4m"])
 def test_build_single_pass_bvh4_on_the_card_equals_the_cpu_path(cuda, scene):
     """The build-plus-collapse entry at the benchmark's sizes (a 4M frame of
     `benchmark/scene.py`: 3,999,995 internal nodes): one B3 launch, three
     hand-written launches in the collapse, B3's rows and the card's Bvh4
     equal the plain path's on the CPU bit for bit; the card reads B3's error
-    flag once more than the CPU path reads, five reads at 4M."""
+    flag once more than the CPU path reads and none of the CPU refit's two
+    reads, three reads at 4M."""
     if scene == "sponza_262k":
         tris = torch.from_numpy(scenes.sponza_like(262_000))
     else:
@@ -336,10 +422,9 @@ def test_build_single_pass_bvh4_on_the_card_equals_the_cpu_path(cuda, scene):
     assert kernels.launches["collapse_block"] == before + 1
     assert collapse_fast.last_build["launches"] == 3
     syncs = lbvh.last_build["host_syncs"]
-    if scene == "bench_4m":
-        assert syncs == 5
+    assert syncs == 3
     want = lbvh.build_single_pass_bvh4(tris)
-    assert syncs == lbvh.last_build["host_syncs"] + 1
+    assert syncs == lbvh.last_build["host_syncs"] + 1 - _cpu_refit_reads(tris.shape[0])
     for f in Bvh4._fields:
         assert torch.equal(_bits(getattr(got, f).cpu()), _bits(getattr(want, f))), f
     del got, want
@@ -351,9 +436,10 @@ def test_build_single_pass_bvh4_on_the_card_equals_the_cpu_path(cuda, scene):
 @pytest.mark.parametrize("n", [2, 300, 70_000])
 def test_build_single_pass_bvh4_replays_equal_the_cpu_path(cuda, n):
     """Repeated calls at one size: three soups of n triangles, the first
-    one again last: every call one B3 launch and one flag read more than
-    the CPU path, and every Bvh4 equal to the CPU path's bit for bit, read
-    after the last call (no call's output is reused by a later one)."""
+    one again last: every call one B3 launch, one flag read more than the
+    CPU path and none of the CPU refit's reads, and every Bvh4 equal to the
+    CPU path's bit for bit, read after the last call (no call's output is
+    reused by a later one)."""
     g = torch.Generator().manual_seed(n)
     soups = [torch.rand((1, 1, 3), generator=g) * 20 + torch.rand((n, 3, 3), generator=g)
              for _ in range(2)]
@@ -366,7 +452,7 @@ def test_build_single_pass_bvh4_replays_equal_the_cpu_path(cuda, n):
         assert kernels.launches["collapse_block"] == before + 1
         syncs = lbvh.last_build["host_syncs"]
         want.append(lbvh.build_single_pass_bvh4(tris))
-        assert syncs == lbvh.last_build["host_syncs"] + 1
+        assert syncs == lbvh.last_build["host_syncs"] + 1 - _cpu_refit_reads(n)
     for a, b in zip(got, want):  # after every call
         for f in Bvh4._fields:
             assert torch.equal(_bits(getattr(a, f).cpu()), _bits(getattr(b, f))), f

@@ -7,7 +7,7 @@ import re
 import pytest
 
 from tpu_bvh_torch.ops import (batched_block, batched_build, collapse_block, plane_scan,
-                               ploc_nn, ploc_round, raster_gpu, ray_sweep, refit_dense,
+                               ploc_nn, ploc_round, raster_gpu, ray_sweep, refit, refit_dense,
                                threshold_core, traverse)
 from tpu_bvh_torch.utils import kernels
 
@@ -32,6 +32,10 @@ def _constexpr(source: str, name: str) -> int:
     ("ray_sweep.cu", "kChunk", lambda: ray_sweep.CHUNK),
     ("refit_dense.cu", "kTile", lambda: refit_dense.TILE),
     ("refit_dense.cu", "kMaxHalo", lambda: refit_dense.MAX_RADIUS),
+    ("refit_long.cu", "kBlock", lambda: refit.BLOCK),
+    ("refit_long.cu", "kLocal", lambda: refit.LOCAL_LEVELS),
+    ("refit_long.cu", "kMaxSuper", lambda: refit.MAX_SUPER),
+    ("refit_long.cu", "kMaxBlocks", lambda: refit.MAX_BLOCKS),
     ("collapse_block.cu", "kTile", lambda: collapse_block.TILE),
     ("collapse_block.cu", "kHalo", lambda: collapse_block.HALO),
     ("collapse_block.cu", "kSLen", lambda: collapse_block.S_LEN),

@@ -30,6 +30,19 @@
 // Bound on the card: bytes. The function reads the six rows and first and
 // last once (32 B a column) and writes acc, t4 and the flag (49 B a
 // column); the halos add 2R + 15 columns a tile (about 6% at R = 24).
+//
+// The tree's mode (tbvh_refit_dense_nodes, the LBVH tail's second launch):
+// on the refit's own arrays (s = n, the edge column n - 1 taking first =
+// last = n - 1) the same kernel writes acc of the internal columns [0, n -
+// 1) straight into the Bvh2's boxes `nodes` f32[6, 2n - 1], and copies the
+// leaf columns it has staged into nodes[:, n - 1 + j], so no acc array is
+// made and the tree needs no join of internal and leaf columns. short is
+// written as in the other mode and t4 a column's six words side by side
+// (f32[n, 6], staged in shared memory so the stores stay coalesced), for
+// the long-node pass (refit_long.cu), whose lookups then take one sector a
+// window. It moves 24 B a column more than the frozen
+// count of benchmark/kernels/refit_dense.json (the leaf copy), which is
+// then a floor.
 
 #include <cuda_runtime.h>
 
@@ -54,7 +67,7 @@ __global__ void __launch_bounds__(kThreads)
     refit_dense_tile(const float* __restrict__ cols, int s, const int* __restrict__ first,
                      const int* __restrict__ last, int m_fl, int n, int R,
                      float* __restrict__ acc, unsigned char* __restrict__ short_flag,
-                     float* __restrict__ t4) {
+                     float* __restrict__ t4, float* __restrict__ nodes) {
   extern __shared__ float sm[];  // sm[c * kSpan + k]: row c of column lo0 + k
   const int t0 = blockIdx.x * kTile;
   const int lo0 = t0 - R;
@@ -98,6 +111,16 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < 6; ++c) va[q][c] = vt[q][c] = kBig;
   tbvh::cp_async_wait_all();
   __syncthreads();
+  const size_t ld = 2 * (size_t)n - 1;  // the tree's mode: a row of nodes
+  if (nodes) {  // the leaf columns, before the levels overwrite them
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int k = threadIdx.x + q * kThreads, i = t0 + k;
+      if (i >= n) continue;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) nodes[c * ld + n - 1 + i] = sm[c * kSpan + k + R];
+    }
+  }
 
   const int top = floor_log2(2 * R);  // the longest range: R back, R forward
   for (int k = 0;; ++k) {
@@ -145,10 +168,44 @@ __global__ void __launch_bounds__(kThreads)
     if (i >= s) continue;
 #pragma unroll
     for (int c = 0; c < 6; ++c) {
-      acc[(size_t)c * s + i] = jmin(va[q][c], kBig);
-      t4[(size_t)c * s + i] = t_len[q] < 16 ? jmin(vt[q][c], kBig) : vt[q][c];
+      if (!nodes) {
+        acc[(size_t)c * s + i] = jmin(va[q][c], kBig);
+      } else if (i < n - 1) {
+        nodes[c * ld + i] = jmin(va[q][c], kBig);
+      }
+      vt[q][c] = t_len[q] < 16 ? jmin(vt[q][c], kBig) : vt[q][c];
+      if (!nodes) t4[(size_t)c * s + i] = vt[q][c];
     }
   }
+  if (nodes) {  // t4 by columns: through shared memory, stored coalesced
+    __syncthreads();  // the last level's lookups are done
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int k = threadIdx.x + q * kThreads;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) sm[6 * k + c] = vt[q][c];
+    }
+    __syncthreads();
+    const int words = 6 * min(kTile, s - t0);
+    float* dst = t4 + (size_t)6 * t0;
+    for (int w = threadIdx.x; w < words; w += kThreads) dst[w] = sm[w];
+  }
+}
+
+}  // namespace
+
+namespace {
+
+cudaError_t launch(const float* cols, int s, const int* first, const int* last, int m_fl, int n,
+                   int radius, float* acc, unsigned char* short_flag, float* t4, float* nodes,
+                   cudaStream_t stream) {
+  if (radius < 1 || radius > kMaxHalo) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(refit_dense_tile,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (e != cudaSuccess) return e;
+  refit_dense_tile<<<(s + kTile - 1) / kTile, kThreads, kSmem, stream>>>(
+      cols, s, first, last, m_fl, n, radius, acc, short_flag, t4, nodes);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -156,11 +213,16 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int tbvh_refit_dense(const float* cols, int s, const int* first, const int* last,
                                 int m_fl, int n, int radius, float* acc,
                                 unsigned char* short_flag, float* t4, cudaStream_t stream) {
-  if (radius < 1 || radius > kMaxHalo) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(refit_dense_tile,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
-  if (e != cudaSuccess) return (int)e;
-  refit_dense_tile<<<(s + kTile - 1) / kTile, kThreads, kSmem, stream>>>(
-      cols, s, first, last, m_fl, n, radius, acc, short_flag, t4);
-  return (int)cudaGetLastError();
+  return (int)launch(cols, s, first, last, m_fl, n, radius, acc, short_flag, t4, nullptr,
+                     stream);
+}
+
+// The tree's mode: packed_t f32[6, n] the leaf columns, first and last
+// i32[n - 1]; nodes f32[6, 2n - 1], short_flag u8[n], t4 f32[n, 6]
+extern "C" int tbvh_refit_dense_nodes(const float* packed_t, int n, const int* first,
+                                      const int* last, int radius, float* nodes,
+                                      unsigned char* short_flag, float* t4,
+                                      cudaStream_t stream) {
+  return (int)launch(packed_t, n, first, last, n - 1, n, radius, nullptr, short_flag, t4, nodes,
+                     stream);
 }

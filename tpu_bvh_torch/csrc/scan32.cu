@@ -9,6 +9,20 @@
 //
 // Bound on the card: bytes, 4 B read and 24 B written per row.
 //
+// The links form (tbvh_scan32_links), the LBVH tail's first launch: the
+// same Op reads the sorted codes themselves (the raw delta of boundary i is
+// clz32(c[i] ^ c[i + 1]), or 32 + clz32(i ^ (i + 1)) on a tie, the rule of
+// radix_tree.adjacent_deltas and of delta32 below), so no delta array is
+// made, and its epilogue writes the single-pass tree's final arrays in
+// place of the six rows: first and last (psv + 1 and nsv), parent of the
+// 2n - 1 nodes (an internal node's by the climb's rule, -1 at the root;
+// leaf j's j - 1 where d(j - 1) > d(j), else j), left and right of the 2n -
+// 1 nodes (the climb's scatter with a leaf child as m + j; leaf j's left is
+// its primitive and its right -1) and the root's index. Every slot is
+// written once, as in the six-row form. Bound: bytes, 8 B of code and 4 B
+// of primitive read and 32 B written per row; the byte count of
+// benchmark/kernels/scan32.json (the six-row form's) is a floor for it.
+//
 // Design. All six outputs follow from the strict psv/nsv of the remapped
 // deltas (raw - 2 or raw - 11, in registers), so B1 is one launch of the
 // psv/nsv scan of psv_scan.cuh with an epilogue: the positions and values
@@ -52,10 +66,13 @@ namespace {
 
 __device__ __forceinline__ int remap(int raw) { return raw <= 31 ? raw - 2 : raw - 11; }
 
-// B1's epilogue: the raw deltas in, the six outputs out
+// B1's epilogue. Six-row form (`raw` set): the raw deltas in, the six
+// outputs out. Links form (`raw` null): the sorted codes in, the tree's
+// arrays out.
 struct Topology {
   static constexpr bool kLe = false;  // strict answers only
   const int* raw;
+  const long long* codes;  // the links form's input: u32 values, sorted
   int m;
   int* psv_pos;
   int* psv_val;
@@ -63,10 +80,26 @@ struct Topology {
   int* nsv_pos;
   int* nsv_val;
   int* rc;
-  __device__ int delta(int i) const { return remap(raw[i]); }
+  const int* leaf_prim;  // the links form's outputs and the leaves' primitives
+  int* first;
+  int* last;
+  int* parent;
+  int* left;
+  int* right;
+  int* root;
+  __device__ int delta(int i) const {
+    if (raw) return remap(raw[i]);
+    const int x = (int)(unsigned)(codes[i] ^ codes[i + 1]);
+    return remap(x ? __clz(x) : 32 + __clz(i ^ (i + 1)));
+  }
   __device__ void write(int i, int d, int p, int n) const {
     const bool hp = p >= 0, hn = n != psv::kBig;
     const int dp = hp ? p & 63 : -1, dn = hn ? n & 63 : -1;
+    const bool leaf_right = (i > 0 ? delta(i - 1) : -1) > d;  // leaf i
+    if (!raw) {
+      links(i, hp ? p >> 6 : -1, hn ? n >> 6 : m, hp || hn, dp > dn, leaf_right);
+      return;
+    }
     psv_pos[i] = hp ? p >> 6 : -1;
     psv_val[i] = dp;
     nsv_pos[i] = hn ? n >> 6 : m;
@@ -78,12 +111,44 @@ struct Topology {
         lc[n >> 6] = i;
       }
     }
-    if ((i > 0 ? delta(i - 1) : -1) > d) {  // leaf i
+    if (leaf_right) {
       rc[i - 1] = -1;
     } else {
       lc[i] = -1;
     }
     if (i == m - 1) rc[i] = -1;  // leaf m
+  }
+  // boundary i covers leaves [ps + 1, ns]; it is the root where it has no
+  // psv and no nsv, else the right child of ps (is_right) or the left of ns
+  __device__ void links(int i, int ps, int ns, bool child, bool is_right,
+                        bool leaf_right) const {
+    first[i] = ps + 1;
+    last[i] = ns;
+    if (child) {
+      parent[i] = is_right ? ps : ns;
+      if (is_right) {
+        right[ps] = i;
+      } else {
+        left[ns] = i;
+      }
+    } else {
+      parent[i] = -1;
+      *root = i;
+    }
+    leaf(i, leaf_right ? i - 1 : i, leaf_right);
+    if (i == m - 1) leaf(m, i, true);
+  }
+  // leaf j: its slot in its parent boundary b, its own links
+  __device__ void leaf(int j, int b, bool is_right) const {
+    const int node = m + j;
+    if (is_right) {
+      right[b] = node;
+    } else {
+      left[b] = node;
+    }
+    parent[node] = b;
+    left[node] = leaf_prim[j];
+    right[node] = -1;
   }
 };
 
@@ -138,8 +203,36 @@ struct Scan32Rev {
 // agg: the scratch of psv_scan.cuh (threshold_core.scan_scratch)
 extern "C" int tbvh_scan32(const int* dlt_raw, int m, int* agg, int* psv_pos, int* psv_val,
                            int* lc, int* nsv_pos, int* nsv_val, int* rc, cudaStream_t stream) {
-  return (int)psv::launch(Topology{dlt_raw, m, psv_pos, psv_val, lc, nsv_pos, nsv_val, rc}, m,
-                          agg, psv_pos, nsv_pos, nullptr, stream);
+  Topology op{};
+  op.raw = dlt_raw;
+  op.m = m;
+  op.psv_pos = psv_pos;
+  op.psv_val = psv_val;
+  op.lc = lc;
+  op.nsv_pos = nsv_pos;
+  op.nsv_val = nsv_val;
+  op.rc = rc;
+  return (int)psv::launch(op, m, agg, psv_pos, nsv_pos, nullptr, stream);
+}
+
+// B1's links form: codes i64[m + 1] (sorted u32 values), leaf_prim
+// i32[m + 1]; first, last i32[m]; parent, left, right i32[2m + 1]; root one
+// int; agg as tbvh_scan32's. first and last hold the scan's parked answers
+// until their rows are written.
+extern "C" int tbvh_scan32_links(const long long* codes, const int* leaf_prim, int m, int* agg,
+                                 int* first, int* last, int* parent, int* left, int* right,
+                                 int* root, cudaStream_t stream) {
+  Topology op{};
+  op.codes = codes;
+  op.m = m;
+  op.leaf_prim = leaf_prim;
+  op.first = first;
+  op.last = last;
+  op.parent = parent;
+  op.left = left;
+  op.right = right;
+  op.root = root;
+  return (int)psv::launch(op, m, agg, first, last, nullptr, stream);
 }
 
 // The grid a call over m rows launches: {blocks, most tiles a block, blocks

@@ -4,19 +4,22 @@ layout): the port of `tpu_bvh.models.lbvh`.
 The front half (leaf boxes, the scene box, extended Morton codes, the
 (code, prim_idx) sort and its gathers, `ops/front_half.py`), the topology
 scan and the dense refit run hand-written kernels on CUDA tensors and
-their plain PyTorch versions on the CPU.
+their plain PyTorch versions on the CPU. The single-pass tail on the card
+(`radix_tree.apetrei_tree`) is three launches that write the finished
+tree's arrays, so its Bvh2 needs no assembly.
 
 `build_single_pass_bvh4` collapses the single-pass tree to a 4-wide BVH
 (`ops/collapse_fast.py`, kernel B3 on the card).
 
 Under a running profiler each build marks its front half (`bvh.front_half`,
 with the sort and its gathers as `bvh.sort`), its topology and refit
-(`bvh.topology`, `bvh.refit`), its output assembly (`bvh.finalize`) and
+(`bvh.topology`, `bvh.refit`), its output assembly (`bvh.finalize`; none
+in the single-pass build on the card) and
 the collapse (`bvh.collapse`, with B3 as `bvh.collapse_block`).
 `last_build["host_syncs"]` holds the last build's device-to-host reads
-(the extent copy, the refit's long-node count and its `nonzero`; the
-collapse's long-node count and, on the card, B3's error flag),
-counted where they happen and tallied by `utils/timer.tally`.
+(the extent copy; on the CPU the refit's long-node count and its
+`nonzero`; the collapse's long-node count and, on the card, B3's error
+flag), counted where they happen and tallied by `utils/timer.tally`.
 """
 from __future__ import annotations
 
@@ -93,25 +96,24 @@ def build_single_pass(tris, use_extended: bool = True) -> Bvh2:
     return build_single_pass_aux(tris, use_extended)[0]
 
 
+def _single_pass(codes, leaf_packed_t, leaf_prim):
+    """The single-pass tail: (Bvh2, parent, first, last)."""
+    packed_t, left, right, parent, root, first, last = radix_tree.apetrei_tree(
+        codes, leaf_packed_t, leaf_prim)
+    return Bvh2(packed_t=packed_t, left=left, right=right, root=root), parent, first, last
+
+
 def build_single_pass_refs(refs: PrimRefs, use_extended: bool = True) -> Bvh2:
     """`build_single_pass` from PrimRefs."""
     with timer.tally(last_build):
-        codes, leaf_packed_t, leaf_prim = _sorted_leaves_packed(refs, use_extended)
-        left, right, _parent, int_packed_t, root = radix_tree.apetrei_build_packed(
-            codes, leaf_packed_t)
-        return _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root)
+        return _single_pass(*_sorted_leaves_packed(refs, use_extended))[0]
 
 
 def build_single_pass_aux(tris, use_extended: bool = True):
     """`build_single_pass` plus parent i32[2n-1] and the per-node leaf
     ranges first/last i32[n-1]."""
     with timer.tally(last_build):
-        codes, leaf_packed_t, leaf_prim = _sorted_leaves_from_tris(tris, use_extended)
-        left, right, parent, int_packed_t, root, first, last = (
-            radix_tree.apetrei_build_packed_full(codes, leaf_packed_t)
-        )
-        bvh = _finalize_packed(leaf_packed_t, leaf_prim, left, right, int_packed_t, root)
-        return bvh, parent, first, last
+        return _single_pass(*_sorted_leaves_from_tris(tris, use_extended))
 
 
 def build_single_pass_bvh4(tris, use_extended: bool = True) -> Bvh4:

@@ -6,6 +6,15 @@ i+1) and covers leaves [psv(i) + 1, nsv(i)] of the adjacent-delta array;
 its children are the delta argmins of its two half-ranges. The builders'
 scans come from `scan32.scan_core` (B1, a CUDA kernel on CUDA tensors).
 
+`apetrei_tree` is the single-pass build's tail, from the sorted codes and
+leaf columns to the finished tree's arrays. On CUDA tensors it is three
+launches and no host read: B1's links form (`scan32.topology_links`: the
+codes in, first, last, parent, left, right and the root out), then
+`refit.refit_tree` (B2 writing the tree's boxes in place, L the long
+nodes); `last_build["launches"]` counts them. On the CPU it is
+`apetrei_build_packed_full` (the scans, JAX's refit) and the join of the
+internal and leaf columns.
+
 The gather-free topologies `apetrei_topology_fast` and
 `karras_topology_fast` take the same tree from the threshold scans of
 `threshold_core` (B12/B13 and B14 on the card) and emit child links by
@@ -23,11 +32,13 @@ import math
 import torch
 
 from ..utils import timer
+from ..utils.platform import on_cuda
 from . import refit as _refit
 from . import threshold_core
-from .scan32 import remap_deltas, scan_core
+from .scan32 import remap_deltas, scan_core, topology_links
 
 I32 = torch.int32
+last_build = {"launches": 0}  # the last `apetrei_tree`'s hand-written launches
 
 
 def _clz32(x):
@@ -126,10 +137,14 @@ def apetrei_build(codes, leaf_min, leaf_max):
 def apetrei_build_packed_full(codes, leaf_packed_t):
     """`apetrei_build_packed` plus the per-node leaf ranges (first, last)."""
     with timer.span("bvh.topology"):
-        return _apetrei_build_packed_full(codes, leaf_packed_t)
+        left, right, parent, root, first, last = _apetrei_links(codes)
+        int_packed_t = _refit.refit_anchored_packed(leaf_packed_t, first, last)
+        return left, right, parent, int_packed_t, root, first, last
 
 
-def _apetrei_build_packed_full(codes, leaf_packed_t):
+def _apetrei_links(codes):
+    """(left, right, parent, root, first, last) of the single-pass tree from
+    `scan_core`'s rows; a leaf's left and right are -1."""
     n = codes.shape[0]
     m = n - 1
     dev = codes.device
@@ -142,8 +157,6 @@ def _apetrei_build_packed_full(codes, leaf_packed_t):
         is_root, -1, torch.where(internal_is_right, psv, nsv)
     ).to(I32)
 
-    int_packed_t = _refit.refit_anchored_packed(leaf_packed_t, first, last)
-
     _, parent_leaf = _boundary_parents(dlt)
 
     left_internal = torch.where(lc >= 0, lc, m + idx)
@@ -154,7 +167,37 @@ def _apetrei_build_packed_full(codes, leaf_packed_t):
     right = torch.cat([right_internal.to(I32), leaf_none])
     parent = torch.cat([parent_internal, parent_leaf])
     root_idx = torch.argmax(is_root.to(I32)).to(I32)
-    return left, right, parent, int_packed_t, root_idx, first, last
+    return left, right, parent, root_idx, first, last
+
+
+def apetrei_links_reference(codes, leaf_prim):
+    """Plain version of B1's links form (`scan32.topology_links`): (first,
+    last, parent, left, right, root) with a leaf's left its primitive."""
+    left, right, parent, root, first, last = _apetrei_links(codes)
+    left[codes.shape[0] - 1:] = leaf_prim
+    return first, last, parent, left, right, root
+
+
+def apetrei_tree(codes, leaf_packed_t, leaf_prim):
+    """The single-pass tree from sorted codes (int64 [n] of u32 values),
+    leaf columns f32[6, n] and the leaves' primitives i32[n]: (packed_t
+    f32[6, 2n-1], internal columns then leaf columns; left i32[2n-1], a
+    leaf's its primitive; right, a leaf's -1; parent; root; first and last
+    i32[n-1]). Spans `bvh.topology` (with `bvh.refit` inside) and, on the
+    CPU, `bvh.finalize` for the join."""
+    with timer.tally(last_build):
+        if on_cuda(codes):
+            with timer.span("bvh.topology"):
+                first, last, parent, left, right, root = topology_links(codes, leaf_prim)
+                with timer.span("bvh.refit"):
+                    packed_t = _refit.refit_tree(leaf_packed_t, first, last)
+            return packed_t, left, right, parent, root, first, last
+        left, right, parent, int_packed_t, root, first, last = apetrei_build_packed_full(
+            codes, leaf_packed_t)
+        with timer.span("bvh.finalize"):
+            packed_t = torch.cat([int_packed_t, leaf_packed_t], dim=1)
+            left[codes.shape[0] - 1:] = leaf_prim
+        return packed_t, left, right, parent, root, first, last
 
 
 # ---------------------------------------------------------------- oracles

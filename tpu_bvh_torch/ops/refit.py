@@ -8,6 +8,15 @@ stencil (`refit_dense`, a CUDA kernel on CUDA tensors); the few long
 ranges from a two-level min table, built over `aabb.min_key`s (i32 keys
 whose order is `fmin`'s, so each level is one integer min). Every path
 is exact, so the result is the same at any radius.
+
+On CUDA tensors the refit takes no host read: `refit_tree` is B2 in its
+tree mode (`refit_dense.refit_dense_nodes`, which also copies the leaf
+columns into the tree's boxes) and one launch of `csrc/refit_long.cu`
+(L), which answers every node whose short flag is clear, however many
+there are, and counts them on the card to take the CPU branch's answers
+where they differ (past the budget, for coordinates at +3e38 or NaN). A
+CPU tensor keeps JAX's branch: the long-node count and its `nonzero` are
+host reads there.
 """
 from __future__ import annotations
 
@@ -15,13 +24,22 @@ import math
 
 import torch
 
-from ..utils import timer
+from ..utils import kernels, timer, work
+from ..utils.platform import on_cuda
 from .aabb import from_min_key, min_key
-from .refit_dense import BIG, refit_dense_cols
+from .refit_dense import BIG, refit_dense_cols, refit_dense_nodes
 
 I32 = torch.int32
 RADIUS = 24
 BIG_KEY = int(min_key(torch.tensor([BIG], dtype=torch.float32)))
+MAX_KEY = torch.iinfo(torch.int32).max
+# L's scratch, mirrors of csrc/refit_long.cu: leaves a block minimum covers
+# (kBlock), levels of a superblock's table (kLocal), superblocks at n <=
+# 2^22 (kMaxSuper), CTAs of the largest grid (kMaxBlocks)
+BLOCK = 16
+LOCAL_LEVELS = 10
+MAX_SUPER = 256
+MAX_BLOCKS = 1024
 
 
 def _floor_log2(x):
@@ -70,15 +88,26 @@ def refit_anchored_packed(packed_t, first, last, radius: int = RADIUS):
         return _refit_anchored_packed(packed_t, first, last, radius)
 
 
-def _refit_anchored_packed(packed_t, first, last, radius: int):
-    n = packed_t.shape[1]
-    m = first.shape[0]
+def _check_ranges(n: int, m: int) -> None:
     if m != n - 1:
         raise ValueError("boundary-ordered refit requires one node per boundary")
     if m >= (1 << 22):
         raise ValueError("long-path key packs positions in 22 bits")
-    # long-node budget: about 2n/L nodes have range length > L in Morton order
-    cap = min(m, max(64, (4 * m) // (3 * radius)))
+
+
+def _cap(m: int, radius: int) -> int:
+    """The long-node budget: about 2n/L nodes have range length > L in
+    Morton order."""
+    return min(m, max(64, (4 * m) // (3 * radius)))
+
+
+def _refit_anchored_packed(packed_t, first, last, radius: int):
+    n = packed_t.shape[1]
+    m = first.shape[0]
+    _check_ranges(n, m)
+    if on_cuda(packed_t):
+        return refit_tree(packed_t, first, last, radius)[:, :m]
+    cap = _cap(m, radius)
     if cap >= m:
         return _refit_anchored_fast(packed_t, first, last, radius)
     i = torch.arange(m, dtype=I32, device=first.device)
@@ -150,3 +179,79 @@ def _refit_full_table(packed_t, first, last):
     k = _floor_log2(last - first + 1)
     b = torch.clamp(last - (1 << k) + 1, min=0)
     return from_min_key(torch.minimum(table_t[:, k * n + first], table_t[:, k * n + b]))
+
+
+def refit_tree(packed_t, first, last, radius: int = RADIUS):
+    """The tree's boxes f32[6, 2n - 1]: every internal node's union (as
+    `refit_anchored_packed` gives it, bit for bit), then the n leaf columns
+    of packed_t. On CUDA tensors two launches (B2 in its tree mode, then L)
+    and no host read; on the CPU the plain versions of both."""
+    n = packed_t.shape[1]
+    _check_ranges(n, first.shape[0])
+    nodes, short, t4 = refit_dense_nodes(packed_t.contiguous(), first.contiguous(),
+                                         last.contiguous(), radius)
+    return refit_long(nodes, short, t4, first, last, radius)
+
+
+def refit_long(nodes, short, t4, first, last, radius: int):
+    """L: B2's tree-mode outputs in (t4 f32[n, 6]), `nodes` overwritten in
+    place at every internal node whose short flag is clear (and, past the
+    budget, at the short ones B2 left at +3e38 or NaN) and returned;
+    dispatch by device."""
+    if not on_cuda(nodes):
+        return refit_long_reference(nodes, short, t4, first, last, radius)
+    n = t4.shape[0]
+    kernels.require(nodes, "nodes", torch.float32, (6, 2 * n - 1))
+    kernels.require(short, "short", torch.bool, (n,))
+    kernels.require(t4, "t4", torch.float32, (n, 6))
+    kernels.require(first, "first", torch.int32, (n - 1,))
+    kernels.require(last, "last", torch.int32, (n - 1,))
+    nb = -(-n // BLOCK)
+    scratch = torch.empty(6 * (LOCAL_LEVELS * nb + MAX_SUPER) + MAX_BLOCKS + n - 1,
+                          dtype=torch.int32, device=nodes.device)
+    kernels.launch("refit_long", "tbvh_refit_long", t4, short, first, last, n, radius, scratch,
+                   nodes, like=nodes, count=lambda: work.refit_long(short, nb),
+                   symbols="refit_long_kernel")
+    return nodes
+
+
+def long_unions(t4, f, l, fill):
+    """The two-level query of long ranges [f, l] (each more than 15
+    leaves): the min_key-min of the end windows t4[:, f] and
+    t4[:, max(l - 15, 0)] and of the whole 16-leaf blocks between them, from
+    a doubling table over the block minima t4[:, ::16]; `fill` (a key, or
+    None for none) stands in for the blocks where the range holds none.
+    Returns f32[6, len(f)]."""
+    keys = min_key(t4)
+    u = torch.minimum(keys[:, f], keys[:, torch.clamp(l - (BLOCK - 1), min=0)])
+    bf = (f + BLOCK - 1) // BLOCK
+    bl = (l + 1) // BLOCK - 1
+    has = bl >= bf
+    k = _floor_log2(torch.clamp(bl - bf + 1, min=1))
+    mid = torch.full_like(u, MAX_KEY if fill is None else fill)
+    level = keys[:, ::BLOCK]  # level k at b: the min of blocks [b, b + 2^k)
+    for lv in range(int(k[has].max()) + 1 if bool(has.any()) else 0):
+        if lv:
+            h = 1 << (lv - 1)
+            level = torch.minimum(level[:, :-h], level[:, h:])
+        at = torch.nonzero(has & (k == lv)).squeeze(1)
+        mid[:, at] = torch.minimum(level[:, bf[at]], level[:, bl[at] - (1 << lv) + 1])
+    return from_min_key(torch.minimum(u, mid))
+
+
+def refit_long_reference(nodes, short, t4, first, last, radius: int):
+    """Plain version of L (any device; host reads; t4 f32[n, 6]): the long
+    nodes' two-level query with no budget, and past the budget (where the
+    CPU branch takes `_refit_full_table`) no fill, and the short nodes that
+    the stencil's +3e38 start value or a NaN touched redone from the leaf
+    columns nodes[:, m:]."""
+    m = first.shape[0]
+    long = ~short[:m]
+    exact = _cap(m, radius) < m and int(long.sum()) > _cap(m, radius)
+    at = torch.nonzero(long).squeeze(1)
+    nodes[:, at] = long_unions(t4.T, first[at], last[at], None if exact else BIG_KEY)
+    if exact:
+        cur = nodes[:, :m]
+        at = torch.nonzero(~long & ((cur != cur) | (cur == BIG)).any(dim=0)).squeeze(1)
+        nodes[:, at] = _refit_full_table(nodes[:, m:], first[at], last[at])
+    return nodes

@@ -14,11 +14,15 @@ For each column i:
 `refit_dense_cols(packed_t, first, last, n, radius)` is the same function
 on the refit's own arrays (f32[6, n], i32[n - 1] twice; the edge column
 n - 1 takes first = last = n - 1), so the refit builds no `mat`.
+`refit_dense_nodes` is its tree mode: acc of the n - 1 internal columns
+lands in the tree's boxes f32[6, 2n - 1], followed by the leaf columns
+(the LBVH tail's second launch, `refit.refit_tree`).
 
 Every min is `aabb.fmin` (`jnp.minimum`'s rule: -0.0 < +0.0, NaN
 propagates), under which a min does not depend on the order of its
 arguments, so every path is bit-exact. A CUDA tensor launches
-`csrc/refit_dense.cu` (one launch; both entries, counted in `kernels.launches`);
+`csrc/refit_dense.cu` (one launch; all three entries, counted in
+`kernels.launches`);
 a CPU tensor takes the plain version.
 """
 from __future__ import annotations
@@ -59,6 +63,30 @@ def refit_dense_cols(packed_t, first, last, n: int, radius: int):
         kernels.require(last, "last", torch.int32, (n - 1,))
         return _launch(packed_t, first, last, n - 1, n, radius)
     return refit_dense_cols_reference(packed_t, first, last, n, radius)
+
+
+def refit_dense_nodes(packed_t, first, last, radius: int):
+    """`refit_dense_cols` in its tree mode: (nodes f32[6, 2n - 1], short
+    bool[n], t4 f32[n, 6]) where nodes holds acc of the internal columns
+    [0, n - 1) and then the n leaf columns, and t4 a column's six words side
+    by side; dispatch by device."""
+    _check_radius(radius)
+    n = packed_t.shape[1]
+    if not on_cuda(packed_t):
+        acc, short, t4 = refit_dense_cols_reference(packed_t, first, last, n, radius)
+        return torch.cat([acc[:, :n - 1], packed_t], dim=1), short, t4.T.contiguous()
+    kernels.require(packed_t, "packed_t", torch.float32, (6, n))
+    kernels.require(first, "first", torch.int32, (n - 1,))
+    kernels.require(last, "last", torch.int32, (n - 1,))
+    dev = packed_t.device
+    nodes = torch.empty((6, 2 * n - 1), dtype=torch.float32, device=dev)
+    short = torch.empty((n,), dtype=torch.bool, device=dev)
+    t4 = torch.empty((n, 6), dtype=torch.float32, device=dev)
+    kernels.launch("refit_dense", "tbvh_refit_dense_nodes", packed_t, n, first, last, radius,
+                   nodes, short, t4, like=packed_t,
+                   count=lambda: work.refit_dense(packed_t, first, last, (nodes, short, t4)),
+                   symbols="refit_dense_tile")
+    return nodes, short, t4
 
 
 def cols_mat(packed_t, first, last):

@@ -12,6 +12,11 @@ scan of `csrc/psv_scan.cuh` whose epilogue splits the packed keys and
 scatters the children by the Apetrei climb's rule. A CPU tensor takes
 `scan_core_reference`, the vectorised threshold scans.
 
+`topology_links` is B1's links form, the LBVH tail's first launch: the
+same kernel reads the sorted codes themselves and writes the single-pass
+tree's final arrays (first, last, parent, left, right, root). Its plain
+version is `radix_tree.apetrei_links_reference`.
+
 `scan_fwd` and `scan_rev` are the two halves of the TPU's V=32 form
 (`scan32._run` with `_fwd_kernel` / `_rev_kernel`): from the V=32 deltas
 of sorted codes (distinct codes raw - 2, every tie on lane 30) the first
@@ -82,6 +87,30 @@ def _scan_core_cuda(dlt_raw):
     kernels.launch("scan32", "tbvh_scan32", dlt_raw, m, agg, *outs, like=dlt_raw,
                    count=lambda: work.scan32(dlt_raw, outs), symbols="scan_kernel<Topology")
     return tuple(outs)
+
+
+def topology_links(codes, leaf_prim):
+    """B1's links form on CUDA tensors: from sorted codes (i64[n] of u32
+    values, 2 <= n <= 2^22) and the leaves' primitives (i32[n]), the
+    single-pass tree's (first i32[n-1], last i32[n-1], parent i32[2n-1],
+    left i32[2n-1], right i32[2n-1], root i32[]); a leaf's left is its
+    primitive and its right -1. One launch."""
+    n = codes.shape[0]
+    m = n - 1
+    kernels.require(codes, "codes", torch.int64, (n,))
+    kernels.require(leaf_prim, "leaf_prim", torch.int32, (n,))
+    if not 1 <= m < (1 << 22):
+        raise ValueError(f"topology_links needs 2 <= n <= 2^22, got {n}")
+    dev = codes.device
+    first, last = (torch.empty(m, dtype=torch.int32, device=dev) for _ in range(2))
+    parent, left, right = (torch.empty(n + m, dtype=torch.int32, device=dev) for _ in range(3))
+    root = torch.empty((), dtype=torch.int32, device=dev)
+    outs = (first, last, parent, left, right, root)
+    agg = threshold_core.scan_scratch(m, dev)
+    kernels.launch("scan32", "tbvh_scan32_links", codes, leaf_prim, m, agg, *outs, like=codes,
+                   count=lambda: work.scan32_links(codes, leaf_prim, outs),
+                   symbols="scan_kernel<Topology")
+    return outs
 
 
 def scan_fwd(dlt32):

@@ -43,6 +43,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "tbvh_scan32": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "tbvh_refit_dense": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "tbvh_refit_dense_nodes": [_P, _I, _P, _P, _I, _P, _P, _P, _P],
+    "tbvh_refit_long": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
+    "tbvh_scan32_links": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "tbvh_raster_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "tbvh_collapse_block": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],

@@ -72,9 +72,26 @@ def scan32(dlt, outs):
     return nbytes(dlt, *outs), 0, ""
 
 
+def scan32_links(codes, leaf_prim, outs):
+    """B1's links form: the codes and the leaves' primitives read, the
+    tree's links written."""
+    return nbytes(codes, leaf_prim, *outs), 0, ""
+
+
 def refit_dense(cols, first, last, outs):
     """B2: the leaf columns and the ranges read, acc, short and t4 written."""
     return nbytes(cols, first, last, *outs), 0, ""
+
+
+def refit_long(short, nb: int):
+    """L: the short flags and the nb block minima of t4 read, the
+    superblocks' tables (levels 0..9, 24 B a block a level) written once,
+    and per long node its range, two t4 windows and two table rows read and
+    six words written."""
+    m = short.shape[0] - 1
+    n_long = int((~short[:m]).sum())
+    n_bytes = m + 24 * nb + 24 * 10 * nb + n_long * (8 + 48 + 48 + 24)
+    return n_bytes, 0, f"{n_long} long nodes"
 
 
 def batched(tris_b):
